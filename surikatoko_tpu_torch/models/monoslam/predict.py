@@ -1,0 +1,102 @@
+"""EKF prediction: constant-velocity SE(3) kinematics + covariance propagation.
+
+Port of ``surikatoko_tpu/models/monoslam/predict.py`` (reference
+PredictCameraMotionByKinematicModel davison-mono-slam.cpp:583-638 and
+PredictEstimVars :639-694). F and G are closed form; the tests check them
+against ``torch.func.jacfwd`` of :func:`predict_camera`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from surikatoko_tpu_torch.geom import quat
+from surikatoko_tpu_torch.models.monoslam.state import (
+    CAM_STATE_COMPS,
+    MonoSlamParams,
+    MonoSlamState,
+)
+
+
+def predict_camera(params: MonoSlamParams, cam13: torch.Tensor,
+                   noise6: torch.Tensor | None = None) -> torch.Tensor:
+    """One step of the constant-velocity model; ``noise6`` = [dv(3), dw(3)]."""
+    r, q, v, w = cam13[0:3], cam13[3:7], cam13[7:10], cam13[10:13]
+    dt = params.dt
+    if noise6 is None:
+        noise6 = torch.zeros(6, dtype=cam13.dtype, device=cam13.device)
+    nv, nw = noise6[0:3], noise6[3:6]
+    r_new = r + v * dt + nv * dt
+    q_new = quat.mult(q, quat.from_axis_angle(w * dt + nw * dt))
+    return torch.cat([r_new, q_new, v + nv, w + nw])
+
+
+def _quat_left_mat(q: torch.Tensor) -> torch.Tensor:
+    """L(q) with L(q) b = q (x) b."""
+    w, x, y, z = q[0], q[1], q[2], q[3]
+    return torch.stack([w, -x, -y, -z, x, w, -z, y,
+                        y, z, w, -x, z, -y, x, w]).reshape(4, 4)
+
+
+def _quat_right_mat(q: torch.Tensor) -> torch.Tensor:
+    """R(q) with R(q) a = a (x) q."""
+    w, x, y, z = q[0], q[1], q[2], q[3]
+    return torch.stack([w, -x, -y, -z, x, w, z, -y,
+                        y, -z, w, x, z, y, -x, w]).reshape(4, 4)
+
+
+def _dquat_daxis_angle(u: torch.Tensor) -> torch.Tensor:
+    """d(quat.from_axis_angle(u))/du as [4,3] (reference Deriv_q3_by_w :3362)."""
+    theta2 = torch.sum(u * u)
+    theta = torch.sqrt(theta2 + 1e-24)
+    half = 0.5 * theta
+    small = theta2 < 1e-8
+    s, c = torch.sin(half), torch.cos(half)
+    k = torch.where(small, 0.5 - theta2 / 48.0, s / theta)
+    coeff = torch.where(small, -1.0 / 24.0 + theta2 / 960.0,
+                        (0.5 * c - k) / theta2)
+    dw = -0.5 * k * u
+    dv = k * torch.eye(3, dtype=u.dtype, device=u.device) + coeff * torch.outer(u, u)
+    return torch.cat([dw[None, :], dv], dim=0)
+
+
+def camera_transition_jacobians(params: MonoSlamParams, cam13: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(F [13,13], G [13,6]) at the current camera state, analytic."""
+    dtype, dev = cam13.dtype, cam13.device
+    dt = params.dt
+    q = cam13[3:7]
+    w = cam13[10:13]
+    dq = quat.from_axis_angle(w * dt)
+    dq_dw = (_quat_left_mat(q) @ _dquat_daxis_angle(w * dt)) * dt
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    F = torch.eye(13, dtype=dtype, device=dev)
+    F[0:3, 7:10] = dt * eye3
+    F[3:7, 3:7] = _quat_right_mat(dq)
+    F[3:7, 10:13] = dq_dw
+    G = torch.zeros((13, 6), dtype=dtype, device=dev)
+    G[0:3, 0:3] = dt * eye3
+    G[3:7, 3:6] = dq_dw
+    G[7:10, 0:3] = eye3
+    G[10:13, 3:6] = eye3
+    return F, G
+
+
+def predict(params: MonoSlamParams, state: MonoSlamState) -> MonoSlamState:
+    """Predict on the full state: only the camera block of x and the camera
+    rows/cols of P change; the column stripe is the row stripe's transpose,
+    so P stays exactly symmetric."""
+    n = CAM_STATE_COMPS
+    cam13 = state.x[:n]
+    new_cam = predict_camera(params, cam13)
+    F, G = camera_transition_jacobians(params, cam13)
+    P = state.P
+    Q = params.process_noise_cov.to(P.dtype)
+    top = F @ P[:n, :]
+    Pvv = top[:, :n] @ F.T + G @ Q @ G.T
+    top[:, :n] = 0.5 * (Pvv + Pvv.T)
+    P_new = P.clone()
+    P_new[:n, :] = top
+    P_new[n:, :n] = top[:, n:].T
+    x_new = torch.cat([new_cam, state.x[n:]])
+    return state._replace(x=x_new, P=P_new)
