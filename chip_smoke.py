@@ -1,30 +1,47 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the quickest proof that
-the port builds and runs its main path.
+the port builds and runs its main paths.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  env      card, versions, precision flags; builds the NCC search kernel
-           (csrc/ncc_search.cu) from the checkout and times the build.
-  kernel   the kernel against its plain PyTorch version: random data at the
-           test shapes and at the main path's (K,T,S) = (768,15,15) (idx
-           exact, corr within rtol 1e-4 / atol 1e-5), then at (768,15,15)
-           on patches of a rendered flagship frame (corr within the same
-           tolerance, idx agreement >= 0.99 with every differing idx a tie
-           within it), and both timed with CUDA events.
+  env      card, versions, precision flags; builds both kernels from the
+           checkout, one nvcc each, started together, and times the builds.
+  kernel   each kernel against its plain PyTorch version on the card.
+           NCC search (csrc/ncc_search.cu): random data at the test shapes
+           and at the main path's (K,T,S) = (768,15,15) (idx exact, corr
+           within rtol 1e-4 / atol 1e-5), then at (768,15,15) on patches of
+           a rendered flagship frame (corr within the same tolerance, idx
+           agreement >= 0.99 with every differing idx a tie within it).
+           Symmetric downdate (csrc/symmetric_downdate.cu): random symmetric
+           P and random M at (D,m) = (43,10) ... (4621,1536), without and
+           with a 0/1 keep of ~5% zeros: output bitwise symmetric and
+           |kernel - plain| <= 1e-5 (|P| o |kk^T| + |M o k|^T |M o k|) + 1e-30.
+           Both timed with CUDA events (the downdate also against a bare
+           masked addmm, for information).
   flagship the churned image-sequence loop at the benchmark configuration
            (K=768 slots, 640x480, 1024-point wide world, recruitment with
            the local depth prior, delete-unobserved), float32: init, 120
            warm-up frames, 120 timed frames. Asserts finite outputs, exact
-           P == P^T, one kernel launch per frame, recruitment, matched
-           median >= K/2 and ATE < 0.30.
+           P == P^T, one launch of each kernel per frame, recruitment,
+           matched median >= K/2 and ATE < 0.30.
+  downdate_frame  the downdate kernel against its plain version on the
+           (P, B, keep) of one more flagship frame (same tolerance).
   profile  device time by kernel of one more flagship frame
            (torch.profiler), against the timed frames' wall time.
-  nosync   one more frame of the flagship and of the control with torch's
-           sync debug mode raising on any host synchronization: the frame
-           body must stay free of them (CUDA-graph capturable).
-  control  the same world without recruitment, for its ATE.
+  nosync   one more frame of the flagship, the control, and scenario03
+           impls 1 and 4 with torch's sync debug mode raising on any host
+           synchronization: the frame bodies stay free of them.
+  control  the flagship's world without recruitment, for its ATE; one
+           launch of each kernel per frame.
+  scenario03  the JAX bench's headline (bench.py:113-176): K=96, the GT
+           matcher, update impl 1, float32. Frames 1-300 for the ATE, then
+           three timed windows of 300 frames (median). Asserts finite state,
+           P == P^T, Cholesky info 0 every frame, one downdate launch per
+           frame, and ATE <= 2 x the port's float64 ATE + 0.02.
+  impls    update impls 2, 3 and 4 on the scenario03 world for 30 frames:
+           finite residuals, camera within 0.5 of GT, downdate launches 0, 0
+           and 2 per frame.
 Then a line with every kernel's launches, error and times, the card's name
 and power limit as nvidia-smi gives them, and the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero; with
@@ -38,6 +55,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -47,6 +65,19 @@ TEST_SHAPES = ((8, 9, 7), (5, 17, 25), (3, 9, 11), (768, 15, 15))
 RTOL, ATOL = 1e-4, 1e-5
 WARM_FRAMES = range(1, 121)
 TIMED_FRAMES = range(121, 241)
+# (D, m) of the downdate: tests, scenario03 (K=96) and the flagship (K=768)
+DOWNDATE_SHAPES = ((43, 10), (256, 32), (300, 64), (589, 192), (4621, 1536))
+DOWNDATE_TIMED = ((589, 192), (4621, 1536))
+
+SC03_K = 96
+SC03_SEED = 3
+SC03_ATE_FRAMES = range(1, 301)
+SC03_CHUNK = 300
+SC03_IMPL_FRAMES = range(1, 31)
+# The port's float64 ATE of scenario03 over frames 1-300 with the noise of
+# SC03_SEED, on the CPU:
+#   python3 -c "import chip_smoke as c; print(c.scenario03_ate('cpu'))"
+SC03_ATE_F64 = 0.007111213050805131
 
 
 def emit(obj) -> None:
@@ -65,6 +96,12 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_build(mod):
+    t0 = time.perf_counter()
+    path = mod.build()
+    return os.path.relpath(path), time.perf_counter() - t0
 
 
 def random_case(rng, K, T, S, device):
@@ -105,6 +142,36 @@ def compare(ncc_cuda, patches, templs, gate, with_neigh):
     nok = (not with_neigh) or bool(torch.allclose(got[2], want[2], rtol=RTOL,
                                                    atol=ATOL))
     return err, agree, ok and nok, nerr
+
+
+def downdate_case(D, m, with_keep, device):
+    """Random symmetric PSD P [D,D], M [m,D] and a 0/1 keep of ~5% zeros."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(D * 7 + m)
+    A = torch.randn(D, D, generator=g, device=device)
+    P = A @ A.T / D
+    P = torch.tril(P) + torch.tril(P, -1).T
+    M = 0.05 * torch.randn(m, D, generator=g, device=device)
+    keep = ((torch.rand(D, generator=g, device=device) > 0.05).float()
+            if with_keep else None)
+    return P, M, keep
+
+
+def compare_downdate(cov, P, M, keep):
+    """Kernel vs plain version: (max |diff|, ok) with ok = bitwise symmetric
+    and |kernel - plain| <= 1e-5 (|P| o |kk^T| + |M o k|^T |M o k|) + 1e-30,
+    the scale the summands set (f32 over m terms rounds to ~sqrt(m) 6e-8)."""
+    import torch
+    got = cov.symmetric_downdate(P, M, keep)
+    want = cov.symmetric_downdate_ref(P, M, keep)
+    k = torch.ones(P.shape[0], device=P.device) if keep is None else keep
+    Mk = (M * k[None, :]).abs()
+    bound = 1e-5 * (P.abs() * (k[:, None] * k[None, :]) + Mk.T @ Mk) + 1e-30
+    diff = (got - want).abs()
+    torch.cuda.synchronize()
+    ok = (torch.equal(got, got.T) and bool(torch.isfinite(got).all())
+          and bool((diff <= bound).all()))
+    return float(diff.max()), ok
 
 
 def flagship_setup(device):
@@ -148,6 +215,19 @@ def flagship_patches(params, sc, state, templates):
             templates.to(torch.float32).contiguous(), gate.contiguous())
 
 
+def flagship_downdate_inputs(params, state):
+    """(P, B, keep) of the fused step at ``state``, with every active slot
+    whose projection is finite taken as matched at its predicted pixel."""
+    import torch
+    from surikatoko_tpu_torch.models.monoslam import fused_step, measure
+    h = measure.measurement_jacobians(params, state.x)[0]
+    ok = torch.isfinite(h).all(dim=-1)
+    obs = torch.where(ok[:, None], h, 0.0)
+    _, B, keep, _, _ = fused_step._fused_update_core(
+        params, state.x, state.P, obs, state.lm_active & ok, None, None)
+    return state.P, B.contiguous(), keep
+
+
 def run_loop(params, sc, recruit, device):
     import torch
     from surikatoko_tpu_torch.models.monoslam import init_state
@@ -185,6 +265,71 @@ def frame_without_host_sync(run, *args) -> None:
     torch.cuda.synchronize()
 
 
+def device_profile(fn):
+    """(device busy us, device launches, top kernels) of one call of ``fn``
+    under torch.profiler. The device-side events are the kernels and copies
+    themselves; the aten rows of key_averages() repeat their time, so only
+    these are summed."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += e.time_range.elapsed_us()
+            k[1] += 1
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return (sum(v[0] for v in kernels.values()),
+            sum(v[1] for v in kernels.values()),
+            [[k[:100], v[0], v[1]] for k, v in top])
+
+
+def scenario03_setup(device, dtype):
+    """The JAX bench's scenario03 (bench.py:113-127) at K=96, bootstrapped
+    from GT, and its standard-normal detection noise from SC03_SEED: [96,2]
+    for the bootstrap, [300,96,2] for the ATE frames, [3,300,96,2] for the
+    timed windows. Returns (params, sc, state, ate_noise, timed_noise)."""
+    import torch
+    from surikatoko_tpu_torch.geom import camera
+    from surikatoko_tpu_torch.models.monoslam import init_state, make_params
+    from surikatoko_tpu_torch.world.device_runner import (
+        build_oscillating_scenario, init_with_gt_landmarks)
+    cam = camera.make_intrinsics((320, 240), (160.0, 120.0), 1.95,
+                                 (0.01, 0.01), dtype=dtype, device=device)
+    params = make_params(cam, None, dt=1.0, process_noise_lin_veloc_std=0.075,
+                         process_noise_ang_veloc_std=0.01, dtype=dtype,
+                         device=device)
+    sc = build_oscillating_scenario(capacity=SC03_K, dtype=dtype, device=device)
+    rng = np.random.default_rng(SC03_SEED)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    init_noise = t(rng.standard_normal((SC03_K, 2)))
+    ate_noise = t(rng.standard_normal((len(SC03_ATE_FRAMES), SC03_K, 2)))
+    timed_noise = t(rng.standard_normal((3, SC03_CHUNK, SC03_K, 2)))
+    state = init_with_gt_landmarks(
+        params, sc, init_state(SC03_K, dtype=dtype, device=device), init_noise)
+    return params, sc, state, ate_noise, timed_noise
+
+
+def gt_positions(sc, frames):
+    import torch
+    fr = list(frames)
+    return -torch.einsum("fji,fj->fi", sc.gt_cfw_R[fr], sc.gt_cfw_t[fr])
+
+
+def scenario03_ate(device="cpu", dtype=None):
+    """ATE (Umeyama-aligned RMSE) of scenario03 impl 1 over frames 1-300."""
+    import torch
+    from surikatoko_tpu_torch.geom.align import aligned_rmse
+    from surikatoko_tpu_torch.world.device_runner import make_scan_runner
+    params, sc, state, ate_noise, _ = scenario03_setup(
+        device, dtype or torch.float64)
+    pos = make_scan_runner(params, 1)(state, sc, SC03_ATE_FRAMES, ate_noise)[3]
+    return float(aligned_rmse(pos.double(), gt_positions(sc, SC03_ATE_FRAMES).double()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -192,7 +337,8 @@ def main() -> int:
         return 1
     from surikatoko_tpu_torch import config
     from surikatoko_tpu_torch.geom.align import aligned_rmse
-    from surikatoko_tpu_torch.ops import ncc_cuda
+    from surikatoko_tpu_torch.ops import covariance, ncc_cuda
+    from surikatoko_tpu_torch.world.device_runner import make_scan_runner
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -202,16 +348,19 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     smi = smi.splitlines()[0]
     t0 = time.perf_counter()
-    lib_path = ncc_cuda.build()
-    ncc_cuda._load()
+    with ThreadPoolExecutor(2) as ex:
+        builds = dict(zip(("ncc_search", "symmetric_downdate"),
+                          ex.map(timed_build, (ncc_cuda, covariance))))
+    t_builds = time.perf_counter() - t0
     emit({"phase": "env", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], **config.precision_flags(),
-          "kernel_build_s": time.perf_counter() - t0,
-          "kernel_lib": os.path.relpath(lib_path)})
+          "kernel_builds_s": {k: v[1] for k, v in builds.items()},
+          "kernel_builds_wall_s": t_builds,
+          "kernel_libs": {k: v[0] for k, v in builds.items()}})
 
-    # ---- kernel against plain ----
+    # ---- kernels against their plain versions ----
     rng = np.random.default_rng(0)
     cases = []
     for K, T, S in TEST_SHAPES:
@@ -243,19 +392,45 @@ def main() -> int:
     t_kern = [cuda_ms(kern, reps), cuda_ms(kern, reps)]
     t_plain.append(cuda_ms(plain, reps))
     kernel_ms, plain_ms = float(np.mean(t_kern)), float(np.mean(t_plain))
-    emit({"phase": "kernel", "cases": cases,
-          "flagship": {"K": K_FLAGSHIP, "T": 15, "S": 15,
-                       "max_abs_err": flag_err, "idx_agreement": flag_agree,
-                       "kernel_ms": t_kern, "plain_ms": t_plain}})
+
+    dd_cases, dd_times = [], {}
+    for D, m in DOWNDATE_SHAPES:
+        for with_keep in (False, True):
+            P, M, keep = downdate_case(D, m, with_keep, device)
+            err, ok = compare_downdate(covariance, P, M, keep)
+            dd_cases.append({"D": D, "m": m, "keep": with_keep,
+                             "max_abs_err": err})
+            if not ok:
+                raise AssertionError(f"downdate kernel disagrees with plain "
+                                     f"or is not symmetric: {dd_cases[-1]}")
+            if with_keep and (D, m) in DOWNDATE_TIMED:
+                Mk = M * keep[None, :]
+                fns = {"kernel": lambda: covariance.symmetric_downdate(P, M, keep),
+                       "plain": lambda: covariance.symmetric_downdate_ref(P, M, keep),
+                       "addmm": lambda: torch.addmm(
+                           P * (keep[:, None] * keep[None, :]), Mk.T, Mk, alpha=-1)}
+                n = 200 if D < 1000 else 40
+                tm = {k: [] for k in fns}
+                for name in ("plain", "kernel", "addmm", "addmm", "kernel", "plain"):
+                    tm[name].append(cuda_ms(fns[name], n))
+                dd_times[f"{D}x{m}"] = tm
+    emit({"phase": "kernel",
+          "ncc_search": {"cases": cases,
+                         "flagship": {"K": K_FLAGSHIP, "T": 15, "S": 15,
+                                      "max_abs_err": flag_err,
+                                      "idx_agreement": flag_agree,
+                                      "kernel_ms": t_kern, "plain_ms": t_plain}},
+          "symmetric_downdate": {"cases": dd_cases, "ms_with_keep": dd_times}})
     del st0, tm0
 
     # ---- flagship slice: the main path ----
-    ncc_cuda.LAUNCHES = 0
+    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
     run, res, t_init, dt, _ = run_loop(params, sc, True, device)
-    launches = ncc_cuda.LAUNCHES
+    launches = {"ncc_search": ncc_cuda.LAUNCHES,
+                "symmetric_downdate": covariance.LAUNCHES}
     st2, tm2, (err, n, pos, nrec, nact, info) = res
     fr = list(TIMED_FRAMES)
-    gt_pos = -torch.einsum("fji,fj->fi", sc.gt_cfw_R[fr], sc.gt_cfw_t[fr])
+    gt_pos = gt_positions(sc, fr)
     ate = float(aligned_rmse(pos.double(), gt_pos.double()))
     finite = all(bool(torch.isfinite(t).all())
                  for t in (st2.x, st2.P, err, pos))
@@ -279,8 +454,8 @@ def main() -> int:
         raise AssertionError("non-finite flagship output")
     if not symmetric:
         raise AssertionError("P != P^T after the flagship run")
-    if launches != frames_run:
-        raise AssertionError(f"{launches} kernel launches for {frames_run} frames")
+    if launches != {k: frames_run for k in launches}:
+        raise AssertionError(f"kernel launches {launches} for {frames_run} frames")
     if flag["recruited_total"] <= 0:
         raise AssertionError("no landmark was recruited")
     if flag["matched_med"] < K_FLAGSHIP / 2:
@@ -288,48 +463,155 @@ def main() -> int:
     if not ate < 0.30:
         raise AssertionError(f"flagship ATE {ate} >= 0.30")
 
+    # ---- the downdate kernel on one more flagship frame's inputs ----
+    dd_err, dd_ok = compare_downdate(covariance,
+                                     *flagship_downdate_inputs(params, st2))
+    emit({"phase": "downdate_frame", "D": int(st2.x.shape[0]),
+          "m": 2 * K_FLAGSHIP, "max_abs_err": dd_err, "ok": dd_ok})
+    if not dd_ok:
+        raise AssertionError(f"downdate kernel disagrees with plain on a "
+                             f"flagship frame: max |diff| {dd_err}")
+
     # ---- one more frame under the profiler ----
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(st2, tm2, sc, [241])
-        torch.cuda.synchronize()
-    # device-side events are the kernels and copies themselves; the aten
-    # rows of key_averages() repeat their time, so sum these only
-    kernels: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name, [0.0, 0])
-            k[0] += e.time_range.elapsed_us()
-            k[1] += 1
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": "profile", "frame": 241,
-          "device_busy_us": sum(v[0] for v in kernels.values()),
-          "device_launches": sum(v[1] for v in kernels.values()),
+    busy, nlaunch, top = device_profile(lambda: run(st2, tm2, sc, [241]))
+    emit({"phase": "profile", "frame": 241, "device_busy_us": busy,
+          "device_launches": nlaunch,
           "timed_wall_ms_per_frame": 1e3 * dt / len(fr),
-          "top_kernels_us_count": [[k[:100], v[0], v[1]] for k, v in top]})
+          "top_kernels_us_count": top})
     frame_without_host_sync(run, st2, tm2, sc, [242])
     del st2, tm2, res
 
     # ---- no-recruit control on the same world ----
+    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
     run_c, res_c, t_init_c, dt_c, tm_c = run_loop(params, sc, False, device)
+    launches_c = {"ncc_search": ncc_cuda.LAUNCHES,
+                  "symmetric_downdate": covariance.LAUNCHES}
     st_c, (err_c, n_c, pos_c, info_c) = res_c
     frame_without_host_sync(run_c, st_c, tm_c, sc, [241])
-    emit({"phase": "nosync", "frames": {"flagship": 242, "control": 241},
-          "host_syncs": 0})
     ate_c = float(aligned_rmse(pos_c.double(), gt_pos.double()))
     emit({"phase": "control", "recruit": False, "fps": len(fr) / dt_c,
           "ate": ate_c, "ate_flagship": ate,
           "recruitment_beats_control": ate < ate_c,
           "matched_med": float(np.median(n_c.cpu().numpy())),
           "chol_info_nonzero": int(torch.count_nonzero(info_c)),
+          "launches": launches_c,
           "finite": bool(torch.isfinite(pos_c).all())})
+    if launches_c != {k: frames_run for k in launches_c}:
+        raise AssertionError(f"control kernel launches {launches_c} for "
+                             f"{frames_run} frames")
+    del st_c, res_c, params, sc
+
+    # ---- scenario03: the GT-matcher scan runner, impl 1 ----
+    params3, sc3, st3_0, ate_noise, timed_noise = scenario03_setup(
+        device, torch.float32)
+    run3 = make_scan_runner(params3, 1)
+    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    t0 = time.perf_counter()
+    st3, errs3, n3, pos3, info3 = run3(st3_0, sc3, SC03_ATE_FRAMES, ate_noise)
+    torch.cuda.synchronize()
+    t_ate_run = time.perf_counter() - t0
+    ate3 = float(aligned_rmse(pos3.double(),
+                              gt_positions(sc3, SC03_ATE_FRAMES).double()))
+    F = sc3.gt_cfw_R.shape[0]
+    times, infos, finite3, sym3 = [], [info3], [], []
+    for r in range(3):
+        lo = 1 + ((r + 1) * SC03_CHUNK) % (F - SC03_CHUNK - 1)   # bench.py:169
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cur, errs_r, _, _, info_r = run3(st3, sc3, range(lo, lo + SC03_CHUNK),
+                                         timed_noise[r])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        infos.append(info_r)
+        finite3.append(bool(torch.isfinite(cur.x).all()
+                            and torch.isfinite(cur.P).all()
+                            and torch.isfinite(errs_r).all()))
+        sym3.append(bool(torch.equal(cur.P, cur.P.T)))
+    launches3 = {"ncc_search": ncc_cuda.LAUNCHES,
+                 "symmetric_downdate": covariance.LAUNCHES}
+    frames3 = len(SC03_ATE_FRAMES) + 3 * SC03_CHUNK
+    t_med = sorted(times)[1]
+    busy3, nlaunch3, top3 = device_profile(
+        lambda: run3(st3, sc3, [301], ate_noise[:1]))
+    finite3.append(bool(torch.isfinite(st3.x).all() and torch.isfinite(st3.P).all()
+                        and torch.isfinite(errs3).all()))
+    sym3.append(bool(torch.equal(st3.P, st3.P.T)))
+    chol_bad = int(sum(int(torch.count_nonzero(i)) for i in infos))
+    ate_bound = 2 * SC03_ATE_F64 + 0.02
+    emit({"phase": "scenario03", "K": SC03_K, "D": int(st3.x.shape[0]),
+          "update_impl": 1, "frames_ate": len(SC03_ATE_FRAMES),
+          "ate_run_s": t_ate_run, "ate": ate3, "ate_f64_cpu": SC03_ATE_F64,
+          "ate_bound": ate_bound,
+          "matched_med": float(np.median(n3.cpu().numpy())),
+          "timed_windows_s": times, "fps": SC03_CHUNK / t_med,
+          "wall_ms_per_frame": 1e3 * t_med / SC03_CHUNK,
+          "profile_frame": {"device_busy_us": busy3,
+                            "device_launches": nlaunch3,
+                            "top_kernels_us_count": top3},
+          "chol_info_nonzero": chol_bad, "launches": launches3,
+          "frames_run": frames3, "finite": all(finite3),
+          "P_exactly_symmetric": all(sym3)})
+    if not all(finite3):
+        raise AssertionError("non-finite scenario03 state or residuals")
+    if not all(sym3):
+        raise AssertionError("P != P^T in scenario03")
+    if chol_bad:
+        raise AssertionError(f"{chol_bad} scenario03 frames lost the Cholesky")
+    if launches3 != {"ncc_search": 0, "symmetric_downdate": frames3}:
+        raise AssertionError(f"scenario03 kernel launches {launches3} for "
+                             f"{frames3} frames")
+    if not ate3 <= ate_bound:
+        raise AssertionError(f"scenario03 ATE {ate3} > {ate_bound}")
+
+    # ---- update impls 2-4 on the scenario03 world ----
+    impls = {}
+    gt3 = gt_positions(sc3, SC03_IMPL_FRAMES)
+    noise30 = ate_noise[:len(SC03_IMPL_FRAMES)]
+    for impl, per_frame in ((2, 0), (3, 0), (4, 2)):
+        run_i = make_scan_runner(params3, impl)
+        covariance.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_i, errs_i, n_i, pos_i, info_i = run_i(st3_0, sc3, SC03_IMPL_FRAMES,
+                                                 noise30)
+        torch.cuda.synchronize()
+        dt_i = time.perf_counter() - t0
+        impls[impl] = {"wall_ms_per_frame": 1e3 * dt_i / len(SC03_IMPL_FRAMES),
+                       "max_cam_err": float((pos_i - gt3).norm(dim=-1).max()),
+                       "errs_finite": bool(torch.isfinite(errs_i).all()),
+                       "matched_med": float(np.median(n_i.cpu().numpy())),
+                       "chol_info_nonzero": int(torch.count_nonzero(info_i)),
+                       "downdate_launches": covariance.LAUNCHES}
+        want = per_frame * len(SC03_IMPL_FRAMES)
+        if not impls[impl]["errs_finite"]:
+            raise AssertionError(f"impl {impl}: non-finite residuals")
+        if not impls[impl]["max_cam_err"] < 0.5:
+            raise AssertionError(f"impl {impl}: camera off GT by "
+                                 f"{impls[impl]['max_cam_err']}")
+        if covariance.LAUNCHES != want:
+            raise AssertionError(f"impl {impl}: {covariance.LAUNCHES} downdate "
+                                 f"launches, want {want}")
+        if impl == 4:
+            frame_without_host_sync(run_i, st_i, sc3, [31], noise30[:1])
+    emit({"phase": "impls", "K": SC03_K, "frames": len(SC03_IMPL_FRAMES),
+          "impls": impls})
+    frame_without_host_sync(run3, st3, sc3, [301], ate_noise[:1])
+    emit({"phase": "nosync",
+          "frames": {"flagship": 242, "control": 241, "scenario03_impl1": 301,
+                     "scenario03_impl4": 31}, "host_syncs": 0})
 
     emit({"kernels": [{
         "name": "ncc_surface_argmax", "route": "cuda",
         "source": "surikatoko_tpu_torch/csrc/ncc_search.cu",
         "replaces": "surikatoko_tpu/ops/ncc_pallas.py:92",
-        "launches": launches, "max_abs_err": flag_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]})
+        "launches": launches["ncc_search"], "max_abs_err": flag_err,
+        "ms": kernel_ms, "plain_ms": plain_ms}, {
+        "name": "symmetric_downdate", "route": "cuda",
+        "source": "surikatoko_tpu_torch/csrc/symmetric_downdate.cu",
+        "replaces": "surikatoko_tpu/ops/covariance.py:53",
+        "launches": launches["symmetric_downdate"], "max_abs_err": dd_err,
+        "ms": float(np.mean(dd_times["4621x1536"]["kernel"])),
+        "plain_ms": float(np.mean(dd_times["4621x1536"]["plain"]))}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -28,7 +28,7 @@ def _fields(cls, obj, device):
 
 def params_from_numpy(p, device: torch.device | str = "cpu") -> MonoSlamParams:
     """MonoSlamParams from an object with the JAX params' field names."""
-    infl = p.covar_diag_inflation
+    opt = lambda v: None if v is None else _t(v, device)
     return MonoSlamParams(
         cam=_fields(CameraIntrinsics, p.cam, device),
         dist=_fields(MikhailDistortion, p.dist, device),
@@ -42,7 +42,11 @@ def params_from_numpy(p, device: torch.device | str = "cpu") -> MonoSlamParams:
             p.sal_pnt_negative_inv_rho_substitute, device),
         max_undetected_frames=_t(p.max_undetected_frames, device, torch.int32),
         sal_pnt_repres=int(p.sal_pnt_repres),
-        covar_diag_inflation=None if infl is None else _t(infl, device))
+        covar_diag_inflation=opt(p.covar_diag_inflation),
+        ransac_corner_max_divergence_pix=opt(
+            p.ransac_corner_max_divergence_pix),
+        ransac_high_innov_chi_square_thresh=opt(
+            p.ransac_high_innov_chi_square_thresh))
 
 
 def state_from_numpy(s, device: torch.device | str = "cpu") -> MonoSlamState:

@@ -7,14 +7,18 @@ blockdiag(Cp, I) diag(keep) the whole frame is
 
     P+ = V (P - B^T B) V^T + G Q G^T
 
-written as one masked downdate D1 = P*kk^T - (B diag k)^T (B diag k) (a
-single addmm: the GEMM's epilogue applies the mask and the subtraction) plus
+written as one masked downdate D1 = P*kk^T - (B diag k)^T (B diag k) (the
+symmetric downdate kernel of ``ops/covariance``, which applies the mask in
+its epilogue and writes each lower-triangle value to both halves) plus
 overwrites of the 13 camera rows and columns, the column stripe copied from
-the row stripe's transpose so that P stays exactly symmetric (reference
+the row stripe's transpose, so that P stays exactly symmetric (reference
 davison-mono-slam.cpp :1114, :1739, :1652, :1713, :639; recruitment
 :923 -> :1812 -> :2597).
 
 Differences from the JAX package, by design:
+* without ``precomputed``, a masked slot whose projection is not finite
+  adds exact zeros (``update._masked_jacobians``), where JAX's NaN spreads
+  through the whole update (ROADMAP C.2);
 * the innovation Cholesky is ``torch.linalg.cholesky_ex`` (no host sync) and
   its ``info`` is returned as the last output of the fused steps, where JAX
   would carry a NaN factor silently;
@@ -41,6 +45,7 @@ from surikatoko_tpu_torch.models.monoslam.state import (
     REPRES_SPHERICAL,
     MonoSlamParams,
 )
+from surikatoko_tpu_torch.ops.covariance import symmetric_downdate
 
 _N = CAM_STATE_COMPS
 
@@ -84,24 +89,10 @@ def camera_epilogue(params: MonoSlamParams, x1: torch.Tensor, Kcap: int
                     ) -> EpilogueResult:
     """Negative-inverse-depth substitution, quaternion renorm with its
     Jacobian folded in, and the kinematic predict of the camera."""
-    dtype, dev = x1.dtype, x1.device
     if params.sal_pnt_repres == REPRES_SPHERICAL:
-        x1s, _ = health_mod.substitute_negative_inv_rho(
+        x1, _ = health_mod.substitute_negative_inv_rho(
             x1, params.sal_pnt_negative_inv_rho_substitute, Kcap)
-    else:
-        x1s = x1
-    q = x1s[3:7]
-    qn = torch.linalg.norm(q)
-    nq = q / qn
-    Jq = (torch.eye(4, dtype=dtype, device=dev) - torch.outer(nq, nq)) / qn
-    x2 = torch.cat([x1s[:3], nq, x1s[7:]])
-    cam13 = x2[:_N]
-    new_cam = predict_mod.predict_camera(params, cam13)
-    F, G = predict_mod.camera_transition_jacobians(params, cam13)
-    Cp = F.clone()
-    Cp[:, 3:7] = F[:, 3:7] @ Jq
-    x_next = torch.cat([new_cam, x2[_N:]])
-    return EpilogueResult(x_next, Cp, G, x2, Jq, F)
+    return EpilogueResult(*predict_mod.renormalize_and_transition(params, x1))
 
 
 def fused_update_health_predict(
@@ -133,8 +124,8 @@ def _fused_update_core(params, x, P, obs, obs_mask, precomputed,
     r_var = params.measurm_noise_var.to(dtype)
     eye2k = torch.eye(2 * Kcap, dtype=dtype, device=dev)
     if precomputed is None:
-        h, Hcam, Hlm = update_mod._masked_jacobians(params, x, obs_mask)
-        resid = (obs - h) * obs_mask[:, None].to(dtype)
+        h, Hcam, Hlm, use = update_mod._masked_jacobians(params, x, obs_mask)
+        resid = torch.where(use[:, None], obs - h, 0.0)
         A2 = update_mod.hp_auto(Hcam, Hlm, P)
         S2 = update_mod.aht_auto(A2, Hcam, Hlm) + r_var * eye2k
     else:
@@ -161,17 +152,11 @@ def _fused_update_core(params, x, P, obs, obs_mask, precomputed,
 
 
 def _fused_covariance_predict(params, P, B, keep, Cp, G):
-    """P+ = V P V^T - (B V^T)^T (B V^T) + G Q G^T in one masked-downdate
-    GEMM plus camera-stripe overwrites, then the optional diagonal
+    """P+ = V P V^T - (B V^T)^T (B V^T) + G Q G^T as one masked symmetric
+    downdate plus camera-stripe overwrites, then the optional diagonal
     inflation of live variances."""
-    Q = params.process_noise_cov.to(P.dtype)
-    Bk = B * keep[None, :]
-    D1 = torch.addmm(P * (keep[:, None] * keep[None, :]), Bk.T, Bk, alpha=-1)
-    top = Cp @ D1[:_N, :]                               # [13,D] cam rows
-    corner = top[:, :_N] @ Cp.T + G @ Q @ G.T
-    top[:, :_N] = 0.5 * (corner + corner.T)
-    D1[:_N, :] = top
-    D1[:, :_N] = top.T                                  # symmetry by copy
+    D1 = symmetric_downdate(P, B.contiguous(), keep)
+    predict_mod.camera_congruence_(params, D1, Cp, G)
     if params.covar_diag_inflation is not None:
         infl = params.covar_diag_inflation.to(P.dtype)
         dg = torch.diagonal(D1)

@@ -43,6 +43,22 @@ def project_landmark(params: MonoSlamParams, cam13: torch.Tensor,
     return cam_mod.project_camera_point(params.cam, dist, hc)
 
 
+def project_all(params: MonoSlamParams, x: torch.Tensor) -> torch.Tensor:
+    """Predicted pixels of every slot: [..., K, 2] for states x [..., D]
+    (a leading batch of states takes the place of JAX's vmap)."""
+    cam13 = x[..., :CAM_STATE_COMPS]
+    lms = x[..., CAM_STATE_COMPS:].reshape(x.shape[:-1] + (-1, 6))
+    r = cam13[..., None, 0:3]
+    if params.sal_pnt_repres == REPRES_XYZ:
+        v = lms[..., 0:3] - r
+    else:
+        m = cam_mod.dir_from_azim_elev(lms[..., 3], lms[..., 4])
+        v = lms[..., 5:6] * (lms[..., 0:3] - r) + m
+    y = v @ quat.to_rotmat(cam13[..., 3:7])       # rows R_wfc^T v
+    dist = params.dist if params.enable_distortion else None
+    return cam_mod.project_camera_point(params.cam, dist, y)
+
+
 def _drotmat_dq(q: torch.Tensor) -> torch.Tensor:
     """d(to_rotmat)/dq as [4,3,3]."""
     w, xq, y, z = q[0], q[1], q[2], q[3]

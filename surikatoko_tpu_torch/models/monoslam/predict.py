@@ -82,21 +82,59 @@ def camera_transition_jacobians(params: MonoSlamParams, cam13: torch.Tensor
     return F, G
 
 
+def camera_congruence_(params: MonoSlamParams, P: torch.Tensor,
+                       C: torch.Tensor, G: torch.Tensor) -> None:
+    """In place: the 13 camera rows and columns of P become those of
+    C P C^T + G Q G^T (the landmark block is untouched). The column stripe
+    is the row stripe's transpose, so a symmetric P stays exactly
+    symmetric."""
+    n = CAM_STATE_COMPS
+    Q = params.process_noise_cov.to(P.dtype)
+    top = C @ P[:n, :]
+    corner = top[:, :n] @ C.T + G @ Q @ G.T
+    top[:, :n] = 0.5 * (corner + corner.T)
+    P[:n, :] = top
+    P[:, :n] = top.T
+
+
 def predict(params: MonoSlamParams, state: MonoSlamState) -> MonoSlamState:
     """Predict on the full state: only the camera block of x and the camera
-    rows/cols of P change; the column stripe is the row stripe's transpose,
-    so P stays exactly symmetric."""
+    rows/cols of P change."""
     n = CAM_STATE_COMPS
     cam13 = state.x[:n]
-    new_cam = predict_camera(params, cam13)
     F, G = camera_transition_jacobians(params, cam13)
-    P = state.P
-    Q = params.process_noise_cov.to(P.dtype)
-    top = F @ P[:n, :]
-    Pvv = top[:, :n] @ F.T + G @ Q @ G.T
-    top[:, :n] = 0.5 * (Pvv + Pvv.T)
-    P_new = P.clone()
-    P_new[:n, :] = top
-    P_new[n:, :n] = top[:, n:].T
-    x_new = torch.cat([new_cam, state.x[n:]])
-    return state._replace(x=x_new, P=P_new)
+    P = state.P.clone()
+    camera_congruence_(params, P, F, G)
+    x_new = torch.cat([predict_camera(params, cam13), state.x[n:]])
+    return state._replace(x=x_new, P=P)
+
+
+def renormalize_and_transition(params: MonoSlamParams, x: torch.Tensor):
+    """Quaternion renormalization of x followed by the kinematic predict of
+    its camera. Returns (x_next, C = F J_q [13,13] with the renorm's
+    Jacobian folded in, G [13,6], renormalized x, J_q [4,4], F [13,13])."""
+    n = CAM_STATE_COMPS
+    q = x[3:7]
+    qn = torch.linalg.norm(q)
+    nq = q / qn
+    # d(q/|q|)/dq = (I - n n^T)/|q|
+    Jq = (torch.eye(4, dtype=x.dtype, device=x.device)
+          - torch.outer(nq, nq)) / qn
+    x1 = torch.cat([x[:3], nq, x[7:]])
+    cam13 = x1[:n]
+    F, G = camera_transition_jacobians(params, cam13)
+    C = F.clone()
+    C[:, 3:7] = F[:, 3:7] @ Jq
+    x_next = torch.cat([predict_camera(params, cam13), x1[n:]])
+    return x_next, C, G, x1, Jq, F
+
+
+def normalize_and_predict(params: MonoSlamParams, state: MonoSlamState
+                          ) -> MonoSlamState:
+    """Quaternion renormalization composed with the kinematic predict as one
+    camera-stripe transform of P: both are congruences touching only the 13
+    camera variables, so C = F J_q is applied in a single [13,D] pass."""
+    x_next, C, G = renormalize_and_transition(params, state.x)[:3]
+    P = state.P.clone()
+    camera_congruence_(params, P, C, G)
+    return state._replace(x=x_next, P=P)

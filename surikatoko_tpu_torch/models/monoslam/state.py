@@ -42,6 +42,11 @@ class MonoSlamParams(NamedTuple):
     # per-frame diagonal inflation (f32 conditioning); None when off, so the
     # fused steps skip the diagonal write entirely
     covar_diag_inflation: torch.Tensor | None = None
+    # 1-point RANSAC gates (reference flags monoslam_1pransac_corner_max_
+    # divergence_pix / monoslam_1pransac_high_innov_chisq_thr_pix2); None
+    # means the pixel noise std / 9.21034
+    ransac_corner_max_divergence_pix: torch.Tensor | None = None
+    ransac_high_innov_chi_square_thresh: torch.Tensor | None = None
 
 
 class MonoSlamState(NamedTuple):
@@ -68,6 +73,8 @@ def make_params(cam: CameraIntrinsics, dist: MikhailDistortion | None = None,
                 max_undetected_frames: int = 0,
                 covar_diag_inflation: float = 0.0,
                 sal_pnt_repres: int = REPRES_SPHERICAL,
+                ransac_corner_max_divergence_pix: float | None = None,
+                ransac_high_innov_chi_square_thresh: float = 9.21034,
                 dtype: torch.dtype = torch.float64,
                 device: torch.device | str = "cpu") -> MonoSlamParams:
     if sal_pnt_repres not in (REPRES_XYZ, REPRES_SPHERICAL):
@@ -92,6 +99,11 @@ def make_params(cam: CameraIntrinsics, dist: MikhailDistortion | None = None,
         sal_pnt_repres=sal_pnt_repres,
         covar_diag_inflation=(None if covar_diag_inflation == 0.0
                               else t(covar_diag_inflation)),
+        ransac_corner_max_divergence_pix=(
+            None if ransac_corner_max_divergence_pix is None
+            else t(ransac_corner_max_divergence_pix)),
+        ransac_high_innov_chi_square_thresh=t(
+            ransac_high_innov_chi_square_thresh),
     )
 
 

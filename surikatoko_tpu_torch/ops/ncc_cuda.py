@@ -6,35 +6,25 @@ PyTorch version.
 on the CPU it runs :func:`ncc_surface_argmax_ref` (the tests' path); for CUDA
 tensors it launches ``csrc/ncc_search.cu`` or raises: there is no fallback.
 
-The kernel is compiled with nvcc on first use into ``_build/`` next to this
-package, as a shared library with a plain C entry point loaded through
-ctypes; the library's name carries a hash of the source and the flags, so a
-changed source is rebuilt.
+The kernel is compiled with nvcc on first use (``ops/cuda_build``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
+from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
 from surikatoko_tpu_torch.vision import templ_match
 
 # Launches of the CUDA kernel in this process (the plain version never counts).
 LAUNCHES = 0
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "ncc_search.cu"
-_BUILD_DIR = _PKG / "_build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-_lib = None
+_LIB = KernelLibrary(
+    "ncc_search.cu", "ncc_surface_argmax_f32",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def ncc_surface_argmax_ref(patches: torch.Tensor, templates: torch.Tensor,
@@ -80,14 +70,14 @@ def ncc_surface_argmax(patches: torch.Tensor, templates: torch.Tensor,
         if t.dtype != dt or not t.is_contiguous() or t.device != patches.device:
             raise ValueError(f"{name} must be a contiguous {dt} tensor on "
                              f"{patches.device}")
-    lib = _load()
+    launch = _LIB.fn()
     corr = torch.empty(K, dtype=torch.float32, device=patches.device)
     idx = torch.empty(K, dtype=torch.int32, device=patches.device)
     neigh = (torch.empty((K, 4), dtype=torch.float32, device=patches.device)
              if with_neigh else None)
     with torch.cuda.device(patches.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.ncc_surface_argmax_f32(
+        rc = launch(
             patches.data_ptr(), templates.data_ptr(), gate.data_ptr(),
             corr.data_ptr(), idx.data_ptr(),
             neigh.data_ptr() if with_neigh else None,
@@ -100,35 +90,4 @@ def ncc_surface_argmax(patches: torch.Tensor, templates: torch.Tensor,
 
 def build() -> Path:
     """Compile the kernel library if it is not built yet; returns its path."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libncc_search_{tag}.so"
-    if out.exists():
-        return out
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the NCC kernel cannot be built")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-                       check=True, capture_output=True, text=True)
-        os.replace(tmp, out)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{e.stderr}") from e
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.ncc_surface_argmax_f32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return _LIB.build()

@@ -1,14 +1,17 @@
-"""The on-device image-sequence closed loop: render -> ellipse-gated NCC
-search (CUDA kernel) -> delete-unobserved -> Shi-Tomasi recruitment -> fused
-EKF congruence, one frame after another.
+"""The on-device closed loops: scenario03 with the ground-truth projection
+matcher (``make_scan_runner``), and the image sequence, render ->
+ellipse-gated NCC search (CUDA kernel) -> delete-unobserved -> Shi-Tomasi
+recruitment -> fused EKF congruence (``make_imageseq_scan_runner``), each
+with the reference's four update strategies.
 
-Port of the slice's part of ``surikatoko_tpu/world/device_runner.py``. JAX
-runs the frames as one ``lax.scan``; here the scan is a Python loop over
-frames whose body keeps the reference's fixed shapes and masks (no
-``.item()``, no ``nonzero()``, no data-dependent shapes), so it never waits
-for the card and can be captured as a CUDA graph later. Scenario data come
-from numpy ``default_rng(seed)`` exactly as in the reference; the frame loop
-draws no random numbers.
+Port of ``surikatoko_tpu/world/device_runner.py``. JAX runs the frames as
+one ``lax.scan``; here the scan is a Python loop over frames whose body keeps
+the reference's fixed shapes and masks (no ``.item()``, no ``nonzero()``, no
+data-dependent shapes), so it never waits for the card and can be captured
+as a CUDA graph later. Scenario data come from numpy ``default_rng(seed)``
+exactly as in the reference. The loops draw no random numbers: the GT
+matcher's detection noise is passed in as standard-normal draws (JAX draws
+them from a key), so both packages can be fed the same noise.
 """
 
 from __future__ import annotations
@@ -20,12 +23,17 @@ import torch
 
 from surikatoko_tpu_torch.geom import camera as cam_mod
 from surikatoko_tpu_torch.models.monoslam import fused_step as fused_mod
+from surikatoko_tpu_torch.models.monoslam import health as health_mod
 from surikatoko_tpu_torch.models.monoslam import landmarks as lm_mod
 from surikatoko_tpu_torch.models.monoslam import measure
 from surikatoko_tpu_torch.models.monoslam import predict as predict_mod
 from surikatoko_tpu_torch.models.monoslam import update as update_mod
 from surikatoko_tpu_torch.models.monoslam.fused_step import scatter_drop
-from surikatoko_tpu_torch.models.monoslam.state import MonoSlamParams, MonoSlamState
+from surikatoko_tpu_torch.models.monoslam.state import (
+    REPRES_XYZ,
+    MonoSlamParams,
+    MonoSlamState,
+)
 from surikatoko_tpu_torch.ops.ncc import ncc_search
 from surikatoko_tpu_torch.vision import features
 from surikatoko_tpu_torch.world import scene_gen
@@ -132,6 +140,108 @@ def build_imageseq_scenario(capacity: int = 96,
         splat_amp=t(splat_amp), splat_sigma=t(splat_sigma))
 
 
+def _project_gt(params: MonoSlamParams, sc: DeviceScenario, f: int,
+                noise: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """GT matcher: (pixels [K,2] of the GT points at frame ``f`` plus
+    ``noise`` (already scaled), visible [K]: in front of the camera, inside
+    the image and finite)."""
+    xc = sc.gt_points @ sc.gt_cfw_R[f].T + sc.gt_cfw_t[f]
+    dist = params.dist if params.enable_distortion else None
+    pix = cam_mod.project_camera_point(params.cam, dist, xc) + noise
+    w, h = sc.image_size[0], sc.image_size[1]
+    vis = ((xc[:, 2] > 1e-6) & (pix[:, 0] >= 0) & (pix[:, 0] < w)
+           & (pix[:, 1] >= 0) & (pix[:, 1] < h)
+           & torch.isfinite(pix).all(dim=-1))
+    return pix, vis
+
+
+def init_with_gt_landmarks(params: MonoSlamParams, sc: DeviceScenario,
+                           state: MonoSlamState, noise: torch.Tensor
+                           ) -> MonoSlamState:
+    """Bootstrap: every GT point visible at frame 0 becomes a landmark with
+    GT inverse depth (slot k <-> point k), then one predict. ``noise`` is
+    standard-normal [K,2] detection noise, scaled by ``sc.noise_std``."""
+    pix, vis = _project_gt(params, sc, 0, sc.noise_std * noise)
+    xc0 = sc.gt_points @ sc.gt_cfw_R[0].T + sc.gt_cfw_t[0]
+    rho = 1.0 / torch.clamp(torch.linalg.norm(xc0, dim=-1), min=1e-9)
+    state, _ = lm_mod.add_landmarks(params, state, pix, vis, rho)
+    return predict_mod.predict(params, state)
+
+
+def _sequential_update(params: MonoSlamParams, update_impl: int,
+                       state: MonoSlamState, obs: torch.Tensor,
+                       obs_mask: torch.Tensor):
+    """Update impls 2-4 (reference davison-mono-slam.cpp:900-915), then the
+    nonnegative-variance clamp, the inverse-depth substitution (spherical
+    only), and the quaternion renorm fused with the predict. Returns (state,
+    residual [K,2], post-update x, Cholesky info: RANSAC's stacked updates',
+    0 for impls 2 and 3, which invert 2x2 / 1x1 blocks)."""
+    info = torch.zeros((), dtype=torch.int32, device=obs.device)
+    if update_impl == 2:
+        x, P, resid = update_mod.one_obs_update(
+            params, state.x, state.P, obs, obs_mask)
+    elif update_impl == 3:
+        x, P, resid = update_mod.one_component_update(
+            params, state.x, state.P, obs, obs_mask)
+    else:
+        x, P, resid, _, _, info = update_mod.one_point_ransac_update(
+            params, state.x, state.P, obs, obs_mask)
+    P = health_mod.ensure_nonneg_variance(P)
+    if params.sal_pnt_repres != REPRES_XYZ:
+        x, _ = health_mod.substitute_negative_inv_rho(
+            x, params.sal_pnt_negative_inv_rho_substitute, state.capacity)
+    state = predict_mod.normalize_and_predict(params,
+                                              state._replace(x=x, P=P))
+    return state, resid, x, info
+
+
+def _check_update_impl(update_impl: int) -> None:
+    if update_impl not in (1, 2, 3, 4):
+        raise ValueError(f"unknown update_impl {update_impl}")
+
+
+def make_scan_runner(params: MonoSlamParams, update_impl: int = 1):
+    """Scenario03 closed loop with the GT projection matcher: project the GT
+    points, gate by the image, add detection noise, update with
+    ``update_impl`` (1 = the fused congruence; 2-4 as in
+    :func:`_sequential_update`), predict.
+
+    Returns run(state, sc, frames, noise) -> (state, errs [T], n_matched
+    [T], cam_pos [T,3] after each update, chol_info [T]), with ``noise``
+    standard-normal [T,K,2], scaled by ``sc.noise_std`` inside (JAX draws it
+    from a key). ``chol_info`` is the innovation Cholesky's info per frame
+    (0 = factorized): the fused step's for impl 1, the stacked updates' for
+    impl 4, zeros for impls 2 and 3."""
+    _check_update_impl(update_impl)
+
+    def frame_body(sc: DeviceScenario, state: MonoSlamState, f: int,
+                   noise: torch.Tensor):
+        obs, vis = _project_gt(params, sc, f, noise)
+        obs_mask = vis & state.lm_active
+        if update_impl == 1:
+            x_next, P_next, resid, x_upd, info = (
+                fused_mod.fused_update_health_predict(
+                    params, state.x, state.P, obs, obs_mask))
+            state = state._replace(x=x_next, P=P_next)
+        else:
+            state, resid, x_upd, info = _sequential_update(
+                params, update_impl, state, obs, obs_mask)
+        n = obs_mask.sum()
+        err = torch.linalg.norm(resid, dim=-1).sum() / torch.clamp(n, min=1)
+        return state, (err, n, x_upd[:3], info)
+
+    def run(state: MonoSlamState, sc: DeviceScenario, frames,
+            noise: torch.Tensor):
+        noise = sc.noise_std * noise
+        outs = []
+        for t, f in enumerate(frames):
+            state, out = frame_body(sc, state, int(f), noise[t])
+            outs.append(out)
+        return (state, *(torch.stack(o) for o in zip(*outs)))
+
+    return run
+
+
 def render_frame(params: MonoSlamParams, sc: ImageSeqDeviceScenario,
                  f: int) -> torch.Tensor:
     """One [H,W] frame: static background + a gaussian blob at every visible
@@ -206,21 +316,26 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
                               detector_nms_radius: int = 5,
                               recruit_min_dist: float = 14.0,
                               recruit_depth: str = "prior"):
-    """The closed loop render -> gated NCC search -> fused EKF update ->
-    predict, with (``recruit=True``) per-frame Shi-Tomasi recruitment into
-    freed slots through the fused recruit congruence and the
-    delete-unobserved policy folded in. ``recruit_depth``: "prior" (flat
-    configured prior), "median" (global median tracked inverse depth) or
-    "local" (median of the 8 nearest tracked landmarks in pixel space).
+    """The closed loop render -> gated NCC search -> EKF update -> predict,
+    with (``recruit=True``) per-frame Shi-Tomasi recruitment into freed
+    slots through the fused recruit congruence and the delete-unobserved
+    policy folded in. ``update_impl`` 1 is the fused congruence; 2-4 are the
+    sequential and RANSAC updates of :func:`_sequential_update`, where a
+    slot the delete-unobserved policy drops is only deactivated and keeps
+    its rows of x and P, as in JAX. ``recruit_depth``: "prior" (flat configured prior),
+    "median" (global median tracked inverse depth) or "local" (median of
+    the 8 nearest tracked landmarks in pixel space). Recruitment requires
+    update_impl=1.
 
     Returns run(state, templates, sc, frames) -> with recruit: (state,
     templates, (err, n_matched, cam_pos, n_recruited, n_active,
     chol_info)); without: (state, (err, n_matched, cam_pos, chol_info));
     every output is stacked over frames. ``chol_info`` is the innovation
-    Cholesky's info per frame (0 = factorized)."""
-    if update_impl != 1:
-        raise NotImplementedError(
-            "update impls 2-4 are not ported yet (ROADMAP queue A item 8)")
+    Cholesky's info per frame (0 = factorized; as in
+    :func:`make_scan_runner`)."""
+    _check_update_impl(update_impl)
+    if recruit and update_impl != 1:
+        raise ValueError("on-device recruitment requires update_impl=1")
     if recruit_depth not in ("prior", "median", "local"):
         raise ValueError(f"unknown recruit_depth {recruit_depth!r}")
 
@@ -271,11 +386,15 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
         n = obs_mask.sum()
 
         if not recruit:
-            x_next, P_next, resid, x_upd, info = (
-                fused_mod.fused_update_health_predict(
-                    params, state.x, state.P, obs, obs_mask,
-                    precomputed=(h, A_un, T_un), deactivate_mask=drop))
-            state = state._replace(x=x_next, P=P_next)
+            if update_impl == 1:
+                x_next, P_next, resid, x_upd, info = (
+                    fused_mod.fused_update_health_predict(
+                        params, state.x, state.P, obs, obs_mask,
+                        precomputed=(h, A_un, T_un), deactivate_mask=drop))
+                state = state._replace(x=x_next, P=P_next)
+            else:
+                state, resid, x_upd, info = _sequential_update(
+                    params, update_impl, state, obs, obs_mask)
             err = torch.linalg.norm(resid, dim=-1).sum() / torch.clamp(n, min=1)
             return state, templates, (err, n, x_upd[:3], info)
 

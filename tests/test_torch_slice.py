@@ -101,10 +101,14 @@ def test_torch_imageseq_loop_matches_jax(slice_setup, recruit):
     assert torch.equal(P, P.T)
 
 
-def test_torch_runner_rejects_unported_impls(slice_setup):
+@pytest.mark.parametrize("impl", [2, 3, 4])
+def test_torch_runner_recruitment_requires_impl_1(slice_setup, impl):
+    """As in JAX (device_runner.py:260-261): impls 2-4 run, but only the
+    fused step recruits."""
     _, (tp, _, _, _) = slice_setup
-    with pytest.raises(NotImplementedError):
-        tdr.make_imageseq_scan_runner(tp, update_impl=2)
+    with pytest.raises(ValueError, match="requires update_impl=1"):
+        tdr.make_imageseq_scan_runner(tp, recruit=True, update_impl=impl)
+    tdr.make_imageseq_scan_runner(tp, update_impl=impl)
 
 
 def test_torch_package_never_imports_jax():
