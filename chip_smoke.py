@@ -42,6 +42,20 @@ Phases, one JSON line each:
   impls    update impls 2, 3 and 4 on the scenario03 world for 30 frames:
            finite residuals, camera within 0.5 of GT, downdate launches 0, 0
            and 2 per frame.
+  ba_dino  the JAX bench's dino BA (bench.py:587-623), float32: the 36 x
+           4983 synthetic turntable written in the VGG file formats and read
+           back through the loader; the device-loop sparse LM (full-width
+           solve, point chunk 1024), 8 iterations warm, 8 timed, then
+           converged from the warm result. Asserts finite outputs, a
+           decreased error and map ATE <= 2 x the port's float64 CPU ATE.
+  ba_at_scale  the 10k-point x 500-frame problem (bench.py:517-585),
+           float32: compute_blocks, the full-width and the banded Schur
+           solve (CUDA events), the parts of one LM trial, banded = full
+           (norm-wise, BAND_RTOL), whether each repeats bit for bit, the
+           Schur FLOP rate against a 4096^2 matmul chain, the device-loop LM
+           (8 iterations warm, 8 timed) and one profiled LM iteration.
+           Asserts finite outputs, both solves ok and a decreased error.
+  Neither BA phase may launch kernel B1 or B2.
 Then a line with every kernel's launches, error and times, the card's name
 and power limit as nvidia-smi gives them, and the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero; with
@@ -78,6 +92,16 @@ SC03_IMPL_FRAMES = range(1, 31)
 # SC03_SEED, on the CPU:
 #   python3 -c "import chip_smoke as c; print(c.scenario03_ate('cpu'))"
 SC03_ATE_F64 = 0.007111213050805131
+
+# the dino shape (bench.py:591-623) and the at-scale problem (bench.py:531-585)
+DINO_FRAMES, DINO_POINTS = 36, 4983
+# The port's float64 map ATE of the dino phase, on the CPU:
+#   python3 -c "import chip_smoke as c; print(c.dino_ate('cpu'))"
+DINO_ATE_F64 = 0.00255877485559129
+AS_POINTS, AS_FRAMES, AS_TRACK_LEN, AS_CHUNK = 10_000, 500, 12, 2048
+# banded and full-width corrections agree when max |banded - full| <=
+# BAND_RTOL * max |full| + BAND_ATOL, for du and for dX (float32)
+BAND_RTOL, BAND_ATOL = 1e-3, 1e-6
 
 
 def emit(obj) -> None:
@@ -328,6 +352,231 @@ def scenario03_ate(device="cpu", dtype=None):
         device, dtype or torch.float64)
     pos = make_scan_runner(params, 1)(state, sc, SC03_ATE_FRAMES, ate_noise)[3]
     return float(aligned_rmse(pos.double(), gt_positions(sc, SC03_ATE_FRAMES).double()))
+
+
+def dino_problem(device, dtype, n_points=DINO_POINTS):
+    """The JAX bench's dino scene (bench.py:591-607): synthetic_dino_raw(36,
+    n_points, vary_track_len=True) with the tracks of >= 2 views, written in
+    the VGG file formats to a temporary directory and read back through the
+    loader. Returns (sparse problem, frame_idx, track_mask, GT points)."""
+    import tempfile
+    from surikatoko_tpu_torch.io import dino
+    Ps, obs, mask, gt = dino.synthetic_dino_raw(DINO_FRAMES, n_points,
+                                                vary_track_len=True)
+    keep = mask.sum(axis=1) >= 2
+    with tempfile.TemporaryDirectory() as td:
+        dino.write_dino_files(td, Ps, obs[keep], mask[keep], gt_points=gt[keep])
+        p, fidx, tmask = dino.load_dino_problem_sparse(
+            td, f0=600.0, dtype=dtype, device=device)
+        gt_pts = dino.load_gt_points(td)
+    return p, fidx, tmask, gt_pts
+
+
+def run_dino(device, dtype, n_points=DINO_POINTS):
+    """bench.py:608-623: the device-loop sparse LM, full-width solve, 8
+    iterations warm, 8 timed on points·(1+1e-6), then converged from the
+    warm result with the reference's criterion; its map ATE against GT."""
+    import torch
+    from surikatoko_tpu_torch.geom.align import aligned_rmse
+    from surikatoko_tpu_torch.models.ba import (SparseBundleAdjustment,
+                                                TermCriteria, sparse)
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (
+        lambda: None)
+    p, fidx, tmask, gt = dino_problem(device, dtype, n_points)
+    ba = SparseBundleAdjustment(device_loop=True, band=False, point_chunk=1024)
+    ba.set_plan_inputs(fidx, tmask)
+    term = TermCriteria(allowed_reproj_err_rel_change=None, max_iters=8)
+    t0 = time.perf_counter()
+    ok_w, p_w = ba.compute_inplace(p, term)
+    sync()
+    t_warm = time.perf_counter() - t0
+    warm = (ok_w, ba.stop_reason, ba.iterations, ba.trials)
+    p_in = p._replace(points=p.points * (1.0 + 1e-6))
+    sync()
+    t0 = time.perf_counter()
+    ok_t, p_t = ba.compute_inplace(p_in, term)
+    sync()
+    dt = time.perf_counter() - t0
+    timed = (ok_t, ba.stop_reason, ba.iterations, ba.trials)
+    t0 = time.perf_counter()
+    ok_c, p_c = ba.compute_inplace(p_w, TermCriteria(
+        allowed_reproj_err_rel_change=4.56e-8, max_iters=40))
+    sync()
+    t_conv = time.perf_counter() - t0
+    err0, err1 = float(sparse.reproj_error(p)), float(sparse.reproj_error(p_c))
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 (p_t.points, p_t.cfw_t, p_c.points, p_c.cfw_R, p_c.cfw_t, p_c.K))
+    ate = float(aligned_rmse(p_c.points.double(),
+                             torch.as_tensor(gt, device=p_c.points.device)))
+    return {"frames": p.n_frames, "points": p.n_points,
+            "obs": int(tmask.sum()), "track_len": p.track_len,
+            "warm": {"ok": warm[0], "stop": warm[1], "iters": warm[2],
+                     "trials": warm[3], "s": t_warm},
+            "timed": {"ok": timed[0], "stop": timed[1], "iters": timed[2],
+                      "trials": timed[3], "s": dt},
+            "iters_per_s": timed[2] / dt, "trials_per_s": timed[3] / dt,
+            "converge": {"ok": ok_c, "stop": ba.stop_reason,
+                         "iters": ba.iterations, "trials": ba.trials,
+                         "s": t_conv},
+            "err_initial": err0, "err_final": err1,
+            "pix_rms_final": 600.0 * (err1 / max(int(tmask.sum()), 1)) ** 0.5,
+            "map_ate": ate, "finite": finite}
+
+
+def dino_ate(device="cpu"):
+    """Map ATE of the dino phase, in float64."""
+    import torch
+    return run_dino(device, torch.float64)["map_ate"]
+
+
+def matmul_ceiling(device, n=4096, k=8, reps=3):
+    """bench.py:516-529: a chain of k [n,n] @ [n,n] float32 products, timed
+    with CUDA events: (ms, FLOP/s)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(0)
+    a = torch.randn(n, n, generator=g, device=device)
+    b = torch.randn(n, n, generator=g, device=device)
+
+    def chain():
+        c = a
+        for _ in range(k):
+            c = b @ c * 1e-3
+        return c
+    ms = cuda_ms(chain, reps)
+    return ms, 2.0 * k * n ** 3 / (ms * 1e-3)
+
+
+def banded_parts(ps, blocks, hf, plan, ext, reps):
+    """The banded solve's parts in ms (CUDA events): the batched 3x3 point
+    Cholesky with its triangular solves, the Gram-strip reduction (the
+    whole reduction less the point part), and the reduced Cholesky solve
+    with the point back-substitution (it works on a copy of S, as it
+    factors in place)."""
+    import torch
+    from surikatoko_tpu_torch.models.ba import sparse as sp
+    from surikatoko_tpu_torch.models.ba.derivs import frame_var_mask
+    from surikatoko_tpu_torch.models.ba.schur import _damp, _fixed_var_identity
+    F = ps.n_frames
+    E_d = _damp(blocks.E, hf)
+    G = _fixed_var_identity(_damp(blocks.G, hf),
+                            frame_var_mask(F, device=E_d.device))
+    Sg, red, Lch, _, Fpf_s, gp_s, fidx_s = sp._banded_reduction(
+        E_d, blocks.Fpf, blocks.gp, ps.frame_idx, plan, F, ext)
+    E1 = torch.cat([E_d, torch.eye(3, dtype=E_d.dtype, device=E_d.device)[None]])[ext]
+    t_point = cuda_ms(lambda: sp._point_factor(E1, Fpf_s, gp_s), reps)
+    t_red = cuda_ms(lambda: sp._banded_reduction(
+        E_d, blocks.Fpf, blocks.gp, ps.frame_idx, plan, F, ext), reps)
+    t_finish = cuda_ms(lambda: sp._finish(blocks.gf, G, Sg.clone(), red, Lch,
+                                          Fpf_s, gp_s, fidx_s, F), reps)
+    return {"point_cholesky": t_point, "gram_strips": t_red - t_point,
+            "reduced_cholesky_and_backsub": t_finish}
+
+
+def run_at_scale(device, dtype, n_points=AS_POINTS, n_frames=AS_FRAMES,
+                 track_len=AS_TRACK_LEN, pc=AS_CHUNK, reps=3):
+    """bench.py:531-585 on the 10k x 500 problem: compute_blocks, the
+    full-width and the banded Schur solve (CUDA events), banded = full,
+    and the full device-loop LM."""
+    import torch
+    from surikatoko_tpu_torch.models.ba import (SparseBundleAdjustment,
+                                                TermCriteria, sparse as sp)
+    from surikatoko_tpu_torch.world.ba_scene import build_at_scale_problem
+    ps, fidx, mask = build_at_scale_problem(n_points, n_frames, track_len,
+                                            noise_pix=0.5, seed=0, dtype=dtype,
+                                            device=device)
+    hf = 1e-4
+    blocks = sp.compute_blocks(ps)
+    plan = sp.plan_bands(fidx, mask, pc, n_frames)
+    if plan is None:
+        raise AssertionError("plan_bands refused the at-scale problem")
+    ext = torch.as_tensor(plan.ext_idx, device=device)
+    full = lambda: sp.solve_corrections_schur_sparse(ps, blocks, hf, point_chunk=pc)
+    band = lambda: sp.solve_corrections_schur_banded(ps, blocks, hf, plan,
+                                                     ext_idx=ext)
+    dX_f, du_f, ok_f = full()
+    dX_b, du_b, ok_b = band()
+    dX_f2, du_f2, _ = full()
+    repeat_bitwise = bool(torch.equal(du_f, du_f2) and torch.equal(dX_f, dX_f2))
+    du_scale, dX_scale = float(du_f.abs().max()), float(dX_f.abs().max())
+    du_err = float((du_b - du_f).abs().max())
+    dX_err = float((dX_b - dX_f).abs().max())
+    # norm-wise: f32 sums S in another order in the two solvers, and the
+    # reduced system's conditioning amplifies that in its small entries
+    agree = (du_err <= BAND_RTOL * du_scale + BAND_ATOL
+             and dX_err <= BAND_RTOL * dX_scale + BAND_ATOL)
+    blocks_repeat_bitwise = all(torch.equal(a, b) for a, b in
+                                zip(blocks, sp.compute_blocks(ps)))
+    t_blocks = cuda_ms(lambda: sp.compute_blocks(ps), reps)
+    t_full = cuda_ms(full, reps)
+    t_band = cuda_ms(band, reps)
+    parts = {"compute_blocks": t_blocks,
+             **banded_parts(ps, blocks, hf, plan, ext, reps),
+             "apply_and_error": cuda_ms(lambda: sp.reproj_error(
+                 sp.apply_corrections(ps, dX_b, du_b)), reps)}
+    nF = 10 * n_frames
+    n_chunks = -(-n_points // pc)
+    f_solve = n_chunks * 2.0 * (3 * pc) * nF ** 2 + nF ** 3 / 3.0 + 2.0 * nF ** 2
+    mm_ms, ceiling = matmul_ceiling(device)
+
+    ba = SparseBundleAdjustment(optimize_intrinsics=False, point_chunk=pc,
+                                device_loop=True)
+    ba.set_plan_inputs(fidx, mask)
+    term = TermCriteria(allowed_reproj_err_rel_change=None, max_iters=8)
+    ok_w, _ = ba.compute(ps, term)
+    ps_t = ps._replace(points=ps.points * (1.0 + 1e-6))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok_t, p_t = ba.compute(ps_t, term)
+    torch.cuda.synchronize()
+    t_lm = time.perf_counter() - t0
+    lm = {"ok": ok_t, "stop": ba.stop_reason, "iters": ba.iterations,
+          "trials": ba.trials, "s": t_lm}
+    err0, err1 = float(sp.reproj_error(ps_t)), float(sp.reproj_error(p_t))
+    lm_repeat_bitwise = bool(torch.equal(ba.compute(ps_t, term)[1].points,
+                                         p_t.points))
+    one = TermCriteria(allowed_reproj_err_rel_change=None, max_iters=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ba.compute(ps_t, one)
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    busy, nlaunch, top = device_profile(lambda: ba.compute(ps_t, one))
+    trials_one = ba.trials
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 (du_f, dX_f, du_b, dX_b, p_t.points, p_t.cfw_R, p_t.cfw_t))
+    return {"points": n_points, "frames": n_frames, "track_len": track_len,
+            "obs": int(mask.sum()), "point_chunk": pc,
+            "plan": {"band_width": plan.band_width,
+                     "banded_chunks": plan.n_banded_chunks,
+                     "point_chunk": plan.point_chunk,
+                     "overflow_chunk": plan.overflow_chunk,
+                     "overflow_chunks": (len(plan.ext_idx) - plan.n_banded_chunks
+                                         * plan.point_chunk) // plan.overflow_chunk},
+            "ms": {"compute_blocks": t_blocks, "schur_full": t_full,
+                   "schur_banded": t_band, "matmul_chain_4096x8": mm_ms},
+            "lm_trial_parts_ms": parts,
+            "solve_ok": {"full": bool(ok_f), "banded": bool(ok_b)},
+            "banded_vs_full": {"du_max_abs_diff": du_err, "du_max_abs": du_scale,
+                               "dX_max_abs_diff": dX_err, "dX_max_abs": dX_scale,
+                               "rtol_of_max": BAND_RTOL, "atol": BAND_ATOL,
+                               "agree": agree},
+            "repeats_bitwise": {"compute_blocks": blocks_repeat_bitwise,
+                                "schur_full": repeat_bitwise,
+                                "lm_8_iters": lm_repeat_bitwise},
+            "ba_solve_blocks_per_s": 1e3 / (t_band + t_blocks),
+            "schur_full_flop": f_solve,
+            "schur_full_flop_per_s": f_solve / (t_full * 1e-3),
+            "matmul_ceiling_flop_per_s": ceiling,
+            "schur_pct_of_ceiling": 100.0 * f_solve / (t_full * 1e-3) / ceiling,
+            "lm": lm, "ba_iters_per_s": lm["iters"] / t_lm,
+            "ba_trials_per_s": lm["trials"] / t_lm,
+            "err_before": err0, "err_after": err1, "warm_ok": ok_w,
+            "profile_one_iter": {"trials": trials_one,
+                                 "wall_us": 1e6 * wall_one,
+                                 "device_busy_us": busy,
+                                 "device_launches": nlaunch,
+                                 "top_kernels_us_count": top},
+            "finite": finite}
 
 
 def main() -> int:
@@ -599,6 +848,44 @@ def main() -> int:
     emit({"phase": "nosync",
           "frames": {"flagship": 242, "control": 241, "scenario03_impl1": 301,
                      "scenario03_impl4": 31}, "host_syncs": 0})
+    del params3, sc3, st3_0, st3, run3
+
+    # ---- bundle adjustment: the dino shape, then the 10k x 500 problem ----
+    def ba_phase(name, fn):
+        ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn(device, torch.float32)
+        torch.cuda.synchronize()
+        out = {"phase": name, "phase_s": time.perf_counter() - t0, **out,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": {"ncc_search": ncc_cuda.LAUNCHES,
+                            "symmetric_downdate": covariance.LAUNCHES}}
+        emit(out)
+        if not out["finite"]:
+            raise AssertionError(f"{name}: non-finite output")
+        if any(out["launches"].values()):
+            raise AssertionError(f"{name}: a kernel of another path launched")
+        return out
+
+    dino = ba_phase("ba_dino", run_dino)
+    ate_bound = 2 * DINO_ATE_F64
+    if not dino["err_final"] < dino["err_initial"]:
+        raise AssertionError(f"ba_dino: error {dino['err_initial']} -> "
+                             f"{dino['err_final']} did not decrease")
+    if not dino["map_ate"] <= ate_bound:
+        raise AssertionError(f"ba_dino: map ATE {dino['map_ate']} > "
+                             f"{ate_bound} (2 x the float64 CPU ATE)")
+    scale = ba_phase("ba_at_scale", run_at_scale)
+    if not all(scale["solve_ok"].values()):
+        raise AssertionError(f"ba_at_scale: solve ok {scale['solve_ok']}")
+    if not scale["banded_vs_full"]["agree"]:
+        raise AssertionError(f"ba_at_scale: banded and full-width corrections "
+                             f"differ: {scale['banded_vs_full']}")
+    if not scale["err_after"] < scale["err_before"]:
+        raise AssertionError(f"ba_at_scale: LM error {scale['err_before']} -> "
+                             f"{scale['err_after']} did not decrease")
 
     emit({"kernels": [{
         "name": "ncc_surface_argmax", "route": "cuda",

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 
 from surikatoko_tpu_torch.geom.camera import CameraIntrinsics, MikhailDistortion
+from surikatoko_tpu_torch.models.ba.problem import BAProblem
+from surikatoko_tpu_torch.models.ba.sparse import BAProblemSparse
 from surikatoko_tpu_torch.models.monoslam.state import MonoSlamParams, MonoSlamState
 from surikatoko_tpu_torch.world.device_runner import (
     DeviceScenario,
@@ -70,3 +72,18 @@ def scenario_from_numpy(sc, device: torch.device | str = "cpu"):
 def templates_from_numpy(t, device: torch.device | str = "cpu") -> torch.Tensor:
     """[K,T,T] templates."""
     return _t(t, device)
+
+
+def ba_problem_from_numpy(p, device: torch.device | str = "cpu") -> BAProblem:
+    """BAProblem from an object with the JAX BA problem's field names."""
+    out = _fields(BAProblem, p, device)
+    return out._replace(obs_mask=out.obs_mask.to(torch.bool))
+
+
+def sparse_problem_from_numpy(p, device: torch.device | str = "cpu"
+                              ) -> BAProblemSparse:
+    """BAProblemSparse from an object with the JAX sparse BA problem's field
+    names; frame_idx becomes int64."""
+    out = _fields(BAProblemSparse, p, device)
+    return out._replace(obs_mask=out.obs_mask.to(torch.bool),
+                        frame_idx=out.frame_idx.to(torch.int64))

@@ -1,4 +1,5 @@
-"""Synthetic worlds: grid point clouds and the oscillating camera path.
+"""Synthetic worlds: grid point clouds, the oscillating camera path and the
+circle of cameras.
 
 Port of the slice's part of ``surikatoko_tpu/world/scene_gen.py`` (reference
 virt-world/scene-generator.cpp). Setup-time host code: it builds in float64
@@ -61,4 +62,20 @@ def oscillate_right_and_left(eye, center, up, max_deviation: float,
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64)
     wfc = se3.look_at_luf_wfc(t(cur_eye), t(cur_center),
                               t(np.broadcast_to(upn, cur_eye.shape)))
+    return wfc.inv()
+
+
+def circle_camera_shots(circle_center, circle_radius: float, ascent_z: float,
+                        rot_angles) -> SE3:
+    """Cameras on a circle ``ascent_z`` above ``circle_center``, each looking
+    at the center (reference scene-generator.cpp:9-56). Used by the BA
+    circle-grid fixture. Batched cfw poses."""
+    cc = np.asarray(circle_center, float)
+    ang = np.asarray(rot_angles, float)
+    eye = cc + np.stack([circle_radius * np.cos(ang),
+                         circle_radius * np.sin(ang),
+                         np.full_like(ang, ascent_z)], axis=-1)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64)
+    wfc = se3.look_at_luf_wfc(t(eye), t(np.broadcast_to(cc, eye.shape)),
+                              t(np.broadcast_to([0.0, 0.0, 1.0], eye.shape)))
     return wfc.inv()

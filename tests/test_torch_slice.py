@@ -113,9 +113,12 @@ def test_torch_runner_recruitment_requires_impl_1(slice_setup, impl):
 
 def test_torch_package_never_imports_jax():
     code = ("import sys, surikatoko_tpu_torch, surikatoko_tpu_torch.world."
-            "device_runner, surikatoko_tpu_torch.interop; "
+            "device_runner, surikatoko_tpu_torch.interop, "
+            "surikatoko_tpu_torch.models.ba, surikatoko_tpu_torch.io.dino, "
+            "surikatoko_tpu_torch.world.ba_scene; "
             "bad = sorted(m for m in sys.modules "
-            "if m == 'jax' or m.startswith(('jax.', 'surikatoko_tpu.'))); "
+            "if m in ('jax', 'surikatoko_tpu') "
+            "or m.startswith(('jax.', 'surikatoko_tpu.'))); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
            "PYTHONPATH": os.path.dirname(os.path.dirname(
