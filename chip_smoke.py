@@ -5,8 +5,9 @@ the port builds and runs its main paths.
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  env      card, versions, precision flags; builds both kernels from the
-           checkout, one nvcc each, started together, and times the builds.
+  env      card, versions, precision flags, the SM clock the bounds assume;
+           builds both kernels from the checkout, one nvcc each, started
+           together, times the builds and shows ptxas's registers and spills.
   kernel   each kernel against its plain PyTorch version on the card.
            NCC search (csrc/ncc_search.cu): random data at the test shapes
            and at the main path's (K,T,S) = (768,15,15) (idx exact, corr
@@ -14,11 +15,17 @@ Phases, one JSON line each:
            a rendered flagship frame (corr within the same tolerance, idx
            agreement >= 0.99 with every differing idx a tie within it).
            Symmetric downdate (csrc/symmetric_downdate.cu): random symmetric
-           P and random M at (D,m) = (43,10) ... (4621,1536), without and
-           with a 0/1 keep of ~5% zeros: output bitwise symmetric and
+           P and random M at (D,m) = (43,10) ... (4621,1536) and the ragged
+           (129,1), (130,7), (1000,33), without and with a 0/1 keep of ~5%
+           zeros: output bitwise symmetric, two launches bitwise equal, and
            |kernel - plain| <= 1e-5 (|P| o |kk^T| + |M o k|^T |M o k|) + 1e-30.
-           Both timed with CUDA events (the downdate also against a bare
-           masked addmm, for information).
+           Both timed with CUDA events over back-to-back calls (the downdate
+           also against a bare masked addmm, its one-call yardstick, and also
+           over replays of a CUDA graph of the calls, which leaves out the
+           host's time between launches) and by the profiler's device time,
+           each beside its bound: the larger of its FMAs over the
+           card's f32 rate (132 SMs x 128 lanes x clocks.max.sm) and its
+           bytes (inputs read once, outputs written once) over 3.35 TB/s.
   flagship the churned image-sequence loop at the benchmark configuration
            (K=768 slots, 640x480, 1024-point wide world, recruitment with
            the local depth prior, delete-unobserved), float32: init, 120
@@ -28,7 +35,8 @@ Phases, one JSON line each:
   downdate_frame  the downdate kernel against its plain version on the
            (P, B, keep) of one more flagship frame (same tolerance).
   profile  device time by kernel of one more flagship frame
-           (torch.profiler), against the timed frames' wall time.
+           (torch.profiler), against the timed frames' wall time; kernel
+           B2's share counts its row padding copy with it.
   nosync   one more frame of the flagship, the control, and scenario03
            impls 1 and 4 with torch's sync debug mode raising on any host
            synchronization: the frame bodies stay free of them.
@@ -79,9 +87,18 @@ TEST_SHAPES = ((8, 9, 7), (5, 17, 25), (3, 9, 11), (768, 15, 15))
 RTOL, ATOL = 1e-4, 1e-5
 WARM_FRAMES = range(1, 121)
 TIMED_FRAMES = range(121, 241)
-# (D, m) of the downdate: tests, scenario03 (K=96) and the flagship (K=768)
-DOWNDATE_SHAPES = ((43, 10), (256, 32), (300, 64), (589, 192), (4621, 1536))
+# (D, m) of the downdate: tests, scenario03 (K=96), the flagship (K=768) and
+# ragged edges (D past a tile edge, m not a multiple of 16)
+DOWNDATE_SHAPES = ((43, 10), (256, 32), (300, 64), (589, 192), (4621, 1536),
+                   (129, 1), (130, 7), (1000, 33))
 DOWNDATE_TIMED = ((589, 192), (4621, 1536))
+# the device kernels of one downdate call: the row padding copy (128-wide
+# tiles only) and the downdate itself
+DOWNDATE_DEVICE_KERNELS = ("pad_rows", "downdate_kernel")
+
+# the published peak rate of HBM3 on an H100 SXM (bytes/s); f32 lanes per SM
+HBM_BYTES_PER_S = 3.35e12
+F32_LANES_PER_SM = 128
 
 SC03_K = 96
 SC03_SEED = 3
@@ -108,6 +125,14 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def nvidia_smi(query: str, units: bool = True) -> str:
+    """The first card's line of ``nvidia-smi --query-gpu=<query>``."""
+    fmt = "--format=csv,noheader" + ("" if units else ",nounits")
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", fmt],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
 def cuda_ms(fn, reps: int) -> float:
     import torch
     for _ in range(3):
@@ -122,10 +147,70 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_graph_ms(fn, reps: int, replays: int = 3) -> float:
+    """Time of one call of ``fn`` by CUDA events around ``replays`` replays
+    of a CUDA graph of ``reps`` calls: the device's time for the calls
+    without the host's launch overhead between them."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def timed_build(mod):
     t0 = time.perf_counter()
     path = mod.build()
     return os.path.relpath(path), time.perf_counter() - t0
+
+
+def device_us_per_call(fn, calls: int = 5) -> float:
+    """Mean device time of one call of ``fn`` over ``calls`` calls under the
+    profiler (one profiled call alone varies by tens of percent)."""
+    return device_profile(lambda: [fn() for _ in range(calls)])[0] / calls
+
+
+def ptxas_summary(lib) -> list:
+    """ptxas's registers and spills per kernel of a library built here,
+    each after the line that names its kernel."""
+    return [ln.strip() for ln in lib.ptxas.splitlines()
+            if "registers" in ln or "spill" in ln or "entry function" in ln]
+
+
+def bound_ms(fma: float, nbytes: float, fma_per_s: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of the FMAs over its
+    f32 FMA rate and the bytes over its memory rate, and which one it is."""
+    t_ops, t_bytes = fma / fma_per_s, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def downdate_work(D: int, m: int, with_keep: bool) -> tuple[float, float]:
+    """(FMAs, bytes) of the downdate: the lower triangle's D(D+1)/2 m FMAs;
+    P's lower half and M (and keep) read once, the [D,D] output written."""
+    return (D * (D + 1) / 2 * m,
+            4.0 * (D * (D + 1) / 2 + m * D + (D if with_keep else 0) + D * D))
+
+
+def ncc_work(patches, templs, gate) -> tuple[float, float]:
+    """(FMAs, bytes) of the NCC search: the K S^2 T^2 products of the
+    cross-correlation (window sums take O(P^2) with prefix sums); the
+    inputs read once, the [K] corr and idx written."""
+    K, S, _ = gate.shape
+    T = templs.shape[-1]
+    nbytes = sum(t.numel() * t.element_size() for t in (patches, templs, gate))
+    return float(K * S * S * T * T), float(nbytes + 8 * K)
 
 
 def random_case(rng, K, T, S, device):
@@ -182,19 +267,21 @@ def downdate_case(D, m, with_keep, device):
 
 
 def compare_downdate(cov, P, M, keep):
-    """Kernel vs plain version: (max |diff|, ok) with ok = bitwise symmetric
-    and |kernel - plain| <= 1e-5 (|P| o |kk^T| + |M o k|^T |M o k|) + 1e-30,
-    the scale the summands set (f32 over m terms rounds to ~sqrt(m) 6e-8)."""
+    """Kernel vs plain version: (max |diff|, ok) with ok = bitwise symmetric,
+    a second launch bitwise equal to the first, and |kernel - plain| <= 1e-5
+    (|P| o |kk^T| + |M o k|^T |M o k|) + 1e-30, the scale the summands set
+    (f32 over m terms rounds to ~sqrt(m) 6e-8)."""
     import torch
     got = cov.symmetric_downdate(P, M, keep)
+    again = cov.symmetric_downdate(P, M, keep)
     want = cov.symmetric_downdate_ref(P, M, keep)
     k = torch.ones(P.shape[0], device=P.device) if keep is None else keep
     Mk = (M * k[None, :]).abs()
     bound = 1e-5 * (P.abs() * (k[:, None] * k[None, :]) + Mk.T @ Mk) + 1e-30
     diff = (got - want).abs()
     torch.cuda.synchronize()
-    ok = (torch.equal(got, got.T) and bool(torch.isfinite(got).all())
-          and bool((diff <= bound).all()))
+    ok = (torch.equal(got, got.T) and torch.equal(got, again)
+          and bool(torch.isfinite(got).all()) and bool((diff <= bound).all()))
     return float(diff.max()), ok
 
 
@@ -290,10 +377,10 @@ def frame_without_host_sync(run, *args) -> None:
 
 
 def device_profile(fn):
-    """(device busy us, device launches, top kernels) of one call of ``fn``
-    under torch.profiler. The device-side events are the kernels and copies
-    themselves; the aten rows of key_averages() repeat their time, so only
-    these are summed."""
+    """(device busy us, device launches, top kernels, {kernel: [us,
+    launches]} of all) of one call of ``fn`` under torch.profiler. The
+    device-side events are the kernels and copies themselves; the aten rows
+    of key_averages() repeat their time, so only these are summed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -308,7 +395,16 @@ def device_profile(fn):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return (sum(v[0] for v in kernels.values()),
             sum(v[1] for v in kernels.values()),
-            [[k[:100], v[0], v[1]] for k, v in top])
+            [[k[:100], v[0], v[1]] for k, v in top], kernels)
+
+
+def downdate_share(kernels) -> list:
+    """[device us, device launches] of kernel B2 in a profile: its downdate
+    kernel and, at 128-wide tiles, the row padding copy launched before it
+    in the same wrapper call."""
+    rows = [v for k, v in kernels.items()
+            if any(n in k for n in DOWNDATE_DEVICE_KERNELS)]
+    return [sum(v[0] for v in rows), sum(v[1] for v in rows)]
 
 
 def scenario03_setup(device, dtype):
@@ -540,7 +636,7 @@ def run_at_scale(device, dtype, n_points=AS_POINTS, n_frames=AS_FRAMES,
     ba.compute(ps_t, one)
     torch.cuda.synchronize()
     wall_one = time.perf_counter() - t0
-    busy, nlaunch, top = device_profile(lambda: ba.compute(ps_t, one))
+    busy, nlaunch, top, _ = device_profile(lambda: ba.compute(ps_t, one))
     trials_one = ba.trials
     finite = all(bool(torch.isfinite(x).all()) for x in
                  (du_f, dX_f, du_b, dX_b, p_t.points, p_t.cfw_R, p_t.cfw_t))
@@ -592,10 +688,10 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     config.set_full_precision()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    smi = smi.splitlines()[0]
+    smi = nvidia_smi("name,power.limit")
+    clock_mhz = float(nvidia_smi("clocks.max.sm", units=False))
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    fma_per_s = n_sm * F32_LANES_PER_SM * clock_mhz * 1e6
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
         builds = dict(zip(("ncc_search", "symmetric_downdate"),
@@ -607,7 +703,11 @@ def main() -> int:
           "python": sys.version.split()[0], **config.precision_flags(),
           "kernel_builds_s": {k: v[1] for k, v in builds.items()},
           "kernel_builds_wall_s": t_builds,
-          "kernel_libs": {k: v[0] for k, v in builds.items()}})
+          "kernel_libs": {k: v[0] for k, v in builds.items()},
+          "ptxas": {"ncc_search": ptxas_summary(ncc_cuda._LIB),
+                    "symmetric_downdate": ptxas_summary(covariance._LIB)},
+          "clocks_max_sm_mhz": clock_mhz, "sms": n_sm,
+          "f32_fma_per_s": fma_per_s, "hbm_bytes_per_s": HBM_BYTES_PER_S})
 
     # ---- kernels against their plain versions ----
     rng = np.random.default_rng(0)
@@ -641,6 +741,8 @@ def main() -> int:
     t_kern = [cuda_ms(kern, reps), cuda_ms(kern, reps)]
     t_plain.append(cuda_ms(plain, reps))
     kernel_ms, plain_ms = float(np.mean(t_kern)), float(np.mean(t_plain))
+    ncc_bound, ncc_bound_by = bound_ms(*ncc_work(fp, ft, fg), fma_per_s)
+    ncc_device_us = device_us_per_call(kern)
 
     dd_cases, dd_times = [], {}
     for D, m in DOWNDATE_SHAPES:
@@ -662,13 +764,25 @@ def main() -> int:
                 tm = {k: [] for k in fns}
                 for name in ("plain", "kernel", "addmm", "addmm", "kernel", "plain"):
                     tm[name].append(cuda_ms(fns[name], n))
+                tm["graph_ms"] = {name: cuda_graph_ms(fns[name], n // 4)
+                                  for name in ("plain", "kernel", "addmm")}
+                b_ms, b_by = bound_ms(*downdate_work(D, m, True), fma_per_s)
+                kern_ms = float(np.mean(tm["kernel"]))
+                tm.update(kernel_device_us=device_us_per_call(fns["kernel"]),
+                          tile=covariance.downdate_config(D)[0],
+                          bound_ms=b_ms, bound_by=b_by,
+                          pct_of_bound=100.0 * b_ms / kern_ms)
                 dd_times[f"{D}x{m}"] = tm
     emit({"phase": "kernel",
           "ncc_search": {"cases": cases,
                          "flagship": {"K": K_FLAGSHIP, "T": 15, "S": 15,
                                       "max_abs_err": flag_err,
                                       "idx_agreement": flag_agree,
-                                      "kernel_ms": t_kern, "plain_ms": t_plain}},
+                                      "kernel_ms": t_kern, "plain_ms": t_plain,
+                                      "kernel_device_us": ncc_device_us,
+                                      "bound_ms": ncc_bound,
+                                      "bound_by": ncc_bound_by,
+                                      "pct_of_bound": 100.0 * ncc_bound / kernel_ms}},
           "symmetric_downdate": {"cases": dd_cases, "ms_with_keep": dd_times}})
     del st0, tm0
 
@@ -722,9 +836,10 @@ def main() -> int:
                              f"flagship frame: max |diff| {dd_err}")
 
     # ---- one more frame under the profiler ----
-    busy, nlaunch, top = device_profile(lambda: run(st2, tm2, sc, [241]))
+    busy, nlaunch, top, by_kernel = device_profile(lambda: run(st2, tm2, sc, [241]))
     emit({"phase": "profile", "frame": 241, "device_busy_us": busy,
           "device_launches": nlaunch,
+          "symmetric_downdate_us_launches": downdate_share(by_kernel),
           "timed_wall_ms_per_frame": 1e3 * dt / len(fr),
           "top_kernels_us_count": top})
     frame_without_host_sync(run, st2, tm2, sc, [242])
@@ -780,7 +895,7 @@ def main() -> int:
                  "symmetric_downdate": covariance.LAUNCHES}
     frames3 = len(SC03_ATE_FRAMES) + 3 * SC03_CHUNK
     t_med = sorted(times)[1]
-    busy3, nlaunch3, top3 = device_profile(
+    busy3, nlaunch3, top3, by_kernel3 = device_profile(
         lambda: run3(st3, sc3, [301], ate_noise[:1]))
     finite3.append(bool(torch.isfinite(st3.x).all() and torch.isfinite(st3.P).all()
                         and torch.isfinite(errs3).all()))
@@ -796,6 +911,8 @@ def main() -> int:
           "wall_ms_per_frame": 1e3 * t_med / SC03_CHUNK,
           "profile_frame": {"device_busy_us": busy3,
                             "device_launches": nlaunch3,
+                            "symmetric_downdate_us_launches":
+                                downdate_share(by_kernel3),
                             "top_kernels_us_count": top3},
           "chol_info_nonzero": chol_bad, "launches": launches3,
           "frames_run": frames3, "finite": all(finite3),
@@ -887,18 +1004,24 @@ def main() -> int:
         raise AssertionError(f"ba_at_scale: LM error {scale['err_before']} -> "
                              f"{scale['err_after']} did not decrease")
 
+    dd_main = dd_times["4621x1536"]
+    dd_ms = float(np.mean(dd_main["kernel"]))
     emit({"kernels": [{
         "name": "ncc_surface_argmax", "route": "cuda",
         "source": "surikatoko_tpu_torch/csrc/ncc_search.cu",
         "replaces": "surikatoko_tpu/ops/ncc_pallas.py:92",
         "launches": launches["ncc_search"], "max_abs_err": flag_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}, {
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": ncc_bound,
+        "bound_by": ncc_bound_by, "pct_of_bound": 100.0 * ncc_bound / kernel_ms,
+        "library_ms": None}, {
         "name": "symmetric_downdate", "route": "cuda",
         "source": "surikatoko_tpu_torch/csrc/symmetric_downdate.cu",
         "replaces": "surikatoko_tpu/ops/covariance.py:53",
         "launches": launches["symmetric_downdate"], "max_abs_err": dd_err,
-        "ms": float(np.mean(dd_times["4621x1536"]["kernel"])),
-        "plain_ms": float(np.mean(dd_times["4621x1536"]["plain"]))}]})
+        "ms": dd_ms, "plain_ms": float(np.mean(dd_main["plain"])),
+        "bound_ms": dd_main["bound_ms"], "bound_by": dd_main["bound_by"],
+        "pct_of_bound": 100.0 * dd_main["bound_ms"] / dd_ms,
+        "library_ms": float(np.mean(dd_main["addmm"]))}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

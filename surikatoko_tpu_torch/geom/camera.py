@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from surikatoko_tpu_torch import config
+
 
 class CameraIntrinsics(NamedTuple):
     image_size: torch.Tensor          # [2] (width, height) pixels
@@ -33,8 +35,11 @@ class MikhailDistortion(NamedTuple):
 
 
 def make_intrinsics(image_size, principal_point, focal_length_mm,
-                    pixel_size_mm, *, dtype: torch.dtype = torch.float64,
-                    device: torch.device | str = "cpu") -> CameraIntrinsics:
+                    pixel_size_mm, *, dtype: torch.dtype | None = None,
+                    device: torch.device | str = "cuda") -> CameraIntrinsics:
+    """On the card unless ``device`` says otherwise; ``dtype`` defaults to
+    ``config.default_dtype(device)``."""
+    dtype = dtype or config.default_dtype(device)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return CameraIntrinsics(image_size=t(image_size),
                             principal_point=t(principal_point),

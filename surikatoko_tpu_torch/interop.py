@@ -2,7 +2,9 @@
 
 The tests fill both packages from the same numbers: they convert a JAX
 object's leaves with ``np.asarray`` and hand it here. Matching is by field
-name, so this module imports nothing of JAX or ``surikatoko_tpu``.
+name, so this module imports nothing of JAX or ``surikatoko_tpu``. Each
+carrier puts its tensors on the card unless ``device`` says otherwise, and
+keeps the arrays' dtypes (float64 from JAX's x64 mode).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ def _fields(cls, obj, device):
     return cls(**{f: _t(getattr(obj, f), device) for f in cls._fields})
 
 
-def params_from_numpy(p, device: torch.device | str = "cpu") -> MonoSlamParams:
+def params_from_numpy(p, device: torch.device | str = "cuda") -> MonoSlamParams:
     """MonoSlamParams from an object with the JAX params' field names."""
     opt = lambda v: None if v is None else _t(v, device)
     return MonoSlamParams(
@@ -51,7 +53,7 @@ def params_from_numpy(p, device: torch.device | str = "cpu") -> MonoSlamParams:
             p.ransac_high_innov_chi_square_thresh))
 
 
-def state_from_numpy(s, device: torch.device | str = "cpu") -> MonoSlamState:
+def state_from_numpy(s, device: torch.device | str = "cuda") -> MonoSlamState:
     """MonoSlamState from an object with the JAX state's field names."""
     return MonoSlamState(
         x=_t(s.x, device), P=_t(s.P, device),
@@ -61,7 +63,7 @@ def state_from_numpy(s, device: torch.device | str = "cpu") -> MonoSlamState:
         frame_ind=_t(s.frame_ind, device, torch.int32))
 
 
-def scenario_from_numpy(sc, device: torch.device | str = "cpu"):
+def scenario_from_numpy(sc, device: torch.device | str = "cuda"):
     """ImageSeqDeviceScenario (if ``sc`` has a background) or
     DeviceScenario from an object with the JAX scenario's field names."""
     cls = (ImageSeqDeviceScenario if hasattr(sc, "background")
@@ -69,18 +71,18 @@ def scenario_from_numpy(sc, device: torch.device | str = "cpu"):
     return _fields(cls, sc, device)
 
 
-def templates_from_numpy(t, device: torch.device | str = "cpu") -> torch.Tensor:
+def templates_from_numpy(t, device: torch.device | str = "cuda") -> torch.Tensor:
     """[K,T,T] templates."""
     return _t(t, device)
 
 
-def ba_problem_from_numpy(p, device: torch.device | str = "cpu") -> BAProblem:
+def ba_problem_from_numpy(p, device: torch.device | str = "cuda") -> BAProblem:
     """BAProblem from an object with the JAX BA problem's field names."""
     out = _fields(BAProblem, p, device)
     return out._replace(obs_mask=out.obs_mask.to(torch.bool))
 
 
-def sparse_problem_from_numpy(p, device: torch.device | str = "cpu"
+def sparse_problem_from_numpy(p, device: torch.device | str = "cuda"
                               ) -> BAProblemSparse:
     """BAProblemSparse from an object with the JAX sparse BA problem's field
     names; frame_idx becomes int64."""

@@ -11,7 +11,8 @@ same shapes, from the same numpy draws in the same order as the JAX package,
 so both packages build the same scene from one seed.
 
 Set-up runs on the host in float64; the loaders cast the finished problem
-to ``dtype`` on ``device`` (float64 on the CPU when both are None).
+to ``device`` (the card by default) in ``dtype`` (default
+``config.default_dtype(device)``: float32 on the card, float64 on the CPU).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import os
 import numpy as np
 import torch
 
+from surikatoko_tpu_torch import config
 from surikatoko_tpu_torch.geom import se3, triangulate
 from surikatoko_tpu_torch.geom.se3 import SE3
 from surikatoko_tpu_torch.io.mat_io import read_matrix_from_file
@@ -29,14 +31,16 @@ from surikatoko_tpu_torch.models.ba.problem import BAProblem, make_problem
 
 
 def _cast(p, dtype, device):
-    """Floating fields to ``dtype``, every field to ``device``."""
+    """Floating fields to ``dtype`` (default ``config.default_dtype(device)``),
+    every field to ``device``."""
+    dtype = dtype or config.default_dtype(device)
     return type(p)(*(x.to(device=device, dtype=dtype) if x.is_floating_point()
                      else x.to(device) for x in p))
 
 
 def load_dino_problem(testdata_dir: str, f0: float = 600.0,
                       max_points: int | None = None, dtype=None,
-                      device=None) -> BAProblem:
+                      device="cuda") -> BAProblem:
     P_rows, obs, mask = _parse_dino_files(testdata_dir, max_points)
     n_frames = P_rows.shape[0] // 3
     return _cast(build_problem_from_proj_mats(
@@ -45,7 +49,7 @@ def load_dino_problem(testdata_dir: str, f0: float = 600.0,
 
 def load_dino_problem_sparse(testdata_dir: str, f0: float = 600.0,
                              max_points: int | None = None, dtype=None,
-                             device=None):
+                             device="cuda"):
     """Same parse/decompose/triangulate path as :func:`load_dino_problem`,
     assembled as the track-major sparse problem (the real viff.xy tracks
     average ~3.6 observations over 36 frames). Returns (BAProblemSparse,
@@ -164,13 +168,16 @@ def synthetic_dino_raw(n_frames: int = 36, n_points: int = 1024,
 
 def synthetic_dino_problem(n_frames: int = 36, n_points: int = 1024,
                            f0: float = 600.0, noise_pix: float = 0.5,
-                           visibility: float = 0.3, seed: int = 0
+                           visibility: float = 0.3, seed: int = 0,
+                           dtype=None, device="cuda"
                            ) -> tuple[BAProblem, np.ndarray]:
     """Turntable scene with dino-like statistics. Returns (problem with
-    triangulated-from-noisy-corners initialization, GT points)."""
+    triangulated-from-noisy-corners initialization, cast like the loaders',
+    GT points)."""
     Ps, obs, mask, pts = synthetic_dino_raw(
         n_frames, n_points, noise_pix, visibility, seed)
-    return build_problem_from_proj_mats(Ps, obs, mask, f0), pts
+    return _cast(build_problem_from_proj_mats(Ps, obs, mask, f0), dtype,
+                 device), pts
 
 
 GT_SIDECAR = "dino_gt_points.txt"

@@ -44,7 +44,7 @@ class GNBlocks(NamedTuple):
 
 def frame_var_mask(n_frames: int, unity_comp_ind: int = 1,
                    optimize_intrinsics: bool = True, pin_frames: tuple = (),
-                   device: torch.device | str | None = None) -> torch.Tensor:
+                   device: torch.device | str = "cuda") -> torch.Tensor:
     """[F,10] bool mask of FREE frame variables under the normalization gauge:
     frame 0 keeps only intrinsics; frame 1 loses T[unity_comp]; others free.
     ``optimize_intrinsics=False`` pins the four intrinsic vars of every

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from surikatoko_tpu_torch import config
 from surikatoko_tpu_torch.geom.camera import CameraIntrinsics, MikhailDistortion
 
 CAM_STATE_COMPS = 13
@@ -75,8 +76,11 @@ def make_params(cam: CameraIntrinsics, dist: MikhailDistortion | None = None,
                 sal_pnt_repres: int = REPRES_SPHERICAL,
                 ransac_corner_max_divergence_pix: float | None = None,
                 ransac_high_innov_chi_square_thresh: float = 9.21034,
-                dtype: torch.dtype = torch.float64,
-                device: torch.device | str = "cpu") -> MonoSlamParams:
+                dtype: torch.dtype | None = None,
+                device: torch.device | str = "cuda") -> MonoSlamParams:
+    """On the card unless ``device`` says otherwise; ``dtype`` defaults to
+    ``config.default_dtype(device)``."""
+    dtype = dtype or config.default_dtype(device)
     if sal_pnt_repres not in (REPRES_XYZ, REPRES_SPHERICAL):
         raise ValueError(f"unknown sal_pnt_repres {sal_pnt_repres}")
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
@@ -111,10 +115,13 @@ def init_state(capacity: int, *, cam_pos=(0.0, 0.0, 0.0),
                cam_quat=(1.0, 0.0, 0.0, 0.0), cam_vel=(0.0, 0.0, 0.0),
                cam_ang_vel=(0.0, 0.0, 0.0), cam_pos_std=0.0,
                cam_orient_q_comp_std=0.0, cam_vel_std=0.0,
-               cam_ang_vel_std=0.0, dtype: torch.dtype = torch.float64,
-               device: torch.device | str = "cpu") -> MonoSlamState:
+               cam_ang_vel_std=0.0, dtype: torch.dtype | None = None,
+               device: torch.device | str = "cuda") -> MonoSlamState:
     """Camera at the tracker origin with the configured diagonal uncertainty
-    (zeros by default: the first camera anchors the gauge)."""
+    (zeros by default: the first camera anchors the gauge). On the card
+    unless ``device`` says otherwise; ``dtype`` defaults to
+    ``config.default_dtype(device)``."""
+    dtype = dtype or config.default_dtype(device)
     D = CAM_STATE_COMPS + SAL_PNT_COMPS * capacity
     x = torch.zeros(D, dtype=dtype, device=device)
     x[:CAM_STATE_COMPS] = torch.as_tensor(

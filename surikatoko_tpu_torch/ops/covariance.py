@@ -8,7 +8,10 @@ EKF downdate goes through it: the fused frame step's masked downdate
 tensors on the CPU it runs :func:`symmetric_downdate_ref` (the tests' path);
 for CUDA tensors it launches ``csrc/symmetric_downdate.cu`` or raises: there
 is no fallback. Both versions read only the lower triangle of P and mirror
-it, so the result is exactly symmetric.
+it, so the result is exactly symmetric. The kernel's tile edge comes from D
+(:func:`downdate_config`); for 128-wide tiles the wrapper also allocates the
+scratch into which a first kernel copies M with padded rows, so such a call
+is two device launches.
 """
 
 from __future__ import annotations
@@ -19,12 +22,31 @@ import torch
 
 from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
 
-# Launches of the CUDA kernel in this process (the plain version never counts).
+# Wrapper calls in this process that launched the CUDA kernel (the plain
+# version never counts). A call with 128-wide tiles is two device launches,
+# the row padding copy and the downdate; it counts once.
 LAUNCHES = 0
 
 _LIB = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_f32",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+# Output tile edge by D: D <= TILE_32_MAX_D takes 32, larger D 128. Wider
+# tiles reuse each loaded value more but give fewer blocks. In a sweep of
+# device time at D = 13 + 6K, m = 2K (tools/probe_downdate.py on an H100;
+# PERF.md), 32 was the faster edge at every D up to 1933 but 1549 (4%
+# slower there) and 128 at every D from 2317 on.
+TILE_32_MAX_D = 1933
+
+
+def downdate_config(D: int) -> tuple[int, int]:
+    """(tile edge, thread blocks) of the kernel for a [D,D] output: one block
+    per lower-triangle tile, the grid the kernel's entry point launches."""
+    if D < 1:
+        raise ValueError(f"D must be >= 1, got {D}")
+    tile = 32 if D <= TILE_32_MAX_D else 128
+    nt = -(-D // tile)
+    return tile, nt * (nt + 1) // 2
 
 
 def symmetric_downdate_ref(P: torch.Tensor, M: torch.Tensor,
@@ -62,12 +84,19 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
             raise ValueError(f"{name} must be a contiguous float32 tensor on "
                              f"{P.device}")
     launch = _LIB.fn()
+    m = M.shape[0]
+    tile = downdate_config(D)[0]
     out = torch.empty_like(P)
+    # 128-wide tiles load M from a copy whose rows are padded to a multiple
+    # of 4 floats (16-byte loads)
+    scratch = (torch.empty((m, -(-D // 4) * 4), dtype=P.dtype, device=P.device)
+               if tile == 128 else None)
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(P.data_ptr(), M.data_ptr(),
-                    None if keep is None else keep.data_ptr(), out.data_ptr(),
-                    D, M.shape[0], stream)
+                    None if keep is None else keep.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(),
+                    out.data_ptr(), D, m, tile, stream)
     if rc != 0:
         raise RuntimeError(f"symmetric_downdate kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -21,18 +21,21 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 class KernelLibrary:
     """One ``csrc/<name>.cu`` source and the C function it exports, which
-    returns a ``cudaError_t`` (0 = launched)."""
+    returns a ``cudaError_t`` (0 = launched). ``source`` is a file name
+    under ``csrc/`` or an absolute path."""
 
     def __init__(self, source: str, symbol: str, argtypes: list):
         self.source = _PKG / "csrc" / source
         self.symbol = symbol
         self.argtypes = argtypes
         self._fn = None
+        # ptxas's report (registers, spills) of the build this process ran
+        self.ptxas = ""
 
     def path(self) -> Path:
         """Where the library of the current source and flags lives."""
@@ -52,9 +55,10 @@ class KernelLibrary:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(self.source)],
-                           check=True, capture_output=True, text=True)
+            done = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(self.source)],
+                                  check=True, capture_output=True, text=True)
             os.replace(tmp, out)
+            self.ptxas = done.stdout + done.stderr
         except subprocess.CalledProcessError as e:
             raise RuntimeError(f"nvcc failed on {self.source}:\n{e.stderr}") from e
         finally:

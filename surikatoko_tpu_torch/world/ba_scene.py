@@ -13,17 +13,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from surikatoko_tpu_torch import config
 from surikatoko_tpu_torch.geom import se3
 from surikatoko_tpu_torch.models.ba.sparse import BAProblemSparse
 
 
 def build_at_scale_problem(n_points: int, n_frames: int, L: int,
                            noise_pix: float = 0.5, seed: int = 0,
-                           dtype: torch.dtype = torch.float64,
-                           device: torch.device | str | None = None):
-    """Returns (BAProblemSparse in ``dtype`` on ``device``, frame_idx
-    [Np,L] int32, obs_mask [Np,L]); the host arrays feed
+                           dtype: torch.dtype | None = None,
+                           device: torch.device | str = "cuda"):
+    """Returns (BAProblemSparse in ``dtype`` (default
+    ``config.default_dtype(device)``) on ``device`` (the card by default),
+    frame_idx [Np,L] int32, obs_mask [Np,L]); the host arrays feed
     SparseBundleAdjustment.set_plan_inputs."""
+    dtype = dtype or config.default_dtype(device)
     rng = np.random.default_rng(seed)
     # points on a noisy cylinder, cameras on a surrounding ring
     ang = rng.uniform(0, 2 * np.pi, n_points)

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from surikatoko_tpu_torch import config
 from surikatoko_tpu_torch.geom import camera as cam_mod
 from surikatoko_tpu_torch.models.monoslam import fused_step as fused_mod
 from surikatoko_tpu_torch.models.monoslam import health as health_mod
@@ -59,17 +60,20 @@ class ImageSeqDeviceScenario(NamedTuple):
 
 
 def build_oscillating_scenario(capacity: int = 32,
-                               dtype: torch.dtype = torch.float64,
+                               dtype: torch.dtype | None = None,
                                detection_noise_std: float = 0.5,
                                max_deviation: float = 0.6,
                                world: str = "grid",
                                world_halfwidth: float = 2.4, seed: int = 0,
-                               device: torch.device | str = "cpu"
+                               device: torch.device | str = "cuda"
                                ) -> DeviceScenario:
     """Scenario03-style world sized to ``capacity`` points: "grid" is the
     reference grid replicated and jittered up to ``capacity``; "wide" is
     ``capacity`` distinct points over a strip wider than the field of view,
-    so the lateral sweep carries points in and out of view."""
+    so the lateral sweep carries points in and out of view. Built on the
+    host, returned on ``device`` (the card by default) in ``dtype``
+    (default ``config.default_dtype(device)``)."""
+    dtype = dtype or config.default_dtype(device)
     wb = scene_gen.WorldBounds(0.0, 0.9, 0.0, 0.9, 0.0, 0.9001)
     grid_pts = scene_gen.generate_grid_points(wb, (0.3, 0.3, 0.3), 0.2).numpy()
     center = grid_pts.mean(axis=0)
@@ -103,18 +107,20 @@ def build_oscillating_scenario(capacity: int = 32,
 
 
 def build_imageseq_scenario(capacity: int = 96,
-                            dtype: torch.dtype = torch.float64,
+                            dtype: torch.dtype | None = None,
                             image_size=(320, 240), splat_amp: float = 170.0,
                             splat_sigma: float = 1.8, seed: int = 0,
                             n_points: int | None = None,
                             bg_cell: int | None = None,
                             max_deviation: float = 0.6, world: str = "grid",
-                            device: torch.device | str = "cpu"
+                            device: torch.device | str = "cuda"
                             ) -> ImageSeqDeviceScenario:
     """Image-sequence scenario over the oscillating world. ``n_points``
     decouples the splat count from the filter capacity; ``bg_cell`` makes
     the background a bilinearly upsampled low-frequency field (cell size in
-    pixels) instead of per-pixel noise."""
+    pixels) instead of per-pixel noise. On the card unless ``device`` says
+    otherwise; ``dtype`` defaults to ``config.default_dtype(device)``."""
+    dtype = dtype or config.default_dtype(device)
     base = build_oscillating_scenario(capacity=n_points or capacity,
                                       dtype=dtype, max_deviation=max_deviation,
                                       world=world, device=device)

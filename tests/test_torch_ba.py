@@ -54,7 +54,7 @@ def _np(tree):
 
 def _pair(**kw):
     pj = circle_grid_problem(**kw)[0]
-    return pj, interop.ba_problem_from_numpy(_np(pj))
+    return pj, interop.ba_problem_from_numpy(_np(pj), device="cpu")
 
 
 def _close(t, j, **tol):
@@ -106,7 +106,7 @@ def test_torch_normalization_matches_jax():
     # degenerate gauge: min_shift floors the scale on both sides
     pj0 = pj._replace(cfw_R=pj.cfw_R.at[1].set(pj.cfw_R[0]),
                       cfw_t=pj.cfw_t.at[1].set(pj.cfw_t[0]))
-    pt0 = interop.ba_problem_from_numpy(_np(pj0))
+    pt0 = interop.ba_problem_from_numpy(_np(pj0), device="cpu")
     assert not tn.can_normalize(pt0) and not jn.can_normalize(pj0)
     _close(tn.normalize_scene(pt0, min_shift=1e-5)[1].world_scale,
            jn.normalize_scene(pj0, min_shift=1e-5)[1].world_scale)
@@ -149,7 +149,7 @@ def test_torch_blocks_match_jax(kw):
         _close(getattr(bt, f), getattr(bj, f), **BLOCK_TOL)
     mask_kw = {k: v for k, v in kw.items() if k != "fix_gauge"}
     np.testing.assert_array_equal(
-        td.frame_var_mask(pt.n_frames, **mask_kw).numpy(),
+        td.frame_var_mask(pt.n_frames, **mask_kw, device="cpu").numpy(),
         np.asarray(jd.frame_var_mask(pj.n_frames, **mask_kw)))
 
 
@@ -266,7 +266,7 @@ def test_torch_lm_sparse_device_loop_matches_host_and_jax(inplace):
     in the original gauge."""
     pj, _ = _pair(noise_pnt=0.05, noise_rot=0.01 if inplace else 0.0)
     psj = jsp.from_dense(pj)
-    pst = interop.sparse_problem_from_numpy(_np(psj))
+    pst = interop.sparse_problem_from_numpy(_np(psj), device="cpu")
     term = dict(allowed_reproj_err_rel_change=1e-14, max_iters=25)
     run = "compute_inplace" if inplace else "compute"
     jdrv = JSBA(point_chunk=32, device_loop=True)
@@ -291,7 +291,7 @@ def test_torch_cannot_normalize_matches_jax(jax_bas, device_loop):
     pj, _ = _pair(noise_pnt=0.05)
     pj = pj._replace(cfw_R=pj.cfw_R.at[1].set(pj.cfw_R[0]),
                      cfw_t=pj.cfw_t.at[1].set(pj.cfw_t[0]))
-    pt = interop.ba_problem_from_numpy(_np(pj))
+    pt = interop.ba_problem_from_numpy(_np(pj), device="cpu")
     term = dict(allowed_reproj_err_rel_change=1e-14, max_iters=5)
     jdrv, tdrv = jax_bas[device_loop], TBA(device_loop=device_loop)
     okj, _ = jdrv.compute_inplace(pj, JTC(**term))

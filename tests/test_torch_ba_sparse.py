@@ -50,7 +50,7 @@ def _close(t, j, **tol):
 
 
 def _to_torch(psj):
-    return interop.sparse_problem_from_numpy(_np(psj))
+    return interop.sparse_problem_from_numpy(_np(psj), device="cpu")
 
 
 # the JAX side compiled, as its BA classes run it (eager op-by-op dispatch of
@@ -72,7 +72,7 @@ def problems():
     port sparse)."""
     pd, _, _ = circle_grid_problem(noise_pnt=0.05, noise_rot=0.02)
     psj = jsp.from_dense(pd)
-    ptd = interop.ba_problem_from_numpy(_np(pd))
+    ptd = interop.ba_problem_from_numpy(_np(pd), device="cpu")
     return pd, psj, ptd, _to_torch(psj)
 
 
@@ -379,7 +379,7 @@ def test_torch_at_scale_problem_equals_jax_demo():
     pj, fj, mj = build_problem(600, 40, 6, 0.5, 0, jnp.float64,
                                return_host_inputs=True)
     pt, ft, mt = ba_scene.build_at_scale_problem(600, 40, 6, noise_pix=0.5,
-                                                 seed=0)
+                                                 seed=0, device="cpu")
     for f in jsp.BAProblemSparse._fields:
         np.testing.assert_array_equal(getattr(pt, f).numpy(),
                                       np.asarray(getattr(pj, f)), err_msg=f)
@@ -388,7 +388,7 @@ def test_torch_at_scale_problem_equals_jax_demo():
     assert pt.frame_idx.dtype == torch.int64 and pt.obs_mask.dtype == torch.bool
     # float32 on request, the same problem rounded
     p32 = ba_scene.build_at_scale_problem(600, 40, 6, noise_pix=0.5, seed=0,
-                                          dtype=torch.float32)[0]
+                                          dtype=torch.float32, device="cpu")[0]
     assert p32.points.dtype == torch.float32
     np.testing.assert_array_equal(p32.obs.numpy(),
                                   np.asarray(pj.obs).astype(np.float32))

@@ -107,6 +107,23 @@ def test_torch_downdate_wrapper_cpu_path_and_checks():
         covariance.symmetric_downdate(P.to("meta"), M.to("meta"))
 
 
+def test_torch_downdate_config_covers_every_width():
+    """Every D from 1 to 5000 gets a tile edge the kernel has (32 or 128),
+    one block per lower-triangle tile, and the edge grows with D, switching
+    just past the measured threshold."""
+    last = 0
+    for D in range(1, 5001):
+        tile, blocks = covariance.downdate_config(D)
+        assert tile in (32, 128) and tile >= last
+        nt = len(range(0, D, tile))
+        assert blocks == sum(1 for bi in range(nt) for bj in range(bi + 1))
+        last = tile
+    assert covariance.downdate_config(covariance.TILE_32_MAX_D)[0] == 32
+    assert covariance.downdate_config(covariance.TILE_32_MAX_D + 1)[0] == 128
+    with pytest.raises(ValueError):
+        covariance.downdate_config(0)
+
+
 def test_torch_kernel_libraries_keyed_by_their_own_source():
     """Each kernel source builds its own library, named after the source and
     keyed by sha256(source + nvcc flags)[:16] as the NCC library was."""

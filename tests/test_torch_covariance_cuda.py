@@ -10,7 +10,10 @@ import torch
 
 from surikatoko_tpu_torch.ops import covariance
 
-SHAPES = [(43, 10), (256, 32), (300, 64), (589, 192), (4621, 1536)]   # (D, m)
+# (D, m): tests, scenario03, the flagship, and ragged edges (D just past a
+# tile edge, m not a multiple of 16)
+SHAPES = [(43, 10), (256, 32), (300, 64), (589, 192), (4621, 1536),
+          (129, 1), (130, 7), (1000, 33)]
 
 
 def _card():
@@ -53,6 +56,51 @@ def test_torch_downdate_kernel_matches_plain_on_card(D, m, with_keep):
     assert covariance.LAUNCHES == before + 1
     assert torch.equal(got, got.T)
     assert within_tolerance(got, want, P, M, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_torch_downdate_kernel_repeats_bitwise(with_keep):
+    """No split-K and no atomics: two launches on the same inputs agree bit
+    for bit, at the flagship shape."""
+    dev = _card()
+    P, M, keep = _inputs(4621, 1536, with_keep, dev)
+    first = covariance.symmetric_downdate(P, M, keep)
+    assert torch.equal(first, covariance.symmetric_downdate(P, M, keep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [0, 1])
+def test_torch_downdate_kernel_at_tile_thresholds(side):
+    """Both sides of the tile-edge threshold (32-wide tiles with 4-byte
+    loads, then 128-wide with the padded 16-byte loads), with a ragged m."""
+    dev = _card()
+    D = covariance.TILE_32_MAX_D + side
+    P, M, keep = _inputs(D, 48, True, dev)
+    got = covariance.symmetric_downdate(P, M, keep)
+    want = covariance.symmetric_downdate_ref(P, M, keep)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got.T)
+    assert within_tolerance(got, want, P, M, keep)
+
+
+@pytest.mark.cuda
+def test_torch_downdate_kernel_takes_many_rows():
+    """More than 65535 rows of M through the 128-wide tiles' row padding.
+    Leading zero rows leave each accumulator at +0 (fmaf(0, 0, +0) = +0), so
+    the result equals, bit for bit, the call on the last 40 rows alone,
+    which lie past row 65535."""
+    dev = _card()
+    D = covariance.TILE_32_MAX_D + 1
+    P, tail, keep = _inputs(D, 40, True, dev)
+    M = torch.zeros((70_000, D), device=dev)
+    M[-40:] = tail
+    got = covariance.symmetric_downdate(P, M, keep)
+    short = covariance.symmetric_downdate(P, tail, keep)
+    want = covariance.symmetric_downdate_ref(P, tail, keep)
+    torch.cuda.synchronize()
+    assert torch.equal(got, short)
+    assert within_tolerance(got, want, P, tail, keep)
 
 
 @pytest.mark.cuda

@@ -112,7 +112,7 @@ def test_torch_load_dino_fixture_matches_jax():
     """test_load_dino_problem_from_fixture on the port: the same problem as
     JAX's loader, noiseless (error ~0), intrinsics recovered."""
     pj = jdino.load_dino_problem(FIXTURES, f0=600.0)
-    pt = tdino.load_dino_problem(FIXTURES, f0=600.0)
+    pt = tdino.load_dino_problem(FIXTURES, f0=600.0, device="cpu")
     _same_problem(pt, pj, dict(rtol=1e-10, atol=1e-12))
     assert pt.n_frames == 6 and pt.n_points == 20
     assert int(pt.obs_mask.sum()) == 20 * 6 - 18 * 2
@@ -122,7 +122,7 @@ def test_torch_load_dino_fixture_matches_jax():
     np.testing.assert_allclose(float(pt.K[0, 1, 1]), 3217.3 / 600.0, rtol=1e-9)
     assert float(pt.K[0, 0, 1]) == 0.0
     p32 = tdino.load_dino_problem(FIXTURES, f0=600.0, max_points=7,
-                                  dtype=torch.float32)
+                                  dtype=torch.float32, device="cpu")
     assert p32.points.dtype == torch.float32 and p32.n_points == 7
     assert p32.obs_mask.dtype == torch.bool
 
@@ -139,7 +139,7 @@ def test_torch_dino_fixture_ba_matches_jax(fixture_noise):
     term = dict(allowed_reproj_err_rel_change=1e-14)
     pj = jdino.load_dino_problem(FIXTURES, f0=600.0)
     pj = pj._replace(points=pj.points + jnp.asarray(fixture_noise))
-    pt = tdino.load_dino_problem(FIXTURES, f0=600.0)
+    pt = tdino.load_dino_problem(FIXTURES, f0=600.0, device="cpu")
     pt = pt._replace(points=pt.points + torch.as_tensor(fixture_noise))
     jdrv, tdrv = JBA(), TBA()
     okj, oj = jdrv.compute_inplace(pj, JTC(**term))
@@ -154,8 +154,8 @@ def test_torch_load_dino_sparse_matches_dense_and_jax(fixture_noise):
     """test_load_dino_problem_sparse_matches_dense on the port: the sparse
     assembly is the dense problem track-major, equals JAX's, and its LM
     lands on the dense LM's solution on JAX's path."""
-    pd = tdino.load_dino_problem(FIXTURES, f0=600.0)
-    ps, fidx, tmask = tdino.load_dino_problem_sparse(FIXTURES, f0=600.0)
+    pd = tdino.load_dino_problem(FIXTURES, f0=600.0, device="cpu")
+    ps, fidx, tmask = tdino.load_dino_problem_sparse(FIXTURES, f0=600.0, device="cpu")
     psj, fidx_j, tmask_j = jdino.load_dino_problem_sparse(FIXTURES, f0=600.0)
     np.testing.assert_array_equal(fidx, fidx_j)
     np.testing.assert_array_equal(tmask, tmask_j)
@@ -212,7 +212,7 @@ def test_torch_synthetic_dino_round_trip_matches_jax(tmp_path, kw):
     with open(os.path.join(dt, "viff.xy")) as f:
         assert "-1.000000" in f.read()
 
-    pt = tdino.load_dino_problem(str(tmp_path / "t"), f0=600.0)
+    pt = tdino.load_dino_problem(str(tmp_path / "t"), f0=600.0, device="cpu")
     pj = jdino.load_dino_problem(str(tmp_path / "j"), f0=600.0)
     assert pt.n_frames == kw["n_frames"] and pt.n_points == int(keep.sum())
     np.testing.assert_array_equal(pt.obs_mask.numpy(), mask[keep])
@@ -226,7 +226,8 @@ def test_torch_synthetic_dino_round_trip_matches_jax(tmp_path, kw):
 
 
 def test_torch_synthetic_dino_problem_matches_jax():
-    pt, gt_t = tdino.synthetic_dino_problem(n_frames=12, n_points=80, seed=2)
+    pt, gt_t = tdino.synthetic_dino_problem(n_frames=12, n_points=80, seed=2,
+                                            device="cpu")
     pj, gt_j = jdino.synthetic_dino_problem(n_frames=12, n_points=80, seed=2)
     np.testing.assert_array_equal(gt_t, gt_j)
     _same_problem(pt, pj, dict(rtol=1e-10, atol=1e-10))

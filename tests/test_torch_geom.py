@@ -63,7 +63,7 @@ def test_torch_se3_and_look_at(rng):
 def test_torch_camera(rng, distorted):
     args = ((640, 480), (320.0, 240.0), 1.95, (0.005, 0.005))
     cj = jcam.make_intrinsics(*args, dtype=jnp.float64)
-    ct = tcam.make_intrinsics(*args, dtype=torch.float64)
+    ct = tcam.make_intrinsics(*args, dtype=torch.float64, device="cpu")
     dj = jcam.MikhailDistortion(jnp.asarray(0.3), jnp.asarray(0.05)) if distorted else None
     dt = tcam.MikhailDistortion(torch.tensor(0.3, dtype=torch.float64),
                                 torch.tensor(0.05, dtype=torch.float64)) if distorted else None
@@ -116,10 +116,10 @@ def test_torch_scenario_builders(world):
     kw = dict(capacity=48, n_points=96, image_size=(320, 240), bg_cell=32,
               max_deviation=0.8, world=world)
     sj = jdr.build_imageseq_scenario(dtype=jnp.float64, **kw)
-    st = tdr.build_imageseq_scenario(dtype=torch.float64, **kw)
+    st = tdr.build_imageseq_scenario(dtype=torch.float64, **kw, device="cpu")
     for f in sj._fields:
         _close(getattr(st, f), getattr(sj, f))
     oj = jdr.build_oscillating_scenario(capacity=80, dtype=jnp.float64)
-    ot = tdr.build_oscillating_scenario(capacity=80, dtype=torch.float64)
+    ot = tdr.build_oscillating_scenario(capacity=80, dtype=torch.float64, device="cpu")
     for f in oj._fields:
         _close(getattr(ot, f), getattr(oj, f))

@@ -47,10 +47,11 @@ def test_torch_imageseq_runner_impls_2_3_match_jax(imageseq16, impl):
                                     jnp.arange(1, 1 + FRAMES))
     np_ = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
     run_t = tdr.make_imageseq_scan_runner(
-        interop.params_from_numpy(np_(params)), update_impl=impl)
+        interop.params_from_numpy(np_(params), device="cpu"), update_impl=impl)
     st_t, (errs_t, n_t, pos_t, info_t) = run_t(
-        interop.state_from_numpy(np_(st)), interop.templates_from_numpy(
-            np.asarray(templates)), interop.scenario_from_numpy(np_(sc)),
+        interop.state_from_numpy(np_(st), device="cpu"),
+        interop.templates_from_numpy(np.asarray(templates), device="cpu"),
+        interop.scenario_from_numpy(np_(sc), device="cpu"),
         range(1, 1 + FRAMES))
     np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
     assert n_t.numpy()[:10].min() > CAPACITY * 3 // 4

@@ -83,7 +83,7 @@ def test_torch_measurement_jacobians(repres, distorted):
     # started, and its NaN rows poison the masked reference update
     params, state, _, _ = _setup(repres=repres, distorted=distorted,
                                  n_free=4 if repres == 2 else 0)
-    tp = interop.params_from_numpy(_np(params))
+    tp = interop.params_from_numpy(_np(params), device="cpu")
     x = _t(state.x)
     h_t, Hc_t, Hl_t = tmeasure.measurement_jacobians(tp, x)
     h_j, Hc_j, Hl_j = jmeasure.measurement_jacobians(params, state.x)
@@ -101,7 +101,7 @@ def test_torch_measurement_jacobians(repres, distorted):
 
 def test_torch_predict(rng):
     params, state, _, _ = _setup()
-    tp = interop.params_from_numpy(_np(params))
+    tp = interop.params_from_numpy(_np(params), device="cpu")
     cam = state.x[:13].at[10:13].set(jnp.asarray(0.05 * rng.normal(size=3)))
     cam_t = _t(cam)
     _close(tpredict.predict_camera(tp, cam_t), jpredict.predict_camera(params, cam))
@@ -116,7 +116,7 @@ def test_torch_predict(rng):
     _close(G_t, G_ad, rtol=1e-9, atol=1e-12)
     st = state._replace(x=state.x.at[:13].set(cam))
     pj = jpredict.predict(params, st)
-    pt = tpredict.predict(tp, interop.state_from_numpy(_np(st)))
+    pt = tpredict.predict(tp, interop.state_from_numpy(_np(st), device="cpu"))
     _close(pt.x, pj.x)
     _close(pt.P, pj.P)
 
@@ -124,13 +124,14 @@ def test_torch_predict(rng):
 @pytest.mark.parametrize("repres", [2, 1])
 def test_torch_add_landmarks(rng, repres):
     params, state, _, _ = _setup(n_free=3, repres=repres)
-    tp = interop.params_from_numpy(_np(params))
+    tp = interop.params_from_numpy(_np(params), device="cpu")
     pix = rng.uniform([20.0, 20.0], [300.0, 220.0], size=(5, 2))
     ok = np.array([True, False, True, True, True])   # 4 valid, 3 free slots
     rho = np.array([np.nan, 0.7, 1.3, np.nan, 0.4])
     sj, slots_j = jlm.add_landmarks(params, state, jnp.asarray(pix),
                                     jnp.asarray(ok), jnp.asarray(rho))
-    st, slots_t = tlm.add_landmarks(tp, interop.state_from_numpy(_np(state)),
+    st, slots_t = tlm.add_landmarks(tp, interop.state_from_numpy(_np(state),
+                                                                 device="cpu"),
                                     _t(pix), _t(ok), _t(rho))
     np.testing.assert_array_equal(slots_t.numpy(), np.asarray(slots_j))
     np.testing.assert_array_equal(st.lm_active.numpy(), np.asarray(sj.lm_active))
@@ -177,7 +178,7 @@ def test_torch_h_products(rng, K):
 @pytest.mark.parametrize("precomputed", [False, True])
 def test_torch_fused_update_health_predict(precomputed):
     params, state, obs, m = _setup(n_free=2)
-    tp = interop.params_from_numpy(_np(params))
+    tp = interop.params_from_numpy(_np(params), device="cpu")
     drop = jnp.zeros(state.capacity, bool).at[3].set(True)
     m = m & ~drop
     kw_j = dict(deactivate_mask=drop)
@@ -211,7 +212,7 @@ def _recruit_inputs(params, state, rng, drop_slots=(2, 5)):
 
 def test_torch_fused_recruit_with_deletion_and_local_depth(rng):
     params, state, obs, m = _setup(n_free=1)
-    tp = interop.params_from_numpy(_np(params))
+    tp = interop.params_from_numpy(_np(params), device="cpu")
     drop, active_after, new_pix, new_valid, slot_pix, rho0_j = _recruit_inputs(
         params, state, rng)
     m = m & ~drop
@@ -238,7 +239,7 @@ def test_torch_median_tracked_inv_depth(rng):
     """The global depth prior of recruit_depth="median", with deleted slots
     and with no usable slot at all (the configured prior)."""
     params, state, _, _ = _setup(n_free=1)
-    tp = interop.params_from_numpy(_np(params))
+    tp = interop.params_from_numpy(_np(params), device="cpu")
     active_after = _recruit_inputs(params, state, rng)[1]
     for active in (active_after, jnp.zeros_like(active_after)):
         _close(tfs.median_tracked_inv_depth(tp, _t(state.x), _t(active),
@@ -251,7 +252,7 @@ def test_torch_fused_recruit_none_valid_and_overflow(rng):
     """No valid candidate leaves the base fused step untouched; more valid
     candidates than free slots fill only the free ones, in order."""
     params, state, obs, m = _setup(n_free=2)
-    tp = interop.params_from_numpy(_np(params))
+    tp = interop.params_from_numpy(_np(params), device="cpu")
     free = ~state.lm_active
     pix = jnp.asarray(rng.uniform([20.0, 20.0], [300.0, 220.0], size=(5, 2)))
     args_t = (tp, _t(state.x), _t(state.P), _t(obs), _t(m), _t(pix))
@@ -274,7 +275,7 @@ def test_torch_fused_recruit_none_valid_and_overflow(rng):
 def test_torch_fused_recruit_symmetry_exact_f32(rng):
     """P+ with recruits scattered in stays exactly symmetric in float32."""
     params, state, obs, m = _setup(dtype=jnp.float32)
-    tp = interop.params_from_numpy(_np(params))
+    tp = interop.params_from_numpy(_np(params), device="cpu")
     pix = rng.uniform([20.0, 20.0], [300.0, 220.0], size=(3, 2)).astype(np.float32)
     out = tfs.fused_update_health_recruit_predict(
         tp, _t(state.x), _t(state.P), _t(obs), _t(m), _t(pix),

@@ -117,8 +117,8 @@ def _frame(bg_cell):
     pix = jcam.project_camera_point(cam, None, xc)
     np_ = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
     return (np.array(img), np.array(pix), sc, params,
-            interop.scenario_from_numpy(np_(sc)),
-            interop.params_from_numpy(np_(params)))
+            interop.scenario_from_numpy(np_(sc), device="cpu"),
+            interop.params_from_numpy(np_(params), device="cpu"))
 
 
 @pytest.fixture(scope="module")

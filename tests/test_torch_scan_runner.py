@@ -49,10 +49,10 @@ def test_torch_init_with_gt_landmarks(world16):
     PRNGKey(0) inside, the port takes the draws."""
     params, sc, state_j = world16
     noise = jax.random.normal(jax.random.PRNGKey(0), (16, 2), jnp.float64)
-    tp = interop.params_from_numpy(_np(params))
+    tp = interop.params_from_numpy(_np(params), device="cpu")
     state_t = tdr.init_with_gt_landmarks(
-        tp, interop.scenario_from_numpy(_np(sc)),
-        interop.state_from_numpy(_np(j_init_state(16, dtype=jnp.float64))),
+        tp, interop.scenario_from_numpy(_np(sc), device="cpu"),
+        interop.state_from_numpy(_np(j_init_state(16, dtype=jnp.float64)), device="cpu"),
         torch.as_tensor(np.array(noise)))
     np.testing.assert_array_equal(state_t.lm_active.numpy(),
                                   np.asarray(state_j.lm_active))
@@ -70,10 +70,11 @@ def _compare_runs(params, sc, state, frames, impl):
                                   jax.random.PRNGKey(1))
     # the standard-normal draws run_j scales by sc.noise_std
     noise = jax.random.normal(jax.random.PRNGKey(1), (T, K, 2), jnp.float64)
-    run_t = tdr.make_scan_runner(interop.params_from_numpy(_np(params)),
+    run_t = tdr.make_scan_runner(interop.params_from_numpy(_np(params), device="cpu"),
                                  update_impl=impl)
     st_t, errs_t, n_t, pos_t, info_t = run_t(
-        interop.state_from_numpy(_np(state)), interop.scenario_from_numpy(_np(sc)),
+        interop.state_from_numpy(_np(state), device="cpu"),
+        interop.scenario_from_numpy(_np(sc), device="cpu"),
         frames, torch.as_tensor(np.array(noise)))
     np.testing.assert_array_equal(n_t.numpy(), np.asarray(n_j))
     np.testing.assert_allclose(errs_t.numpy(), np.asarray(errs_j), rtol=0,
@@ -100,6 +101,6 @@ def test_torch_scan_runner_impl1_capacity32_60_frames():
 
 
 def test_torch_scan_runner_rejects_unknown_impl(world16):
-    tp = interop.params_from_numpy(_np(world16[0]))
+    tp = interop.params_from_numpy(_np(world16[0]), device="cpu")
     with pytest.raises(ValueError, match="update_impl"):
         tdr.make_scan_runner(tp, update_impl=5)

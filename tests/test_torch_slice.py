@@ -45,10 +45,10 @@ def slice_setup():
     st, templates = jax.jit(lambda s: jdr.init_imageseq(
         params, sc, s, 15, max_bootstrap=20))(j_init_state(24, dtype=dtype))
     np_ = lambda tree: jax.tree_util.tree_map(np.asarray, tree)
-    torch_side = (interop.params_from_numpy(np_(params)),
-                  interop.scenario_from_numpy(np_(sc)),
-                  interop.state_from_numpy(np_(st)),
-                  interop.templates_from_numpy(np.asarray(templates)))
+    torch_side = (interop.params_from_numpy(np_(params), device="cpu"),
+                  interop.scenario_from_numpy(np_(sc), device="cpu"),
+                  interop.state_from_numpy(np_(st), device="cpu"),
+                  interop.templates_from_numpy(np.asarray(templates), device="cpu"))
     return (params, sc, st, templates), torch_side
 
 
@@ -58,7 +58,7 @@ def test_torch_init_imageseq_matches_jax(slice_setup):
                                    max_bootstrap=20)
     st_t, tm_t = tdr.init_imageseq(
         tp, tsc, interop.state_from_numpy(
-            jax.tree_util.tree_map(np.asarray, j_init_state(24))),
+            jax.tree_util.tree_map(np.asarray, j_init_state(24)), device="cpu"),
         15, max_bootstrap=20)
     np.testing.assert_array_equal(st_t.lm_active.numpy(),
                                   np.asarray(st_j.lm_active))

@@ -88,7 +88,7 @@ def test_torch_stacked_update(params, state_xP, rng, mask):
     obs_mask = jnp.asarray(MASKS[mask])
     obs = _obs(params, x, rng, 1.0)
     want = jupdate.stacked_update(params, x, P, obs, obs_mask)
-    got = tupdate.stacked_update(interop.params_from_numpy(_np(params)),
+    got = tupdate.stacked_update(interop.params_from_numpy(_np(params), device="cpu"),
                                  _t(x), _t(P), _t(obs), _t(obs_mask))
     for a, b in zip(got[:3], want):
         _close(a, b)
@@ -105,7 +105,7 @@ def test_torch_sequential_updates(params, state_xP, rng, name):
     obs_mask = jnp.asarray(MASKS["some"])
     obs = _obs(params, x, rng, 0.5)
     want = getattr(jupdate, name)(params, x, P, obs, obs_mask)
-    got = getattr(tupdate, name)(interop.params_from_numpy(_np(params)),
+    got = getattr(tupdate, name)(interop.params_from_numpy(_np(params), device="cpu"),
                                  _t(x), _t(P), _t(obs), _t(obs_mask))
     for a, b in zip(got, want):
         _close(a, b)
@@ -122,7 +122,7 @@ def test_torch_one_point_ransac_update(params, state_xP, rng, outlier):
         obs = obs.at[2].add(jnp.asarray([150.0, -120.0]))
     want = jupdate.one_point_ransac_update(params, x, P, obs, obs_mask)
     got = tupdate.one_point_ransac_update(
-        interop.params_from_numpy(_np(params)), _t(x), _t(P), _t(obs),
+        interop.params_from_numpy(_np(params), device="cpu"), _t(x), _t(P), _t(obs),
         _t(obs_mask))
     assert int(got[3]) == int(want[3]) >= 2
     assert int(got[4]) == int(want[4])
@@ -137,7 +137,7 @@ def test_torch_one_point_ransac_update(params, state_xP, rng, outlier):
 def test_torch_project_all(params, state_xP, rng):
     """One state, and a batch of states in place of JAX's vmap."""
     x, _ = state_xP
-    tp = interop.params_from_numpy(_np(params))
+    tp = interop.params_from_numpy(_np(params), device="cpu")
     _close(tmeasure.project_all(tp, _t(x)), jmeasure.project_all(params, x))
     xs = x[None, :] + jnp.asarray(rng.normal(scale=0.01, size=(4, D)))
     _close(tmeasure.project_all(tp, _t(xs)),
@@ -149,8 +149,9 @@ def test_torch_normalize_and_predict(params, state_xP):
     x = x.at[3:7].multiply(1.01)      # so that the renorm acts
     st = j_init_state(K)._replace(x=x, P=P, lm_active=jnp.ones((K,), bool))
     want = jpredict.normalize_and_predict(params, st)
-    got = tpredict.normalize_and_predict(interop.params_from_numpy(_np(params)),
-                                         interop.state_from_numpy(_np(st)))
+    got = tpredict.normalize_and_predict(interop.params_from_numpy(_np(params),
+                                                                   device="cpu"),
+                                         interop.state_from_numpy(_np(st), device="cpu"))
     _close(got.x, want.x)
     _close(got.P, want.P)
     assert torch.equal(got.P, got.P.T)
@@ -181,7 +182,7 @@ def _freed_slots_state(repres, capacity=12, n_free=4):
 @pytest.mark.parametrize("repres", [1, 2])
 def test_torch_masked_nonfinite_rows_contribute_zeros(repres):
     params, state, obs, m = _freed_slots_state(repres)
-    tp = interop.params_from_numpy(_np(params))
+    tp = interop.params_from_numpy(_np(params), device="cpu")
     args_t = (tp, _t(state.x), _t(state.P), _t(obs), _t(m))
     h = np.asarray(jmeasure.measurement_jacobians(params, state.x)[0])
     fused_j = jfs.fused_update_health_predict(params, state.x, state.P, obs, m)
