@@ -1,8 +1,12 @@
 """NCC search and corner detection of the PyTorch port against the JAX
 package. The search kernel's plain version is held against the Pallas
-kernel in interpret mode (the cases of tests/test_ncc_pallas.py); the CUDA
+kernel in interpret mode (the cases of tests/test_ncc_pallas.py and the edge
+cases of chip_smoke.ncc_edge_case); the CUDA
 kernel itself runs only on the card (tests/test_torch_ncc_cuda.py and
 chip_smoke.py)."""
+
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +27,9 @@ from surikatoko_tpu_torch.ops import ncc_cuda
 from surikatoko_tpu_torch.vision import features as tfeat
 from surikatoko_tpu_torch.vision import templ_match as ttm
 from surikatoko_tpu_torch.world import device_runner as tdr
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import chip_smoke  # noqa: E402
 
 torch.set_num_threads(2)
 SHAPES = [(8, 9, 7), (5, 17, 25), (3, 9, 11)]   # (K, T, S)
@@ -55,6 +62,56 @@ def test_torch_ncc_plain_matches_pallas(rng, K, T, S, with_neigh):
         bi = got[1].numpy()
         bx, by = bi % S, bi // S
         inside = np.stack([bx > 0, bx < S - 1, by > 0, by < S - 1], axis=1)
+        np.testing.assert_allclose(got[2].numpy()[inside],
+                                   np.asarray(want[2])[inside],
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", [c for c in chip_smoke.NCC_EDGE_CASES
+                                  if c != "ragged"])
+@pytest.mark.parametrize("with_neigh", [False, True])
+def test_torch_ncc_plain_matches_pallas_edge_cases(name, with_neigh):
+    """The semantics a redesigned kernel must keep, on chip_smoke's edge
+    cases: plain version and Pallas kernel agree (idx exact, corr within
+    rtol 1e-4 / atol 1e-5, -inf on the same rows), and idx is the one the
+    case fixes: the first gated cell of a flat surface, the lowest of
+    several cells with equal bits, index 0 for an all-false gate, the
+    corner that holds the template. Neighbours equal the Pallas kernel's
+    wherever best + d lies in [0, S^2), and the port's surface at the
+    clamped index everywhere."""
+    p, t, g = chip_smoke.ncc_edge_case(name, np.random.default_rng(5))
+    K, S, _ = g.shape
+    want = ncc_surface_argmax_pallas(jnp.asarray(p), jnp.asarray(t),
+                                     jnp.asarray(g), with_neigh=with_neigh,
+                                     interpret=True)
+    got = ncc_cuda.ncc_surface_argmax_ref(torch.as_tensor(p), torch.as_tensor(t),
+                                          torch.as_tensor(g), with_neigh)
+    idx, corr = got[1].numpy(), got[0].numpy()
+    np.testing.assert_array_equal(idx, np.asarray(want[1]))
+    np.testing.assert_allclose(corr, np.asarray(want[0]), rtol=1e-4, atol=1e-5)
+    surf = ttm.corr_coeff_surface(torch.as_tensor(p),
+                                  torch.as_tensor(t)).numpy().reshape(K, S * S)
+    flat_g = g.reshape(K, S * S)
+    gated = np.where(flat_g, surf, -np.inf)
+    if name == "flat":
+        assert (surf == 0).all()
+        np.testing.assert_array_equal(idx, np.argmax(flat_g, axis=1))
+    elif name.startswith("ties"):
+        best = gated == gated.max(axis=1, keepdims=True)
+        assert (best.sum(axis=1) >= 2).all()
+        np.testing.assert_array_equal(idx, np.argmax(best, axis=1))
+    elif name == "gated_rows":
+        assert np.isneginf(corr[::3]).all() and (idx[::3] == 0).all()
+        assert np.isfinite(corr[1::3]).all()
+    elif name == "corners":
+        corner = np.array([0, S - 1, S * (S - 1), S * S - 1])[np.arange(K) % 4]
+        np.testing.assert_array_equal(idx, corner)
+    if with_neigh:
+        nb = idx[:, None] + np.array([-1, 1, -S, S])[None, :]
+        np.testing.assert_array_equal(
+            got[2].numpy(),
+            np.take_along_axis(surf, np.clip(nb, 0, S * S - 1), axis=1))
+        inside = (nb >= 0) & (nb < S * S)
         np.testing.assert_allclose(got[2].numpy()[inside],
                                    np.asarray(want[2])[inside],
                                    rtol=1e-4, atol=1e-5)
