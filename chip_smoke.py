@@ -23,13 +23,18 @@ Phases, one JSON line each:
            (129,1), (130,7), (1000,33), without and with a 0/1 keep of ~5%
            zeros: output bitwise symmetric, two launches bitwise equal, and
            |kernel - plain| <= 1e-5 (|P| o |kk^T| + |M o k|^T |M o k|) + 1e-30.
-           Both timed with CUDA events over back-to-back calls, over
+           The downdate's float64 entry point at the same shapes against
+           its plain version in float64 on the card: bitwise symmetric, two
+           launches bitwise equal, relative Frobenius difference <= 1e-12.
+           All timed with CUDA events over back-to-back calls, over
            replays of a CUDA graph of the calls (which leaves out the host's
            time between launches) and by the profiler's device time, each
            beside its plain version and its bound: the larger of its FMAs
            over the card's f32 rate (132 SMs x 128 lanes x clocks.max.sm)
            and its bytes (inputs read once, outputs written once) over
-           3.35 TB/s; the downdate also against a bare masked addmm, its
+           3.35 TB/s (float64: FMAs over 132 SMs x 64 FP64 lanes x
+           clocks.max.sm, 8-byte values); the downdate also against a bare
+           masked addmm, its
            one-call yardstick. The search's pct_of_bound is taken from its
            graph-replay time: back-to-back events at its size measure the
            wrapper's host time.
@@ -57,6 +62,26 @@ Phases, one JSON line each:
   impls    update impls 2, 3 and 4 on the scenario03 world for 30 frames:
            finite residuals, camera within 0.5 of GT, downdate launches 0, 0
            and 2 per frame.
+  hostloop the host-driven tracker on scenario03's world (K=96, 320x240):
+           MonoSlamFilter(update_impl=1) with DemoCornersMatcher (noise 0.5
+           from default_rng(3), the whole capacity as frame 0's budget)
+           through run_scenario over frames 0-299, in float32 and float64
+           on the card, each after a 30-frame warm-up run: fps (host
+           clock), ATE, median obs_count, estimated_count at the end, one
+           profiled 40-frame run (device busy and idle share per frame).
+           One more f32 step runs with torch's sync debug mode raising.
+           Asserts finite, P == P^T, one downdate launch per frame, the
+           float64 run's first 30 frames within 1e-9 (cam_state) of the
+           same run on the CPU with equal counts, and f32 ATE <= 2 x the
+           float64 ATE + 0.02.
+  scenario03_f64  make_scan_runner(1) in float64 on the card, frames 1-30,
+           against the CPU: camera positions within 1e-9, P == P^T.
+  precision_k768  the K=768 pin of tests/test_precision_large_k.py:
+           make_scan_runner(1) on build_oscillating_scenario(768), frames
+           1-120, float64 without mitigations and float32 with
+           max_undetected_frames=60 and covar_diag_inflation=1e-6; asserts
+           finite, matched median > 500 in both, and f32 ATE <= 2 x f64
+           ATE + 0.02.
   ba_dino  the JAX bench's dino BA (bench.py:587-623), float32: the 36 x
            4983 synthetic turntable written in the VGG file formats and read
            back through the loader; the device-loop sparse LM (full-width
@@ -71,7 +96,8 @@ Phases, one JSON line each:
            (8 iterations warm, 8 timed) and one profiled LM iteration.
            Asserts finite outputs, both solves ok and a decreased error.
   Neither BA phase may launch kernel B1 or B2.
-Then a line with every kernel's launches, error and times, the card's name
+Then a line with every kernel's launches, error and times (B2's float64
+entry point's too), the card's name
 and power limit as nvidia-smi gives them, and the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero; with
 no CUDA device it exits 1 before printing anything on stdout.
@@ -103,6 +129,8 @@ TIMED_FRAMES = range(121, 241)
 DOWNDATE_SHAPES = ((43, 10), (256, 32), (300, 64), (589, 192), (4621, 1536),
                    (129, 1), (130, 7), (1000, 33))
 DOWNDATE_TIMED = ((589, 192), (4621, 1536))
+# the float64 kernel against its plain version: relative Frobenius bound
+F64_REL_FRO = 1e-12
 # the device kernels of one downdate call: the row padding copy (128-wide
 # tiles only) and the downdate itself
 DOWNDATE_DEVICE_KERNELS = ("pad_rows", "downdate_kernel")
@@ -111,6 +139,7 @@ NCC_DEVICE_KERNELS = ("ncc_search_kernel",)
 # the published peak rate of HBM3 on an H100 SXM (bytes/s); f32 lanes per SM
 HBM_BYTES_PER_S = 3.35e12
 F32_LANES_PER_SM = 128
+F64_LANES_PER_SM = 64
 
 SC03_K = 96
 SC03_SEED = 3
@@ -120,7 +149,21 @@ SC03_IMPL_FRAMES = range(1, 31)
 # The port's float64 ATE of scenario03 over frames 1-300 with the noise of
 # SC03_SEED, on the CPU:
 #   python3 -c "import chip_smoke as c; print(c.scenario03_ate('cpu'))"
-SC03_ATE_F64 = 0.007111213050805131
+SC03_ATE_F64 = 0.00711121305080296
+# float64 on the card against float64 on the CPU: camera within this
+F64_CAM_TOL = 1e-9
+SC03_F64_FRAMES = range(1, 31)
+
+# the host-driven tracker on the scenario03 world (K=96): frames 0-299 timed
+# after a warm-up run of 30, one profiled run of 40, and the first 30 frames
+# of the float64 run against the CPU
+HOSTLOOP_FRAMES, HOSTLOOP_WARM, HOSTLOOP_PROFILE, HOSTLOOP_CPU = 300, 30, 40, 30
+
+# the K=768 f32-vs-f64 pin (tests/test_precision_large_k.py, ekf mode):
+# make_scan_runner(1) over frames 1-120 of build_oscillating_scenario(768),
+# detection noise from default_rng(PK_SEED)
+PK_K, PK_FRAMES, PK_SEED = 768, range(1, 121), 7
+PK_MITIGATIONS = dict(max_undetected_frames=60, covar_diag_inflation=1e-6)
 
 # the dino shape (bench.py:591-623) and the at-scale problem (bench.py:531-585)
 DINO_FRAMES, DINO_POINTS = 36, 4983
@@ -309,16 +352,18 @@ def compare(ncc_cuda, patches, templs, gate, with_neigh):
     return err, agree, ok and nok, nerr
 
 
-def downdate_case(D, m, with_keep, device):
-    """Random symmetric PSD P [D,D], M [m,D] and a 0/1 keep of ~5% zeros."""
+def downdate_case(D, m, with_keep, device, dtype=None):
+    """Random symmetric PSD P [D,D], M [m,D] and a 0/1 keep of ~5% zeros,
+    in float32 unless ``dtype`` says otherwise."""
     import torch
+    dtype = dtype or torch.float32
     g = torch.Generator(device=device).manual_seed(D * 7 + m)
-    A = torch.randn(D, D, generator=g, device=device)
+    A = torch.randn(D, D, generator=g, device=device, dtype=dtype)
     P = A @ A.T / D
     P = torch.tril(P) + torch.tril(P, -1).T
-    M = 0.05 * torch.randn(m, D, generator=g, device=device)
-    keep = ((torch.rand(D, generator=g, device=device) > 0.05).float()
-            if with_keep else None)
+    M = 0.05 * torch.randn(m, D, generator=g, device=device, dtype=dtype)
+    keep = ((torch.rand(D, generator=g, device=device, dtype=dtype) > 0.05)
+            .to(dtype) if with_keep else None)
     return P, M, keep
 
 
@@ -339,6 +384,23 @@ def compare_downdate(cov, P, M, keep):
     ok = (torch.equal(got, got.T) and torch.equal(got, again)
           and bool(torch.isfinite(got).all()) and bool((diff <= bound).all()))
     return float(diff.max()), ok
+
+
+def compare_downdate_f64(cov, P, M, keep):
+    """The float64 kernel vs its plain version in float64 on the card:
+    (relative Frobenius difference, ok) with ok = bitwise symmetric, a
+    second launch bitwise equal to the first, finite, and the relative
+    difference <= F64_REL_FRO (both sum m products in double, in other
+    orders: ~sqrt(m) 1.1e-16 of the summands' scale)."""
+    import torch
+    got = cov.symmetric_downdate(P, M, keep)
+    again = cov.symmetric_downdate(P, M, keep)
+    want = cov.symmetric_downdate_ref(P, M, keep)
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    ok = (got.dtype == torch.float64 and torch.equal(got, got.T)
+          and torch.equal(got, again) and bool(torch.isfinite(got).all())
+          and rel <= F64_REL_FRO)
+    return rel, ok
 
 
 def flagship_setup(device):
@@ -463,22 +525,30 @@ def kernel_share(kernels, names) -> list:
     return [sum(v[0] for v in rows), sum(v[1] for v in rows)]
 
 
+def oscillating_world(device, dtype, K, **param_kw):
+    """The JAX bench's scenario03 camera and filter parameters
+    (bench.py:113-127) and ``build_oscillating_scenario(K)``."""
+    from surikatoko_tpu_torch.geom import camera
+    from surikatoko_tpu_torch.models.monoslam import make_params
+    from surikatoko_tpu_torch.world.device_runner import build_oscillating_scenario
+    cam = camera.make_intrinsics((320, 240), (160.0, 120.0), 1.95,
+                                 (0.01, 0.01), dtype=dtype, device=device)
+    params = make_params(cam, None, dt=1.0, process_noise_lin_veloc_std=0.075,
+                         process_noise_ang_veloc_std=0.01, dtype=dtype,
+                         device=device, **param_kw)
+    return params, build_oscillating_scenario(capacity=K, dtype=dtype,
+                                              device=device)
+
+
 def scenario03_setup(device, dtype):
     """The JAX bench's scenario03 (bench.py:113-127) at K=96, bootstrapped
     from GT, and its standard-normal detection noise from SC03_SEED: [96,2]
     for the bootstrap, [300,96,2] for the ATE frames, [3,300,96,2] for the
     timed windows. Returns (params, sc, state, ate_noise, timed_noise)."""
     import torch
-    from surikatoko_tpu_torch.geom import camera
-    from surikatoko_tpu_torch.models.monoslam import init_state, make_params
-    from surikatoko_tpu_torch.world.device_runner import (
-        build_oscillating_scenario, init_with_gt_landmarks)
-    cam = camera.make_intrinsics((320, 240), (160.0, 120.0), 1.95,
-                                 (0.01, 0.01), dtype=dtype, device=device)
-    params = make_params(cam, None, dt=1.0, process_noise_lin_veloc_std=0.075,
-                         process_noise_ang_veloc_std=0.01, dtype=dtype,
-                         device=device)
-    sc = build_oscillating_scenario(capacity=SC03_K, dtype=dtype, device=device)
+    from surikatoko_tpu_torch.models.monoslam import init_state
+    from surikatoko_tpu_torch.world.device_runner import init_with_gt_landmarks
+    params, sc = oscillating_world(device, dtype, SC03_K)
     rng = np.random.default_rng(SC03_SEED)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     init_noise = t(rng.standard_normal((SC03_K, 2)))
@@ -504,6 +574,80 @@ def scenario03_ate(device="cpu", dtype=None):
         device, dtype or torch.float64)
     pos = make_scan_runner(params, 1)(state, sc, SC03_ATE_FRAMES, ate_noise)[3]
     return float(aligned_rmse(pos.double(), gt_positions(sc, SC03_ATE_FRAMES).double()))
+
+
+def hostloop_runner(device, dtype):
+    """The host-driven tracker on the scenario03 world: (run, tracker),
+    where run(n) builds a fresh ``DemoCornersMatcher`` (detection noise 0.5
+    from default_rng(SC03_SEED), the whole capacity as the first frame's
+    budget) and returns ``run_scenario`` over frames 0 .. n-1 with
+    ``tracker = MonoSlamFilter(update_impl=1, capacity=96)``."""
+    from surikatoko_tpu_torch.geom.se3 import SE3
+    from surikatoko_tpu_torch.models.monoslam.filter import MonoSlamFilter
+    from surikatoko_tpu_torch.world.demo_matcher import DemoCornersMatcher
+    from surikatoko_tpu_torch.world.runner import run_scenario
+    params, sc = oscillating_world(device, dtype, SC03_K)
+    tracker = MonoSlamFilter(params, capacity=SC03_K, update_impl=1)
+    gt = SE3(sc.gt_cfw_R, sc.gt_cfw_t)
+
+    def run(n_frames):
+        matcher = DemoCornersMatcher(
+            tracker, gt, sc.gt_points, detection_noise_std=0.5,
+            seed=SC03_SEED, max_new_in_first_frame=SC03_K)
+        return run_scenario(tracker, matcher, gt, n_frames=n_frames)
+    return run, tracker
+
+
+def hostloop_summary(res) -> dict:
+    """ATE (Umeyama-aligned, against the GT camera centres), counts and the
+    end state's health of one ``run_scenario`` result."""
+    import torch
+    from surikatoko_tpu_torch.geom.align import aligned_rmse
+    st = res.state
+    obs = [int(s.obs_count) for s in res.stats]
+    return {"frames": len(res.stats),
+            "ate": float(aligned_rmse(torch.as_tensor(res.cam_pos_est),
+                                      torch.as_tensor(res.cam_pos_gt))),
+            "max_cam_err": float(res.cam_pos_err.max()),
+            "obs_count_med": float(np.median(obs)),
+            "estimated_count_end": int(res.stats[-1].estimated_count),
+            "deleted_total": sum(int(s.deleted_count) for s in res.stats),
+            "finite": bool(torch.isfinite(st.x).all()
+                           and torch.isfinite(st.P).all()
+                           and np.isfinite(res.cam_pos_est).all()),
+            "P_exactly_symmetric": bool(torch.equal(st.P, st.P.T))}
+
+
+def precision_run(device, dtype, mitigations: bool) -> dict:
+    """One run of the K=768 pin: GT bootstrap, make_scan_runner(1) over
+    PK_FRAMES; (ATE, matched median, finite, Cholesky infos, wall s)."""
+    import torch
+    from surikatoko_tpu_torch.geom.align import aligned_rmse
+    from surikatoko_tpu_torch.models.monoslam import init_state
+    from surikatoko_tpu_torch.world.device_runner import (
+        init_with_gt_landmarks, make_scan_runner)
+    params, sc = oscillating_world(device, dtype, PK_K,
+                                   **(PK_MITIGATIONS if mitigations else {}))
+    rng = np.random.default_rng(PK_SEED)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    noise0 = t(rng.standard_normal((PK_K, 2)))
+    noise = t(rng.standard_normal((len(PK_FRAMES), PK_K, 2)))
+    st = init_with_gt_landmarks(params, sc, init_state(PK_K, dtype=dtype,
+                                                       device=device), noise0)
+    run = make_scan_runner(params, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st2, errs, n, pos, info = run(st, sc, PK_FRAMES, noise)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    finite = bool(torch.isfinite(st2.x).all() and torch.isfinite(pos).all())
+    return {"dtype": str(dtype).replace("torch.", ""),
+            "mitigations": mitigations, "frames": len(PK_FRAMES), "s": dt,
+            "ate": float(aligned_rmse(pos.double(),
+                                      gt_positions(sc, PK_FRAMES).double())),
+            "matched_med": float(np.median(n.cpu().numpy())),
+            "finite": finite, "chol_info_nonzero": int(torch.count_nonzero(info)),
+            "P_exactly_symmetric": bool(torch.equal(st2.P, st2.P.T))}
 
 
 def dino_problem(device, dtype, n_points=DINO_POINTS):
@@ -752,6 +896,7 @@ def main() -> int:
     clock_mhz = float(nvidia_smi("clocks.max.sm", units=False))
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     fma_per_s = n_sm * F32_LANES_PER_SM * clock_mhz * 1e6
+    f64_fma_per_s = n_sm * F64_LANES_PER_SM * clock_mhz * 1e6
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
         builds = dict(zip(("ncc_search", "symmetric_downdate"),
@@ -767,7 +912,8 @@ def main() -> int:
           "ptxas": {"ncc_search": ptxas_summary(ncc_cuda._LIB),
                     "symmetric_downdate": ptxas_summary(covariance._LIB)},
           "clocks_max_sm_mhz": clock_mhz, "sms": n_sm,
-          "f32_fma_per_s": fma_per_s, "hbm_bytes_per_s": HBM_BYTES_PER_S})
+          "f32_fma_per_s": fma_per_s, "f64_fma_per_s": f64_fma_per_s,
+          "hbm_bytes_per_s": HBM_BYTES_PER_S})
 
     # ---- kernels against their plain versions ----
     rng = np.random.default_rng(0)
@@ -846,6 +992,34 @@ def main() -> int:
                           bound_ms=b_ms, bound_by=b_by,
                           pct_of_bound=100.0 * b_ms / kern_ms)
                 dd_times[f"{D}x{m}"] = tm
+    # the float64 entry point: every shape against the plain version in
+    # float64 on the card; timed with keep at the main-path shapes
+    dd64_cases, dd64_times = [], {}
+    for D, m in DOWNDATE_SHAPES:
+        for with_keep in (False, True):
+            P, M, keep = downdate_case(D, m, with_keep, device, torch.float64)
+            rel, ok = compare_downdate_f64(covariance, P, M, keep)
+            dd64_cases.append({"D": D, "m": m, "keep": with_keep,
+                               "rel_fro": rel})
+            if not ok:
+                raise AssertionError(f"float64 downdate kernel disagrees with "
+                                     f"plain or is not symmetric: {dd64_cases[-1]}")
+            if with_keep and (D, m) in DOWNDATE_TIMED:
+                fns = {"kernel": lambda: covariance.symmetric_downdate(P, M, keep),
+                       "plain": lambda: covariance.symmetric_downdate_ref(P, M, keep)}
+                n = 200 if D < 1000 else 20
+                tm = {k: [] for k in fns}
+                for name in ("plain", "kernel", "kernel", "plain"):
+                    tm[name].append(cuda_ms(fns[name], n))
+                tm["graph_ms"] = {name: cuda_graph_ms(fns[name], max(n // 4, 5))
+                                  for name in fns}
+                fma, nbytes = downdate_work(D, m, True)
+                b_ms, b_by = bound_ms(fma, 2.0 * nbytes, f64_fma_per_s)
+                kern_ms = float(np.mean(tm["kernel"]))
+                tm.update(kernel_device_us=device_us_per_call(fns["kernel"]),
+                          bound_ms=b_ms, bound_by=b_by,
+                          pct_of_bound=100.0 * b_ms / kern_ms)
+                dd64_times[f"{D}x{m}"] = tm
     emit({"phase": "kernel",
           "ncc_search": {"cases": cases,
                          "flagship": {"K": K_FLAGSHIP, "T": 15, "S": 15,
@@ -858,7 +1032,10 @@ def main() -> int:
                                       "bound_by": ncc_bound_by,
                                       "pct_of_bound": 100.0 * ncc_bound
                                       / ncc_graph_ms["kernel"]}},
-          "symmetric_downdate": {"cases": dd_cases, "ms_with_keep": dd_times}})
+          "symmetric_downdate": {"cases": dd_cases, "ms_with_keep": dd_times},
+          "symmetric_downdate_f64": {"cases": dd64_cases,
+                                     "ms_with_keep": dd64_times,
+                                     "rel_fro_bound": F64_REL_FRO}})
     del st0, tm0
 
     # ---- flagship slice: the main path ----
@@ -1044,6 +1221,127 @@ def main() -> int:
                      "scenario03_impl4": 31}, "host_syncs": 0})
     del params3, sc3, st3_0, st3, run3
 
+    # ---- the host-driven tracker (MonoSlamFilter + GT matcher) ----
+    host = {}
+    for dtype in (torch.float32, torch.float64):
+        run_h, tracker_h = hostloop_runner(device, dtype)
+        run_h(HOSTLOOP_WARM)
+        torch.cuda.synchronize()
+        ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res_h = run_h(HOSTLOOP_FRAMES)
+        torch.cuda.synchronize()
+        dt_h = time.perf_counter() - t0
+        name = str(dtype).replace("torch.", "")
+        host[name] = {**hostloop_summary(res_h), "s": dt_h,
+                      "fps": HOSTLOOP_FRAMES / dt_h,
+                      "launches": {"ncc_search": ncc_cuda.LAUNCHES,
+                                   "symmetric_downdate": covariance.LAUNCHES}}
+        if dtype == torch.float32:
+            # one more step with every slot matched at its predicted pixel
+            # and no recruit, with host syncs raising: the step reads nothing
+            st_h = res_h.state
+            frame_without_host_sync(
+                tracker_h.process_frame, st_h, tracker_h.predicted_pixels(st_h),
+                st_h.lm_active, torch.zeros((16, 2), dtype=dtype, device=device),
+                torch.zeros(16, dtype=torch.bool, device=device))
+            busy_h, nl_h, top_h, by_h = device_profile(
+                lambda: run_h(HOSTLOOP_PROFILE))
+            wall_us = 1e6 * dt_h / HOSTLOOP_FRAMES
+            host[name]["profile"] = {
+                "frames": HOSTLOOP_PROFILE,
+                "device_busy_us_per_frame": busy_h / HOSTLOOP_PROFILE,
+                "device_launches_per_frame": nl_h / HOSTLOOP_PROFILE,
+                "wall_us_per_frame": wall_us,
+                "device_idle_share": 1.0 - busy_h / HOSTLOOP_PROFILE / wall_us,
+                "symmetric_downdate_us_launches": kernel_share(
+                    by_h, DOWNDATE_DEVICE_KERNELS),
+                "top_kernels_us_count": top_h}
+        else:
+            res_f64_card = res_h
+        del run_h, tracker_h
+    res_cpu = hostloop_runner("cpu", torch.float64)[0](HOSTLOOP_CPU)
+    cam_diff = max(float((a.cam_state.cpu() - b.cam_state).abs().max())
+                   for a, b in zip(res_f64_card.stats, res_cpu.stats))
+    counts_equal = all(
+        int(getattr(a, k)) == int(getattr(b, k))
+        for a, b in zip(res_f64_card.stats, res_cpu.stats)
+        for k in ("obs_count", "new_count", "deleted_count"))
+    host_bound = 2 * host["float64"]["ate"] + 0.02
+    emit({"phase": "hostloop", "K": SC03_K, "D": 13 + 6 * SC03_K,
+          "update_impl": 1, "warmup_frames": HOSTLOOP_WARM,
+          "process_frame_host_syncs": 0, **host,
+          "f64_card_vs_cpu": {"frames": HOSTLOOP_CPU,
+                              "cam_state_max_abs_diff": cam_diff,
+                              "tol": F64_CAM_TOL, "counts_equal": counts_equal},
+          "ate_bound_f32": host_bound})
+    for name, h in host.items():
+        if not (h["finite"] and h["P_exactly_symmetric"]):
+            raise AssertionError(f"hostloop {name}: non-finite or P != P^T")
+        if h["launches"] != {"ncc_search": 0,
+                             "symmetric_downdate": HOSTLOOP_FRAMES}:
+            raise AssertionError(f"hostloop {name}: launches {h['launches']} "
+                                 f"for {HOSTLOOP_FRAMES} frames")
+    if not (cam_diff <= F64_CAM_TOL and counts_equal):
+        raise AssertionError(f"hostloop float64 on the card vs the CPU: "
+                             f"cam_state differs by {cam_diff}, counts equal "
+                             f"{counts_equal}")
+    if not host["float32"]["ate"] <= host_bound:
+        raise AssertionError(f"hostloop f32 ATE {host['float32']['ate']} > "
+                             f"{host_bound}")
+    del res_f64_card, res_cpu, res_h
+
+    # ---- scenario03 in float64 on the card against the CPU ----
+    pos64 = {}
+    for dev in (device, torch.device("cpu")):
+        p64, sc64, st64, noise64, _ = scenario03_setup(dev, torch.float64)
+        covariance.LAUNCHES = ncc_cuda.LAUNCHES = 0
+        out64 = make_scan_runner(p64, 1)(st64, sc64, SC03_F64_FRAMES,
+                                         noise64[:len(SC03_F64_FRAMES)])
+        pos64[dev.type] = out64[3].cpu()
+        if dev.type == "cuda":
+            launches64 = {"ncc_search": ncc_cuda.LAUNCHES,
+                          "symmetric_downdate": covariance.LAUNCHES}
+            card64 = {"P_exactly_symmetric": bool(torch.equal(out64[0].P,
+                                                               out64[0].P.T)),
+                      "chol_info_nonzero": int(torch.count_nonzero(out64[4])),
+                      "finite": bool(torch.isfinite(out64[0].P).all())}
+    diff64 = float((pos64["cuda"] - pos64["cpu"]).abs().max())
+    emit({"phase": "scenario03_f64", "K": SC03_K, "update_impl": 1,
+          "frames": len(SC03_F64_FRAMES), "cam_pos_max_abs_diff": diff64,
+          "tol": F64_CAM_TOL, "launches": launches64, **card64})
+    if not (diff64 <= F64_CAM_TOL and card64["P_exactly_symmetric"]
+            and card64["finite"] and card64["chol_info_nonzero"] == 0):
+        raise AssertionError(f"scenario03 float64 on the card: {diff64} from "
+                             f"the CPU, {card64}")
+    if launches64 != {"ncc_search": 0,
+                      "symmetric_downdate": len(SC03_F64_FRAMES)}:
+        raise AssertionError(f"scenario03_f64 launches {launches64}")
+
+    # ---- the K=768 f32-vs-f64 pin ----
+    pk = {}
+    for dtype, mit in ((torch.float64, False), (torch.float32, True)):
+        covariance.LAUNCHES = ncc_cuda.LAUNCHES = 0
+        r = precision_run(device, dtype, mit)
+        r["launches"] = {"ncc_search": ncc_cuda.LAUNCHES,
+                         "symmetric_downdate": covariance.LAUNCHES}
+        pk[r["dtype"]] = r
+    pk_bound = 2 * pk["float64"]["ate"] + 0.02
+    emit({"phase": "precision_k768", "K": PK_K, "D": 13 + 6 * PK_K, **pk,
+          "ate_bound_f32": pk_bound})
+    for name, r in pk.items():
+        if not (r["finite"] and r["P_exactly_symmetric"]):
+            raise AssertionError(f"precision_k768 {name}: non-finite or P != P^T")
+        if not r["matched_med"] > 500:
+            raise AssertionError(f"precision_k768 {name}: matched median "
+                                 f"{r['matched_med']} <= 500")
+        if r["launches"] != {"ncc_search": 0,
+                             "symmetric_downdate": len(PK_FRAMES)}:
+            raise AssertionError(f"precision_k768 {name}: launches {r['launches']}")
+    if not pk["float32"]["ate"] <= pk_bound:
+        raise AssertionError(f"precision_k768: f32 ATE {pk['float32']['ate']} > "
+                             f"{pk_bound}")
+
     # ---- bundle adjustment: the dino shape, then the 10k x 500 problem ----
     def ba_phase(name, fn):
         ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
@@ -1082,6 +1380,7 @@ def main() -> int:
                              f"{scale['err_after']} did not decrease")
 
     dd_main = dd_times["4621x1536"]
+    dd64_main = dd64_times["4621x1536"]
     dd_ms = float(np.mean(dd_main["kernel"]))
     emit({"kernels": [{
         "name": "ncc_surface_argmax", "route": "cuda",
@@ -1102,7 +1401,15 @@ def main() -> int:
         "device_us": dd_main["kernel_device_us"],
         "bound_ms": dd_main["bound_ms"], "bound_by": dd_main["bound_by"],
         "pct_of_bound": 100.0 * dd_main["bound_ms"] / dd_ms,
-        "library_ms": float(np.mean(dd_main["addmm"]))}]})
+        "library_ms": float(np.mean(dd_main["addmm"])),
+        "f64_ms": float(np.mean(dd64_main["kernel"])),
+        "f64_graph_ms": dd64_main["graph_ms"]["kernel"],
+        "f64_device_us": dd64_main["kernel_device_us"],
+        "f64_plain_ms": float(np.mean(dd64_main["plain"])),
+        "f64_bound_ms": dd64_main["bound_ms"],
+        "f64_bound_by": dd64_main["bound_by"],
+        "f64_pct_of_bound": dd64_main["pct_of_bound"],
+        "f64_max_rel_fro": max(c["rel_fro"] for c in dd64_cases)}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,12 @@ the port is tested against; this package imports ``torch`` and numpy and never
 Layer map (mirrors ``surikatoko_tpu``; the on-device loops are ported):
   geom/      quaternions, SE(3), pinhole camera, similarity alignment (ATE)
   vision/    ZNCC surface (plain version of the search kernel), Shi-Tomasi
-  world/     scenarios and the on-device runners: scenario03 with
-             the GT matcher, and the image sequence
+  world/     scenarios, the on-device runners (scenario03 with the GT
+             matcher, the image sequence) and the host-driven runner with
+             its GT matcher
   models/    the MonoSlam EKF: state, measurement, predict, the four update
-             strategies, fused congruence
+             strategies, fused congruence, health, the host-driven filter;
+             bundle adjustment
   ops/       batched NCC search and the covariance downdate, with their
              hand-written CUDA kernels (csrc/)
 

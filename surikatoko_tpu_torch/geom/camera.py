@@ -47,6 +47,15 @@ def make_intrinsics(image_size, principal_point, focal_length_mm,
                             pixel_size_mm=t(pixel_size_mm))
 
 
+def no_distortion(dtype: torch.dtype | None = None, *,
+                  device: torch.device | str = "cuda") -> MikhailDistortion:
+    """k1 = k2 = 0. On the card unless ``device`` says otherwise; ``dtype``
+    defaults to ``config.default_dtype(device)``."""
+    dtype = dtype or config.default_dtype(device)
+    z = lambda: torch.zeros((), dtype=dtype, device=device)
+    return MikhailDistortion(z(), z())
+
+
 def _radius_mm(cam: CameraIntrinsics, pix: torch.Tensor) -> torch.Tensor:
     d = (pix - cam.principal_point) * cam.pixel_size_mm
     # tiny bias keeps sqrt differentiable at the principal point

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from surikatoko_tpu_torch.geom.camera import CameraIntrinsics, MikhailDistortion
+from surikatoko_tpu_torch.geom.se3 import SE3
 from surikatoko_tpu_torch.models.ba.problem import BAProblem
 from surikatoko_tpu_torch.models.ba.sparse import BAProblemSparse
 from surikatoko_tpu_torch.models.monoslam.state import MonoSlamParams, MonoSlamState
@@ -69,6 +70,12 @@ def scenario_from_numpy(sc, device: torch.device | str = "cuda"):
     cls = (ImageSeqDeviceScenario if hasattr(sc, "background")
            else DeviceScenario)
     return _fields(cls, sc, device)
+
+
+def se3_from_numpy(T, device: torch.device | str = "cuda") -> SE3:
+    """SE3 (batched or not) from an object with R and t, e.g. the GT camera
+    poses a JAX scenario hands to ``run_scenario``."""
+    return _fields(SE3, T, device)
 
 
 def templates_from_numpy(t, device: torch.device | str = "cuda") -> torch.Tensor:

@@ -16,6 +16,7 @@ from surikatoko_tpu_torch.geom import camera as cam_mod
 from surikatoko_tpu_torch.geom import quat
 from surikatoko_tpu_torch.models.monoslam.state import (
     CAM_STATE_COMPS,
+    REPRES_SPHERICAL,
     REPRES_XYZ,
     MonoSlamParams,
 )
@@ -41,6 +42,39 @@ def project_landmark(params: MonoSlamParams, cam13: torch.Tensor,
     hc = landmark_camera_point_scaled(cam13, lm6, params.sal_pnt_repres)
     dist = params.dist if params.enable_distortion else None
     return cam_mod.project_camera_point(params.cam, dist, hc)
+
+
+def landmark_world_pos(lm6: torch.Tensor,
+                       substitute_rho: torch.Tensor | None = None,
+                       repres: int = REPRES_SPHERICAL) -> torch.Tensor:
+    """Euclidean position of landmark slots [..., 6] -> [..., 3] (reference
+    ConvertXyzFromSphericalSalientPoint :405-415; identity for XYZ). A rho
+    <= 0 is replaced by ``substitute_rho`` where one is given."""
+    if repres == REPRES_XYZ:
+        return lm6[..., 0:3]
+    rho = lm6[..., 5]
+    if substitute_rho is not None:
+        rho = torch.where(rho <= 0, substitute_rho.to(lm6.dtype), rho)
+    m = cam_mod.dir_from_azim_elev(lm6[..., 3], lm6[..., 4])
+    return lm6[..., 0:3] + m / rho[..., None]
+
+
+def spherical_to_xyz_slot(lm6: torch.Tensor) -> torch.Tensor:
+    """Spherical slot -> XYZ slot (position, zero padded; reference
+    :405-415)."""
+    pos = landmark_world_pos(lm6)
+    return torch.cat([pos, torch.zeros_like(pos)], dim=-1)
+
+
+def xyz_to_spherical_slot(lm6: torch.Tensor, first_cam_pos: torch.Tensor
+                          ) -> torch.Tensor:
+    """XYZ slot -> spherical slot anchored at ``first_cam_pos`` (reference
+    :417-467)."""
+    d = lm6[..., 0:3] - first_cam_pos
+    theta, phi = cam_mod.azim_elev_from_dir(d)
+    rho = 1.0 / torch.linalg.norm(d, dim=-1)
+    return torch.cat([first_cam_pos.expand_as(d),
+                      torch.stack([theta, phi, rho], dim=-1)], dim=-1)
 
 
 def project_all(params: MonoSlamParams, x: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,8 @@ Differences from the JAX package, by design:
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from surikatoko_tpu_torch.models.monoslam import measure
@@ -43,6 +45,13 @@ from surikatoko_tpu_torch.ops.covariance import symmetric_downdate
 
 _N = CAM_STATE_COMPS
 _CHI2_99_2DOF = 9.21034
+
+
+class UpdateInfo(NamedTuple):
+    resid_before: torch.Tensor      # [K,2] masked innovation before update
+    obs_count: torch.Tensor         # number of observations used
+    low_innov_count: torch.Tensor   # RANSAC stage-1 size (0 for other impls)
+    high_innov_count: torch.Tensor  # RANSAC stage-2 size
 
 
 def _masked_jacobians(params: MonoSlamParams, x: torch.Tensor,

@@ -22,14 +22,18 @@ import torch
 
 from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
 
-# Wrapper calls in this process that launched the CUDA kernel (the plain
-# version never counts). A call with 128-wide tiles is two device launches,
-# the row padding copy and the downdate; it counts once.
+# Wrapper calls in this process that launched a CUDA kernel, float32 or
+# float64 (the plain version never counts). A call with 128-wide tiles is two
+# device launches, the row padding copy and the downdate; it counts once.
 LAUNCHES = 0
 
 _LIB = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_f32",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# the float64 entry point of the same source: the same library file
+_LIB64 = KernelLibrary(
+    "symmetric_downdate.cu", "symmetric_downdate_f64",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 # Output tile edge by D: D <= TILE_32_MAX_D takes 32, larger D 128. Wider
 # tiles reuse each loaded value more but give fewer blocks. In a sweep of
@@ -65,8 +69,9 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
                        keep: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel wrapper, same contract as :func:`symmetric_downdate_ref`.
     P [D,D] (symmetric; its lower triangle is read), M [m,D], keep [D] with
-    0/1 entries or None; contiguous float32 on one CUDA device, D, m >= 1.
-    The values of ``keep`` are not checked (that would wait for the card)."""
+    0/1 entries or None; contiguous, all float32 or all float64, on one CUDA
+    device, D, m >= 1. The values of ``keep`` are not checked (that would
+    wait for the card)."""
     global LAUNCHES
     if P.device.type == "cpu":
         return symmetric_downdate_ref(P, M, keep)
@@ -78,25 +83,30 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
             or (keep is not None and tuple(keep.shape) != (D,))):
         raise ValueError(f"bad shapes: P {tuple(P.shape)}, M {tuple(M.shape)}, "
                          f"keep {None if keep is None else tuple(keep.shape)}")
+    if P.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"no downdate kernel for {P.dtype}")
     for name, t in (("P", P), ("M", M), ("keep", keep)):
-        if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()
+        if t is not None and (t.dtype != P.dtype or not t.is_contiguous()
                               or t.device != P.device):
-            raise ValueError(f"{name} must be a contiguous float32 tensor on "
-                             f"{P.device}")
-    launch = _LIB.fn()
+            raise ValueError(f"{name} must be a contiguous {P.dtype} tensor "
+                             f"on {P.device}")
     m = M.shape[0]
-    tile = downdate_config(D)[0]
     out = torch.empty_like(P)
-    # 128-wide tiles load M from a copy whose rows are padded to a multiple
-    # of 4 floats (16-byte loads)
-    scratch = (torch.empty((m, -(-D // 4) * 4), dtype=P.dtype, device=P.device)
-               if tile == 128 else None)
+    keep_ptr = None if keep is None else keep.data_ptr()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(P.data_ptr(), M.data_ptr(),
-                    None if keep is None else keep.data_ptr(),
-                    None if scratch is None else scratch.data_ptr(),
-                    out.data_ptr(), D, m, tile, stream)
+        if P.dtype == torch.float64:
+            rc = _LIB64.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
+                             out.data_ptr(), D, m, stream)
+        else:
+            tile = downdate_config(D)[0]
+            # 128-wide tiles load M from a copy whose rows are padded to a
+            # multiple of 4 floats (16-byte loads)
+            scratch = (torch.empty((m, -(-D // 4) * 4), dtype=P.dtype,
+                                   device=P.device) if tile == 128 else None)
+            rc = _LIB.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
+                           None if scratch is None else scratch.data_ptr(),
+                           out.data_ptr(), D, m, tile, stream)
     if rc != 0:
         raise RuntimeError(f"symmetric_downdate kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -104,5 +114,6 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
 
 
 def build():
-    """Compile the kernel library if it is not built yet; returns its path."""
+    """Compile the kernel library (both entry points) if it is not built
+    yet; returns its path."""
     return _LIB.build()

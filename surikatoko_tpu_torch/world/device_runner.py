@@ -321,6 +321,7 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
                               detector_quality: float = 0.05,
                               detector_nms_radius: int = 5,
                               recruit_min_dist: float = 14.0,
+                              target_active: int | None = None,
                               recruit_depth: str = "prior"):
     """The closed loop render -> gated NCC search -> EKF update -> predict,
     with (``recruit=True``) per-frame Shi-Tomasi recruitment into freed
@@ -330,8 +331,10 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
     slot the delete-unobserved policy drops is only deactivated and keeps
     its rows of x and P, as in JAX. ``recruit_depth``: "prior" (flat configured prior),
     "median" (global median tracked inverse depth) or "local" (median of
-    the 8 nearest tracked landmarks in pixel space). Recruitment requires
-    update_impl=1.
+    the 8 nearest tracked landmarks in pixel space). ``target_active``
+    throttles recruitment to keep the active count near that number: each
+    frame recruits at most target_active - active (clipped to
+    [0, recruit_max]). Recruitment requires update_impl=1.
 
     Returns run(state, templates, sc, frames) -> with recruit: (state,
     templates, (err, n_matched, cam_pos, n_recruited, n_active,
@@ -414,6 +417,12 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
         sel = torch.argsort((~cand_ok).to(torch.int32), stable=True)[:recruit_max]
         new_pix = cand_xy[sel].to(dtype)
         new_valid = cand_ok[sel]
+        if target_active is not None:
+            budget = torch.clamp(target_active - active_after.sum(), 0,
+                                 recruit_max)
+            new_valid = new_valid & (torch.arange(new_valid.shape[0],
+                                                  device=new_valid.device)
+                                     < budget)
         if recruit_depth == "median":
             rho0 = fused_mod.median_tracked_inv_depth(params, state.x,
                                                       active_after, Kcap)

@@ -1,10 +1,12 @@
 """The hand-written CUDA downdate kernel against its plain PyTorch version,
-on the card. Imports no JAX, so it runs where the card is:
+on the card, in float32 and float64, and the scan runner in float64 on the
+card against the CPU. Imports no JAX, so it runs where the card is:
 
     python -m pytest tests/test_torch_covariance_cuda.py -m cuda -q
 
 Without a CUDA device every case skips (the kernel has no CPU mode)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,15 +25,31 @@ def _card():
     return torch.device("cuda", 0)
 
 
-def _inputs(D, m, with_keep, dev):
+def _inputs(D, m, with_keep, dev, dtype=torch.float32):
     g = torch.Generator(device=dev).manual_seed(D * 7 + m)
-    A = torch.randn(D, D, generator=g, device=dev)
+    A = torch.randn(D, D, generator=g, device=dev, dtype=dtype)
     P = A @ A.T / D
     P = torch.tril(P) + torch.tril(P, -1).T
-    M = 0.05 * torch.randn(m, D, generator=g, device=dev)
-    keep = ((torch.rand(D, generator=g, device=dev) > 0.05).float()
+    M = 0.05 * torch.randn(m, D, generator=g, device=dev, dtype=dtype)
+    keep = ((torch.rand(D, generator=g, device=dev, dtype=dtype) > 0.05).to(dtype)
             if with_keep else None)
     return P, M, keep
+
+
+def fmaf_chain(P, M, keep):
+    """The float32 kernel's arithmetic, emulated: per output one f32
+    accumulator from +0, acc = fmaf(M_ai, M_aj, acc) for a = 0 .. m-1 (the
+    product is exact in float64 and the sum is rounded once to float32,
+    bar a double rounding that these inputs do not hit), then
+    (P_ij - acc) k_i k_j on the lower triangle, mirrored."""
+    Md = M.double()
+    acc = torch.zeros_like(P)
+    for a in range(M.shape[0]):
+        acc = (Md[a][:, None] * Md[a][None, :] + acc.double()).float()
+    v = P - acc
+    if keep is not None:
+        v = v * (keep[:, None] * keep[None, :])
+    return torch.tril(v) + torch.tril(v, -1).T
 
 
 def within_tolerance(got, want, P, M, keep):
@@ -112,4 +130,72 @@ def test_torch_downdate_kernel_rejects_what_it_cannot_take():
     with pytest.raises(ValueError):
         covariance.symmetric_downdate(P, M.T.contiguous().T)       # layout
     with pytest.raises(ValueError):
-        covariance.symmetric_downdate(P.double(), M.double())      # dtype
+        covariance.symmetric_downdate(P.half(), M.half())          # dtype
+    with pytest.raises(ValueError):
+        covariance.symmetric_downdate(P.double(), M)               # mixed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,m", SHAPES)
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_torch_downdate_kernel_f64_matches_plain_on_card(D, m, with_keep):
+    """The float64 entry point: counted, bitwise symmetric, two launches
+    bitwise equal, and within 1e-12 of the plain version in the relative
+    Frobenius norm."""
+    dev = _card()
+    P, M, keep = _inputs(D, m, with_keep, dev, torch.float64)
+    before = covariance.LAUNCHES
+    got = covariance.symmetric_downdate(P, M, keep)
+    again = covariance.symmetric_downdate(P, M, keep)
+    want = covariance.symmetric_downdate_ref(P, M, keep)
+    torch.cuda.synchronize()
+    assert covariance.LAUNCHES == before + 2
+    assert got.dtype == torch.float64
+    assert torch.equal(got, got.T) and torch.equal(got, again)
+    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,m", [(43, 10), (129, 1), (130, 7), (300, 64),
+                                 (2000, 17)])
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_torch_downdate_kernel_f32_is_its_fmaf_chain(D, m, with_keep):
+    """The float32 kernel keeps its summation order bit for bit (32-wide
+    tiles, and 128-wide at D = 2000): it equals the emulated fmaf chain."""
+    dev = _card()
+    P, M, keep = _inputs(D, m, with_keep, dev)
+    got = covariance.symmetric_downdate(P, M, keep)
+    assert torch.equal(got, fmaf_chain(P, M, keep))
+
+
+@pytest.mark.cuda
+def test_torch_scan_runner_f64_on_card_matches_cpu():
+    """make_scan_runner(1) in float64 on the card, 30 frames of scenario03
+    (K=96), against the same run on the CPU: camera positions within 1e-9."""
+    from surikatoko_tpu_torch import config
+    from surikatoko_tpu_torch.geom import camera
+    from surikatoko_tpu_torch.models.monoslam import init_state, make_params
+    from surikatoko_tpu_torch.world.device_runner import (
+        build_oscillating_scenario, init_with_gt_landmarks, make_scan_runner)
+    dev = _card()
+    config.set_full_precision()
+    rng = np.random.default_rng(3)
+    noise0, noise = rng.standard_normal((96, 2)), rng.standard_normal((30, 96, 2))
+    pos = {}
+    for d in (dev, torch.device("cpu")):
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=d)
+        cam = camera.make_intrinsics((320, 240), (160.0, 120.0), 1.95,
+                                     (0.01, 0.01), dtype=torch.float64, device=d)
+        params = make_params(cam, None, dt=1.0, process_noise_lin_veloc_std=0.075,
+                             process_noise_ang_veloc_std=0.01,
+                             dtype=torch.float64, device=d)
+        sc = build_oscillating_scenario(96, dtype=torch.float64, device=d)
+        st = init_with_gt_landmarks(params, sc, init_state(
+            96, dtype=torch.float64, device=d), t(noise0))
+        before = covariance.LAUNCHES
+        out = make_scan_runner(params, 1)(st, sc, range(1, 31), t(noise))
+        if d.type == "cuda":
+            assert covariance.LAUNCHES == before + 30
+            assert torch.equal(out[0].P, out[0].P.T)
+        pos[d.type] = out[3].cpu()
+    assert float((pos["cuda"] - pos["cpu"]).abs().max()) <= 1e-9

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from surikatoko_tpu_torch import interop
-from surikatoko_tpu_torch.geom import camera
+from surikatoko_tpu_torch.geom import camera, se3
 from surikatoko_tpu_torch.io import dino
 from surikatoko_tpu_torch.models.ba import derivs
 from surikatoko_tpu_torch.models.monoslam import state
@@ -59,6 +59,10 @@ ENTRY_POINTS = {
         _host(state.init_state, 4), **d)),
     "scenario_from_numpy": (interop.scenario_from_numpy, lambda f, **d: f(
         _host(device_runner.build_oscillating_scenario, capacity=8), **d)),
+    "se3_from_numpy": (interop.se3_from_numpy, lambda f, **d: f(
+        _to_numpy(se3.identity(batch_shape=(3,), device="cpu")), **d)),
+    "no_distortion": (camera.no_distortion, lambda f, **d: f(**d)),
+    "se3_identity": (se3.identity, lambda f, **d: f(batch_shape=(2,), **d)),
     "templates_from_numpy": (interop.templates_from_numpy,
                              lambda f, **d: f(np.zeros((2, 5, 5)), **d)),
     "ba_problem_from_numpy": (interop.ba_problem_from_numpy, lambda f, **d: f(

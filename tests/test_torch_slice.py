@@ -101,6 +101,27 @@ def test_torch_imageseq_loop_matches_jax(slice_setup, recruit):
     assert torch.equal(P, P.T)
 
 
+def test_torch_imageseq_target_active_matches_jax(slice_setup):
+    """The recruit budget target_active (JAX device_runner.py:336-340):
+    per-frame recruited and active counts equal to JAX's, camera positions
+    within 1e-6, and no frame that recruits ends above the target."""
+    (params, sc, st, templates), (tp, tsc, tst, ttm) = slice_setup
+    target = 16
+    kw = dict(templ_width=15, search_radius=9, recruit=True, recruit_max=4,
+              recruit_depth="local", target_active=target)
+    out_j = jdr.make_imageseq_scan_runner(params, use_pallas=False, **kw)(
+        st, templates, sc, jnp.arange(1, 1 + FRAMES))[-1]
+    out_t = tdr.make_imageseq_scan_runner(tp, **kw)(
+        tst, ttm, tsc, range(1, 1 + FRAMES))[-1]
+    np.testing.assert_array_equal(out_t[1].numpy(), np.asarray(out_j[1]))
+    np.testing.assert_array_equal(out_t[3].numpy(), np.asarray(out_j[3]))
+    np.testing.assert_array_equal(out_t[4].numpy(), np.asarray(out_j[4]))
+    np.testing.assert_allclose(out_t[2].numpy(), np.asarray(out_j[2]), atol=1e-6)
+    n_rec, n_act = out_t[3].numpy(), out_t[4].numpy()
+    assert n_rec.sum() > 0
+    assert ((n_rec == 0) | (n_act <= target)).all()
+
+
 @pytest.mark.parametrize("impl", [2, 3, 4])
 def test_torch_runner_recruitment_requires_impl_1(slice_setup, impl):
     """As in JAX (device_runner.py:260-261): impls 2-4 run, but only the
@@ -115,7 +136,14 @@ def test_torch_package_never_imports_jax():
     code = ("import sys, surikatoko_tpu_torch, surikatoko_tpu_torch.world."
             "device_runner, surikatoko_tpu_torch.interop, "
             "surikatoko_tpu_torch.models.ba, surikatoko_tpu_torch.io.dino, "
-            "surikatoko_tpu_torch.world.ba_scene; "
+            "surikatoko_tpu_torch.world.ba_scene, "
+            "surikatoko_tpu_torch.models.monoslam.filter, "
+            "surikatoko_tpu_torch.models.monoslam.health, "
+            "surikatoko_tpu_torch.world.demo_matcher, "
+            "surikatoko_tpu_torch.world.runner, "
+            "surikatoko_tpu_torch.world.scene_gen, "
+            "surikatoko_tpu_torch.geom.align, surikatoko_tpu_torch.geom.so3, "
+            "surikatoko_tpu_torch.geom.quat, surikatoko_tpu_torch.geom.se3; "
             "bad = sorted(m for m in sys.modules "
             "if m in ('jax', 'surikatoko_tpu') "
             "or m.startswith(('jax.', 'surikatoko_tpu.'))); "

@@ -10,10 +10,15 @@ edges, the data behind the tile threshold of ``ops/covariance.py``.
   held to ``chip_smoke.compare_downdate`` (the plain version's tolerance,
   bitwise symmetric, two launches bitwise equal), and each tile edge (32,
   128) must give the wrapper's bits.
-* ``--ref-source``: another version of the kernel source with the earlier C
-  entry point ``symmetric_downdate_f32(P, M, keep, out, D, m, stream)``; it is
-  built beside the current one, compared bit for bit on the shapes above and
-  timed in turns (ref, new, new, ref) at the main-path shapes.
+* ``--ref-source``: another version of the kernel source, with the earlier C
+  entry point ``symmetric_downdate_f32(P, M, keep, out, D, m, stream)`` or
+  the current one (scratch and tile edge too); it is built beside the
+  current one, compared bit for bit on the shapes above and timed in turns
+  (ref, new, new, ref) at the main-path shapes.
+* float64: every shape of ``chip_smoke.DOWNDATE_SHAPES`` in float64 held to
+  ``chip_smoke.compare_downdate_f64`` (bitwise symmetric, two launches
+  bitwise equal, relative Frobenius difference to the plain version
+  <= 1e-12), and its device time at the main-path shapes.
 * ``--flagship-frames N`` runs the K=768 flagship loop for N frames and
   checks the kernel (and the reference build) on that state's (P, B, keep).
 * ``--clock-seconds S`` runs the kernel back to back at the flagship shape
@@ -42,33 +47,44 @@ TILES = (32, 128)
 SWEEP_K = (16, 32, 48, 64, 96, 128, 160, 192, 224, 256, 320, 384, 512, 768)
 
 
+def run_f32(fn, P, M, keep, tile):
+    """One call of a build's current f32 entry point (scratch and tile
+    edge), returning its output."""
+    import torch
+    D, m = P.shape[0], M.shape[0]
+    out = torch.empty_like(P)
+    scratch = (torch.empty((m, -(-D // 4) * 4), device=P.device)
+               if tile == 128 else None)
+    rc = fn(P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            D, m, tile, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tile {tile}: CUDA error {rc}")
+    return out
+
+
 def launcher(cov, tile):
     """The wrapper's kernel with a forced tile edge."""
-    import torch
     fn = cov._LIB.fn()
-
-    def run(P, M, keep):
-        D, m = P.shape[0], M.shape[0]
-        out = torch.empty_like(P)
-        scratch = (torch.empty((m, -(-D // 4) * 4), device=P.device)
-                   if tile == 128 else None)
-        rc = fn(P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-                D, m, tile, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"tile {tile}: CUDA error {rc}")
-        return out
-    return run
+    return lambda P, M, keep: run_f32(fn, P, M, keep, tile)
 
 
 def ref_launcher(path: str):
+    """A build of another kernel source. Its entry point takes the scratch
+    and the tile edge (the current one) if the source names ``Mp``, else
+    the earlier (P, M, keep, out, D, m, stream)."""
     import torch
+    from surikatoko_tpu_torch.ops import covariance as cov
     from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
+    current = "float* Mp" in Path(path).read_text()
     lib = KernelLibrary(str(Path(path).resolve()), "symmetric_downdate_f32",
+                        cov._LIB.argtypes if current else
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn = lib.fn()
 
     def run(P, M, keep):
+        if current:
+            return run_f32(fn, P, M, keep, cov.downdate_config(P.shape[0])[0])
         out = torch.empty_like(P)
         rc = fn(P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
                 out.data_ptr(), P.shape[0], M.shape[0],
@@ -141,6 +157,14 @@ def main() -> int:
         for with_keep in (False, True):
             ok &= check("random", *cs.downdate_case(D, m, with_keep, dev))
 
+    for D, m in cs.DOWNDATE_SHAPES:
+        for with_keep in (False, True):
+            P, M, keep = cs.downdate_case(D, m, with_keep, dev, torch.float64)
+            rel, ok64 = cs.compare_downdate_f64(cov, P, M, keep)
+            emit({"probe": "check_f64", "D": D, "m": m, "keep": with_keep,
+                  "rel_fro": rel, "ok": ok64})
+            ok &= ok64
+
     if args.flagship_frames > 0:
         from surikatoko_tpu_torch.models.monoslam import init_state
         from surikatoko_tpu_torch.world.device_runner import (
@@ -168,6 +192,9 @@ def main() -> int:
             for name, f in (("ref", old), ("new", new), ("new", new), ("ref", old)):
                 tm[name].append(cs.cuda_ms(f, n))
             row.update(ref=cs.device_us_per_call(old), ref_vs_new_ms=tm)
+        P, M, keep = cs.downdate_case(D, m, True, dev, torch.float64)
+        row["kernel_f64"] = cs.device_us_per_call(
+            lambda: cov.symmetric_downdate(P, M, keep))
         emit(row)
 
     if args.clock_seconds > 0:
