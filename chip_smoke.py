@@ -32,10 +32,10 @@ Phases, one JSON line each:
            beside its plain version and its bound: the larger of its FMAs
            over the card's f32 rate (132 SMs x 128 lanes x clocks.max.sm)
            and its bytes (inputs read once, outputs written once) over
-           3.35 TB/s (float64: FMAs over 132 SMs x 64 FP64 lanes x
-           clocks.max.sm, 8-byte values); the downdate also against a bare
-           masked addmm, its
-           one-call yardstick. The search's pct_of_bound is taken from its
+           3.35 TB/s (float64: FMAs over the FP64 tensor cores' 132 SMs x
+           128 FMA a clock x clocks.max.sm, 8-byte values); the downdate,
+           in both types, also against a bare masked addmm, its one-call
+           yardstick. The search's pct_of_bound is taken from its
            graph-replay time: back-to-back events at its size measure the
            wrapper's host time.
   flagship the churned image-sequence loop at the benchmark configuration
@@ -136,10 +136,12 @@ F64_REL_FRO = 1e-12
 DOWNDATE_DEVICE_KERNELS = ("pad_rows", "downdate_kernel")
 NCC_DEVICE_KERNELS = ("ncc_search_kernel",)
 
-# the published peak rate of HBM3 on an H100 SXM (bytes/s); f32 lanes per SM
+# the published peak rate of HBM3 on an H100 SXM (bytes/s); f32 lanes per
+# SM; FP64 FMAs per SM and clock on the FP64 tensor cores (DMMA), twice the
+# 64 FP64 vector lanes: NVIDIA's 67 TFLOP/s FP64 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 F32_LANES_PER_SM = 128
-F64_LANES_PER_SM = 64
+F64_FMA_PER_SM_CLOCK = 128
 
 SC03_K = 96
 SC03_SEED = 3
@@ -896,7 +898,7 @@ def main() -> int:
     clock_mhz = float(nvidia_smi("clocks.max.sm", units=False))
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     fma_per_s = n_sm * F32_LANES_PER_SM * clock_mhz * 1e6
-    f64_fma_per_s = n_sm * F64_LANES_PER_SM * clock_mhz * 1e6
+    f64_fma_per_s = n_sm * F64_FMA_PER_SM_CLOCK * clock_mhz * 1e6
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as ex:
         builds = dict(zip(("ncc_search", "symmetric_downdate"),
@@ -1005,11 +1007,14 @@ def main() -> int:
                 raise AssertionError(f"float64 downdate kernel disagrees with "
                                      f"plain or is not symmetric: {dd64_cases[-1]}")
             if with_keep and (D, m) in DOWNDATE_TIMED:
+                Mk = M * keep[None, :]
                 fns = {"kernel": lambda: covariance.symmetric_downdate(P, M, keep),
-                       "plain": lambda: covariance.symmetric_downdate_ref(P, M, keep)}
+                       "plain": lambda: covariance.symmetric_downdate_ref(P, M, keep),
+                       "addmm": lambda: torch.addmm(
+                           P * (keep[:, None] * keep[None, :]), Mk.T, Mk, alpha=-1)}
                 n = 200 if D < 1000 else 20
                 tm = {k: [] for k in fns}
-                for name in ("plain", "kernel", "kernel", "plain"):
+                for name in ("plain", "kernel", "addmm", "addmm", "kernel", "plain"):
                     tm[name].append(cuda_ms(fns[name], n))
                 tm["graph_ms"] = {name: cuda_graph_ms(fns[name], max(n // 4, 5))
                                   for name in fns}
@@ -1406,6 +1411,7 @@ def main() -> int:
         "f64_graph_ms": dd64_main["graph_ms"]["kernel"],
         "f64_device_us": dd64_main["kernel_device_us"],
         "f64_plain_ms": float(np.mean(dd64_main["plain"])),
+        "f64_library_ms": float(np.mean(dd64_main["addmm"])),
         "f64_bound_ms": dd64_main["bound_ms"],
         "f64_bound_by": dd64_main["bound_by"],
         "f64_pct_of_bound": dd64_main["pct_of_bound"],

@@ -34,7 +34,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.func import jacfwd, vmap
 
 from surikatoko_tpu_torch.models.monoslam import landmarks as lm_mod
 from surikatoko_tpu_torch.models.monoslam import health as health_mod
@@ -227,10 +226,17 @@ def assign_free_slots(free_mask: torch.Tensor, new_valid: torch.Tensor
 def recruit_rows(params: MonoSlamParams, cam_pq: torch.Tensor,
                  rows7: torch.Tensor, P77: torch.Tensor,
                  free_mask: torch.Tensor, new_pix: torch.Tensor,
-                 new_valid: torch.Tensor, rho0, F: torch.Tensor):
-    """Recruit linearization and row assembly (A.58 + A.67-A.79): the new
-    landmark states, their predict-transformed covariance rows with the
-    candidate-candidate couplings, and the slots in first-free order.
+                 new_valid: torch.Tensor, rho0, F: torch.Tensor | None = None):
+    """Recruit linearization and row assembly (A.58 + A.67-A.79) of M
+    candidates seen from the camera ``cam_pq`` (r, q): the new landmark
+    states, their covariance rows J_cam ``rows7`` (the top 7 rows of the
+    covariance they are added to), the candidate-candidate couplings J_m
+    ``P77`` J_n^T, and the slots in first-free order. The Jacobians are
+    closed form (``landmarks.new_landmark_jacobians``); the couplings are
+    averaged with their mirror, so the rows keep P == P^T bit for bit. With
+    ``F`` the camera columns are right-multiplied by F^T (the predict;
+    landmark rows are predict-invariant). Shared by the fused recruit step
+    and ``landmarks.add_landmarks``.
     Returns (y_m [M,6], Rt [6M,D], slots [M], valid [M], idx [6M],
     idx_safe [6M] with D where skipped, v6 [6M])."""
     dtype, dev = rows7.dtype, rows7.device
@@ -238,20 +244,11 @@ def recruit_rows(params: MonoSlamParams, cam_pq: torch.Tensor,
     M = new_pix.shape[0]
     rho0 = (params.sal_pnt_init_inv_dist if rho0 is None else rho0).to(dtype)
     rho0_m = torch.broadcast_to(torch.atleast_1d(rho0), (M,))
-    g_rho = lambda c, p, r: lm_mod.new_landmark_state(params, c, p, r)
-    jac = jacfwd(g_rho, argnums=(0, 1, 2))
-
-    def one(pix, r0):
-        Jc, Jp, Jr = jac(cam_pq, pix, r0)
-        return g_rho(cam_pq, pix, r0), Jc, Jp, Jr
-
-    y_m, Jc_m, Jp_m, Jr_m = vmap(one)(new_pix, rho0_m)
-    r_var = params.measurm_noise_var.to(dtype)
-    rho_var = params.sal_pnt_init_inv_dist_std.to(dtype) ** 2
-    JcP77 = torch.einsum("mij,jk->mik", Jc_m, P77)
-    auto_m = (torch.einsum("mik,mjk->mij", JcP77, Jc_m)
-              + r_var * torch.einsum("mik,mjk->mij", Jp_m, Jp_m)
-              + rho_var * torch.einsum("mi,mj->mij", Jr_m, Jr_m))
+    y_m, Jc_m, Jp_m, Jr_m = lm_mod.new_landmark_jacobians(
+        params, cam_pq, new_pix.to(dtype), rho0_m)
+    JcP77 = Jc_m @ P77
+    auto_m = lm_mod._auto_covariance(params, JcP77, Jc_m, Jp_m, Jr_m,
+                                     params.sal_pnt_init_inv_dist_std)
     cross_m = torch.einsum("mij,jd->mid", Jc_m, rows7)
     newnew = torch.einsum("mik,njk->minj", JcP77, Jc_m)
     eye_m = torch.eye(M, dtype=torch.bool, device=dev)
@@ -267,11 +264,9 @@ def recruit_rows(params: MonoSlamParams, cam_pq: torch.Tensor,
     vvT = valid[:, None, None, None] & valid[None, None, :, None]
     colvals = torch.where(vvT, blocks, 0.0).reshape(6 * M, 6 * M)
     colvals = 0.5 * (colvals + colvals.T)       # bitwise P == P^T invariant
-    Rfull = scatter_drop(cross_m.reshape(6 * M, D).T, idx_safe,
-                         colvals.T).T
-    # predict: camera columns right-multiply F^T (landmark rows are
-    # predict-invariant)
-    Rt = torch.cat([Rfull[:, :_N] @ F.T, Rfull[:, _N:]], dim=1)
+    Rt = scatter_drop(cross_m.reshape(6 * M, D).T, idx_safe, colvals.T).T
+    if F is not None:
+        Rt = torch.cat([Rt[:, :_N] @ F.T, Rt[:, _N:]], dim=1)
     return y_m, Rt, slots, valid, idx, idx_safe, v6
 
 

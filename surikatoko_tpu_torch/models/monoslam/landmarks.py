@@ -7,8 +7,8 @@ Covar :2457 (A.67-A.79), AddSalientPoint :2597, RemoveSalientPointsState
 :696). The Jacobians of the initialization function are closed form
 (:func:`new_landmark_jacobians`, held to ``torch.func.jacfwd`` in the
 tests), batched over candidates, so adding landmarks every frame costs a
-fixed handful of launches. :func:`new_landmark_state` stays free of in-place
-ops and value branches: the fused recruit step differentiates it.
+fixed handful of launches, in the host-driven filter and in the fused
+recruit step alike (``fused_step.recruit_rows``).
 """
 
 from __future__ import annotations
@@ -144,45 +144,24 @@ def add_landmarks(params: MonoSlamParams, state: MonoSlamState,
 
     JAX scans the M candidates one by one. Each new slot's rows are the
     camera rows' first-order propagation J_cam P[:7, :], and its couplings
-    to an earlier new slot j of the same call are J (J_j P77)^T, so all M
-    are formed in one batch and written with the later slot's block
-    mirrored: the result is JAX's, exactly symmetric. No value is read on
+    to an earlier new slot of the same call are J_m P77 J_n^T, so all M are
+    formed in one batch (``fused_step.recruit_rows`` without a predict):
+    the result is JAX's to rounding, exactly symmetric. No value is read on
     the host."""
     from surikatoko_tpu_torch.models.monoslam.fused_step import (
-        _write_sym_stripes, assign_free_slots, scatter_drop)
+        _write_sym_stripes, recruit_rows, scatter_drop)
     Kcap = state.capacity
     dtype, dev = state.x.dtype, state.x.device
     M = new_pix.shape[0]
     if M == 0:
         return state, torch.zeros(0, dtype=torch.int32, device=dev)
     rho0 = params.sal_pnt_init_inv_dist.to(dtype)
-    rho = (rho0.expand(M) if gt_inv_dist is None else
+    rho = (None if gt_inv_dist is None else
            torch.where(torch.isnan(gt_inv_dist), rho0, gt_inv_dist.to(dtype)))
-    P = state.P
-    D = P.shape[0]
-    y, Jc, Jp, Jr = new_landmark_jacobians(params, state.x[:7],
-                                           new_pix.to(dtype), rho)
-    JcP77 = Jc @ P[:7, :7]
-    auto = _auto_covariance(params, JcP77, Jc, Jp, Jr,
-                            params.sal_pnt_init_inv_dist_std)
-    cross = torch.einsum("mij,jd->mid", Jc, P[:7, :])                # [M,6,D]
-    # block (m, n) for m added after n: J_m (J_n P77)^T; before: the mirror
-    newnew = torch.einsum("mik,njk->minj", Jc, JcP77)
-    order = torch.arange(M, device=dev)
-    later = (order[:, None] > order[None, :])[:, None, :, None]
-    blocks = torch.where(later, newnew, newnew.permute(2, 3, 0, 1))
-    eye_m = (order[:, None] == order[None, :])[:, None, :, None]
-    blocks = torch.where(eye_m, auto[:, :, None, :], blocks)
-
-    slots, valid = assign_free_slots(~state.lm_active, new_mask)
-    v6 = torch.repeat_interleave(valid, 6)
-    idx = (_N + torch.where(valid, slots, 0)[:, None].long() * 6
-           + torch.arange(6, device=dev)[None, :]).reshape(-1)
-    idx_safe = torch.where(v6, idx, D)
-    vv = valid[:, None, None, None] & valid[None, None, :, None]
-    colvals = torch.where(vv, blocks, 0.0).reshape(6 * M, 6 * M)
-    rows = scatter_drop(cross.reshape(6 * M, D).T, idx_safe, colvals.T).T
-    P = P.clone()
+    y, rows, slots, valid, idx, idx_safe, v6 = recruit_rows(
+        params, state.x[:7], state.P[:7, :], state.P[:7, :7], ~state.lm_active,
+        new_pix, new_mask, rho)
+    P = state.P.clone()
     _write_sym_stripes(P, idx, v6, rows)
     x = scatter_drop(state.x, idx_safe, y.reshape(6 * M))
     claimed = scatter_drop(torch.zeros_like(state.lm_active),

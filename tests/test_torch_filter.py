@@ -47,7 +47,13 @@ def _np(tree):
 
 def _world(scenario="03"):
     """(gt_cfw in the tracker frame, points in the tracker frame) of
-    test_monoslam_closed_loop's scenario03 or scenario01, as JAX makes them."""
+    test_monoslam_closed_loop's scenario03 or scenario01, or of the bench's
+    96-point scenario03 world ("03_k96", build_oscillating_scenario), as JAX
+    makes them."""
+    if scenario == "03_k96":
+        from surikatoko_tpu.world.device_runner import build_oscillating_scenario
+        sc = build_oscillating_scenario(96, dtype=jnp.float64)
+        return JSE3(sc.gt_cfw_R, sc.gt_cfw_t), np.asarray(sc.gt_points)
     if scenario == "03":
         wb = jscene.WorldBounds(0.0, 0.6, 0.0, 0.6, 0.0, 0.6001)
         points_world = jscene.generate_grid_points(wb, (0.5, 0.5, 0.5), 0.2)
@@ -80,7 +86,7 @@ def make_pair(impl=1, capacity=32, scenario="03", repres=2, matcher_kw=None,
               process_noise_ang_veloc_std=0.01, sal_pnt_repres=repres)
     kw.update(param_kw)
     params = j_make_params(cam, dist, **kw)
-    mkw = dict(seed=1, **(matcher_kw or {}))
+    mkw = {"seed": 1, **(matcher_kw or {})}
     j_tr = JFilter(params, capacity=capacity, update_impl=impl)
     j_m = JMatcher(j_tr, gt_cfw, pts, **mkw)
     t_gt = interop.se3_from_numpy(_np(gt_cfw), device="cpu")
@@ -126,6 +132,31 @@ def test_torch_scenario03_matches_jax_within_sigma_envelope(impl):
     if impl == 1:   # test_scenario03_residual_matches_noise_level
         errs = [float(s.opt_reproj_err) for s in res_t.stats[10:]]
         assert 0.05 < np.mean(errs) < 1.5
+
+
+def test_torch_k96_world_matches_jax():
+    """The 96-landmark scenario03 world of chip_smoke's hostloop phase
+    (detection noise 0.5 from default_rng(3), the whole capacity as frame
+    0's budget), 30 frames. Here the bad-ellipsoid test decides deletions:
+    JAX forms the 3x3 minors, the port takes the Cholesky pivots, and the
+    deleted counts and slots must agree frame by frame, and the two masks
+    on the end state."""
+    from surikatoko_tpu.models.monoslam import health as jhealth
+    from surikatoko_tpu_torch.models.monoslam import health as thealth
+    (jt, jm, jg), (tt, tm, tg) = make_pair(1, capacity=96, scenario="03_k96",
+                                           matcher_kw=dict(
+        detection_noise_std=0.5, seed=3, max_new_in_first_frame=96))
+    res_j = j_run_scenario(jt, jm, jg, n_frames=30)
+    res_t = trunner.run_scenario(tt, tm, tg, n_frames=30)
+    compare_runs(res_j, res_t, CAM_TOL[1])
+    assert int(res_t.stats[0].new_count) == 96
+    sub_j = jt.params.sal_pnt_negative_inv_rho_substitute
+    want = np.asarray(jhealth.bad_uncertainty_mask(
+        res_j.state.x, res_j.state.P, 96, sub_j))
+    got = thealth.bad_uncertainty_mask(
+        res_t.state.x, res_t.state.P, 96,
+        tt.params.sal_pnt_negative_inv_rho_substitute)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_torch_scenario03_ransac_matches_jax():
