@@ -54,17 +54,37 @@
 // The kernel allocates nothing and never synchronises; the entry points
 // return a cudaError_t (0 = launched).
 //
-// The float64 entry point (symmetric_downdate_f64) is the same kernel
-// templated on the scalar type, at 32-wide tiles only: 8-byte cp.async
-// copies of M, double2 operand loads from shared memory, fma in double
-// over a = 0 .. m-1 into one accumulator per output, from 0; the same
-// epilogue, so its output is bitwise symmetric too. What bounds it: FP64
+// The float64 entry point (symmetric_downdate_f64). What bounds it: FP64
 // FMAs, D(D+1)/2 m at the FP64 tensor cores' 132 SMs x 128 FMA a clock x
 // 1.98 GHz (33.5 TFMA/s), 0.49 ms at D = 4621, m = 1536 against 0.093 ms
-// for its 313 MB. It runs on the 64 FP64 vector lanes of an SM, half that
-// rate, with no DMMA (FP64 tensor-core) or TMA path: a simple kernel that
-// is right, so the EKF runs in float64 on the card. The float32 instantiations are
-// the code they were before the templating, operation for operation.
+// for its 313 MB. The FP64 vector lanes run half that rate, and wgmma has
+// no f64 form, so the large tiles run on the FP64 tensor cores through
+// mma.sync (DMMA), as one kernel of its own (downdate_kernel_dmma):
+// * TILE x TILE lower-triangle tiles (64 or 128), one block each; 2 x
+//   TILE/32 warps, each a (TILE/2) x 32 warp tile of m16n8 MMAs (4 x 4 of
+//   them at TILE = 128: 64 accumulators of two registers each). The MMA's
+//   depth (m16n8k4, k8 or k16) is the caller's choice.
+// * C_ij = sum_a M_ai M_aj: both operands are column strips of M, staged
+//   k-major as [KP, TILE] through a 4-deep cp.async ring. pad_rows first
+//   copies M into rows padded to an even count (16 bytes), so the strips
+//   move in 16-byte cp.async.cg copies. ldmatrix has no 64-bit form: the
+//   fragments come from plain 8-byte shared loads, and a strip row is
+//   TILE + 4 doubles long, so the 16 lanes of a half-warp (4 rows k x 4
+//   columns) hit 16 distinct bank pairs: no conflicts.
+// * summation order: one accumulator per output from 0, the MMA chain over
+//   a = 0 .. m-1 in increasing panels (rows past m are zero up to the
+//   MMA's depth); no split-K, no atomics, so two launches give equal bits.
+//   The MMA's internal order differs from an fma chain, so outputs differ
+//   from the SIMT kernel's in the last bits.
+// * the epilogue is the float32 kernel's (write_tile): keep mask and
+//   P_ij - acc applied, the mirror through the padded shared tile, so the
+//   output is bitwise symmetric.
+// Small D keeps the float32 kernel templated on double at 32-wide tiles
+// (8-byte cp.async copies of M, double2 shared loads, fma in double on the
+// vector lanes), where DMMA tiles leave most SMs idle; the caller picks
+// the kernel and tile from D (ops/covariance.py:downdate_config). The
+// float32 instantiations are the code they were before either, operation
+// for operation.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -93,7 +113,6 @@ struct Cfg {
   static constexpr int SMEM = RING > EPI ? RING : EPI;
   static constexpr int MIN_BLOCKS = TILE >= 128 ? 2 : 4;
   static_assert(TS % 8 == 0 && THREADS % ROW_CHUNKS == 0, "layout");
-  static_assert(TILE * TILE % (EPI_LOADS * THREADS) == 0, "epilogue passes");
 };
 
 template <int BYTES>
@@ -143,11 +162,65 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Mp [m, Dp] = M [m, D] with zero columns D .. Dp-1; one block per row.
-__global__ void pad_rows(const float* __restrict__ M, float* __restrict__ Mp,
-                         int D, int Dp) {
+template <typename T>
+__global__ void pad_rows(const T* __restrict__ M, T* __restrict__ Mp, int D,
+                         int Dp) {
   const size_t k = blockIdx.x;
   for (int c = threadIdx.x; c < Dp; c += blockDim.x)
-    Mp[k * Dp + c] = c < D ? M[k * D + c] : 0.f;
+    Mp[k * Dp + c] = c < D ? M[k * D + c] : T(0);
+}
+
+// lower-triangle tile (bi >= bj) of block t = bi (bi + 1) / 2 + bj
+__device__ __forceinline__ void tile_of_block(long long t, long long& bi,
+                                              long long& bj) {
+  bi = (long long)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
+  while (bi * (bi + 1) / 2 > t) --bi;
+  while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
+  bj = t - bi * (bi + 1) / 2;
+}
+
+// The epilogue of both kernels. `tile` [TILE][TILE + 1] in shared memory
+// holds the block's accumulators (the caller synchronised after writing
+// them): (i, j) = k_i k_j (P_ij - acc), consecutive threads on consecutive
+// j, only the lower half of P read, EPI_LOADS of its loads in flight a
+// thread; then from the same values its mirror (j, i), consecutive threads
+// on consecutive i. A diagonal tile writes its lower half and mirrors it.
+template <int TILE, int THREADS, bool HAS_KEEP, typename T>
+__device__ __forceinline__ void write_tile(T* tile, const T* __restrict__ P,
+                                           const T* __restrict__ keep,
+                                           T* __restrict__ out, int D, int i0,
+                                           int j0, bool diag, int tid) {
+  static_assert(TILE * TILE % (EPI_LOADS * THREADS) == 0, "epilogue passes");
+  for (int e0 = tid; e0 < TILE * TILE; e0 += EPI_LOADS * THREADS) {
+    T pv[EPI_LOADS], kv[EPI_LOADS];
+#pragma unroll
+    for (int u = 0; u < EPI_LOADS; ++u) {
+      const int e = e0 + u * THREADS;
+      const int i = i0 + e / TILE, j = j0 + e % TILE;
+      const bool ok = i < D && j < D && (!diag || i >= j);
+      pv[u] = ok ? P[(size_t)i * D + j] : T(0);
+      if (HAS_KEEP) kv[u] = ok ? keep[i] * keep[j] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < EPI_LOADS; ++u) {
+      const int e = e0 + u * THREADS;
+      const int r = e / TILE, c = e % TILE;
+      const int i = i0 + r, j = j0 + c;
+      if (i < D && j < D && (!diag || i >= j)) {
+        T v = pv[u] - tile[r * (TILE + 1) + c];
+        if (HAS_KEEP) v *= kv[u];
+        tile[r * (TILE + 1) + c] = v;
+        out[(size_t)i * D + j] = v;
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < TILE * TILE; e += THREADS) {
+    const int c = e / TILE, r = e % TILE;
+    const int i = i0 + r, j = j0 + c;
+    if (i < D && j < D && (!diag || i > j))
+      out[(size_t)j * D + i] = tile[r * (TILE + 1) + c];
+  }
 }
 
 template <int TILE, bool HAS_KEEP, typename T>
@@ -159,12 +232,8 @@ downdate_kernel(const T* __restrict__ P, const T* __restrict__ Ms,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
 
-  // lower-triangle tile (bi >= bj): blockIdx.x = bi (bi + 1) / 2 + bj
-  const long long t = blockIdx.x;
-  long long bi = (long long)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
-  while (bi * (bi + 1) / 2 > t) --bi;
-  while ((bi + 1) * (bi + 2) / 2 <= t) ++bi;
-  const long long bj = t - bi * (bi + 1) / 2;
+  long long bi, bj;
+  tile_of_block(blockIdx.x, bi, bj);
   const int i0 = (int)bi * TILE;
   const int j0 = (int)bj * TILE;
 
@@ -249,60 +318,201 @@ downdate_kernel(const T* __restrict__ P, const T* __restrict__ Ms,
     }
   }
   __syncthreads();
+  write_tile<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
+                                         bi == bj, tid);
+}
 
-  const bool diag = (bi == bj);
-  // (i, j): consecutive threads on consecutive j; k_i k_j (P_ij - acc), with
-  // only the lower half of P read, EPI_LOADS of its loads in flight a thread
-  for (int e0 = tid; e0 < TILE * TILE; e0 += EPI_LOADS * C::THREADS) {
-    T pv[EPI_LOADS], kv[EPI_LOADS];
-#pragma unroll
-    for (int u = 0; u < EPI_LOADS; ++u) {
-      const int e = e0 + u * C::THREADS;
-      const int i = i0 + e / TILE, j = j0 + e % TILE;
-      const bool ok = i < D && j < D && (!diag || i >= j);
-      pv[u] = ok ? P[(size_t)i * D + j] : T(0);
-      if (HAS_KEEP) kv[u] = ok ? keep[i] * keep[j] : T(0);
-    }
-#pragma unroll
-    for (int u = 0; u < EPI_LOADS; ++u) {
-      const int e = e0 + u * C::THREADS;
-      const int r = e / TILE, c = e % TILE;
-      const int i = i0 + r, j = j0 + c;
-      if (i < D && j < D && (!diag || i >= j)) {
-        T v = pv[u] - tile[r * (TILE + 1) + c];
-        if (HAS_KEEP) v *= kv[u];
-        tile[r * (TILE + 1) + c] = v;
-        out[(size_t)i * D + j] = v;
-      }
-    }
-  }
-  __syncthreads();
-  // its mirror (j, i): consecutive threads on consecutive i
-  for (int e = tid; e < TILE * TILE; e += C::THREADS) {
-    const int c = e / TILE, r = e % TILE;
-    const int i = i0 + r, j = j0 + c;
-    if (i < D && j < D && (!diag || i > j))
-      out[(size_t)j * D + i] = tile[r * (TILE + 1) + c];
+// ---- float64 on the FP64 tensor cores ----
+
+template <int TILE, int KP>
+struct Cfg64 {
+  static constexpr int STAGES = KP >= 32 ? 3 : 4;  // panels in the ring
+  static constexpr int WARPS_M = 2;
+  static constexpr int WARPS_N = TILE / 32;
+  static constexpr int WM = TILE / WARPS_M;          // warp tile: WM x WN
+  static constexpr int WN = 32;
+  static constexpr int MI = WM / 16, NI = WN / 8;    // m16n8 MMA tiles a warp
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int LD = TILE + 4;                // strip row, in doubles
+  static constexpr int STRIP = KP * LD;
+  static constexpr int ROW_CHUNKS = TILE / 2;        // 16-byte copies a row
+  static constexpr int ROW_STEP = THREADS / ROW_CHUNKS;
+  static constexpr int LOADS = KP / ROW_STEP;        // copies a thread a strip
+  static constexpr int RING = STAGES * 2 * STRIP * (int)sizeof(double);
+  static constexpr int EPI = TILE * (TILE + 1) * (int)sizeof(double);
+  static constexpr int SMEM = RING > EPI ? RING : EPI;
+  static constexpr int MIN_BLOCKS = TILE >= 128 ? 1 : 3;
+  static_assert(KP % ROW_STEP == 0 && LD % 16 == 4, "layout");
+};
+
+// c += a b on the FP64 tensor cores: one m16n8kK MMA. Fragments (g = lane
+// / 4, t = lane % 4): a[i] = A(g + 8 (i % 2), t + 4 (i / 2)), b[i] = B(t +
+// 4 i, g), c[v] = C(g + 8 (v / 2), 2 t + v % 2).
+template <int K>
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[K / 2],
+                                     const double (&b)[K / 4]) {
+  if constexpr (K == 4) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+  } else if constexpr (K == 8) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+  } else {
+    static_assert(K == 16, "MMA depth");
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, "
+        "{%0,%1,%2,%3};\n"
+        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+          "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
   }
 }
 
-// The shared-memory attributes of one kernel, set once per device.
-template <int TILE, bool HAS_KEEP, typename T>
-cudaError_t prepare() {
-  static unsigned long long ready = 0;   // one bit per device
+// Mp is M with rows padded to ld (even) doubles; A = M's column strip i0..,
+// B = its strip j0..; C = A^T B accumulates in registers. KP rows of M a
+// panel, m16n8kKMMA MMAs.
+template <int TILE, int KP, int KMMA, bool HAS_KEEP>
+__global__ void __launch_bounds__(Cfg64<TILE, KP>::THREADS,
+                                  Cfg64<TILE, KP>::MIN_BLOCKS)
+downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ Mp,
+                     const double* __restrict__ keep, double* __restrict__ out,
+                     int D, int ld, int m) {
+  using C = Cfg64<TILE, KP>;
+  static_assert(KP % KMMA == 0, "panel depth");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* smem = reinterpret_cast<double*>(smem_raw);
+
+  long long bi, bj;
+  tile_of_block(blockIdx.x, bi, bj);
+  const int i0 = (int)bi * TILE;
+  const int j0 = (int)bj * TILE;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = (warp / C::WARPS_N) * C::WM;   // the warp tile's first row
+  const int wc = (warp % C::WARPS_N) * C::WN;   // and column
+
+  // this thread's copies: strip columns col, col + 1, rows row0 + ROW_STEP r
+  // (ld is even: a copy lies wholly inside or outside [0, ld))
+  const int col = 2 * (tid % C::ROW_CHUNKS);
+  const int row0 = tid / C::ROW_CHUNKS;
+  const bool ok_i = i0 + col < ld;
+  const bool ok_j = j0 + col < ld;
+  const double* src_i = Mp + (ok_i ? i0 + col : 0);
+  const double* src_j = Mp + (ok_j ? j0 + col : 0);
+  const int n_panels = (m + KP - 1) / KP;
+
+  auto load_panel = [&](int panel) {
+    double* si = smem + (panel % C::STAGES) * 2 * C::STRIP;
+    double* sj = si + C::STRIP;
+#pragma unroll
+    for (int r = 0; r < C::LOADS; ++r) {
+      const int row = row0 + r * C::ROW_STEP;
+      const int k = panel * KP + row;
+      const size_t off = k < m ? (size_t)k * (size_t)ld : 0;
+      cp_async<16>(si + row * C::LD + col, src_i + off, k < m && ok_i);
+      cp_async<16>(sj + row * C::LD + col, src_j + off, k < m && ok_j);
+    }
+  };
+
+  double acc[C::MI][C::NI][4];
+#pragma unroll
+  for (int p = 0; p < C::MI; ++p)
+#pragma unroll
+    for (int q = 0; q < C::NI; ++q)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[p][q][v] = 0.0;
+
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < n_panels) load_panel(s);
+    cp_async_commit();
+  }
+  for (int panel = 0; panel < n_panels; ++panel) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();
+    if (panel + C::STAGES - 1 < n_panels) load_panel(panel + C::STAGES - 1);
+    cp_async_commit();
+    const double* si = smem + (panel % C::STAGES) * 2 * C::STRIP + wr + g;
+    const double* sj = si - wr + C::STRIP + wc;
+    // MMA steps wholly past m are skipped (their rows are zero)
+    const int rows = m - panel * KP;
+#pragma unroll
+    for (int kk = 0; kk < KP; kk += KMMA) {
+      if (kk >= rows) break;
+      double a[C::MI][KMMA / 2], b[C::NI][KMMA / 4];
+#pragma unroll
+      for (int p = 0; p < C::MI; ++p)
+#pragma unroll
+        for (int i = 0; i < KMMA / 2; ++i)
+          a[p][i] = si[(kk + t + 4 * (i / 2)) * C::LD + 16 * p + 8 * (i % 2)];
+#pragma unroll
+      for (int q = 0; q < C::NI; ++q)
+#pragma unroll
+        for (int i = 0; i < KMMA / 4; ++i)
+          b[q][i] = sj[(kk + t + 4 * i) * C::LD + 8 * q];
+#pragma unroll
+      for (int p = 0; p < C::MI; ++p)
+#pragma unroll
+        for (int q = 0; q < C::NI; ++q) dmma<KMMA>(acc[p][q], a[p], b[q]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: it becomes the epilogue tile
+
+  double* tile = smem;   // [TILE][TILE + 1]
+#pragma unroll
+  for (int p = 0; p < C::MI; ++p)
+#pragma unroll
+    for (int q = 0; q < C::NI; ++q)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int r = wr + 16 * p + g + 8 * (v / 2);
+        const int c = wc + 8 * q + 2 * t + v % 2;
+        tile[r * (TILE + 1) + c] = acc[p][q][v];
+      }
+  __syncthreads();
+  write_tile<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
+                                         bi == bj, tid);
+}
+
+// The shared-memory attributes of `kernel`, set once per device: `ready`
+// holds one bit per device, one variable per kernel.
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, int smem, unsigned long long& ready) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && (ready >> dev & 1ull)) return cudaSuccess;
-  auto kernel = downdate_kernel<TILE, HAS_KEEP, T>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Cfg<TILE, T>::SMEM);
+                             smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess && dev < 64) ready |= 1ull << dev;
   return err;
+}
+
+template <int TILE, bool HAS_KEEP, typename T>
+cudaError_t prepare() {
+  static unsigned long long ready = 0;
+  return set_smem(downdate_kernel<TILE, HAS_KEEP, T>, Cfg<TILE, T>::SMEM, ready);
+}
+
+template <int TILE, int KP, int KMMA, bool HAS_KEEP>
+cudaError_t prepare_dmma() {
+  static unsigned long long ready = 0;
+  return set_smem(downdate_kernel_dmma<TILE, KP, KMMA, HAS_KEEP>,
+                  Cfg64<TILE, KP>::SMEM, ready);
 }
 
 template <int TILE, typename T>
@@ -314,7 +524,7 @@ int launch(const T* P, const T* M, const T* keep, T* Mp, T* out, int D, int m,
   cudaError_t err = has_keep ? prepare<TILE, true, T>() : prepare<TILE, false, T>();
   if (err != cudaSuccess) return (int)err;
   int ld = D;
-  if constexpr (C::PADDED) {   // float only: pad_rows copies floats
+  if constexpr (C::PADDED) {   // float only (the f64 SIMT tile is 32)
     ld = (D + 3) / 4 * 4;
     pad_rows<<<m, 256, 0, stream>>>(M, Mp, D, ld);
     M = Mp;
@@ -325,6 +535,48 @@ int launch(const T* P, const T* M, const T* keep, T* Mp, T* out, int D, int m,
   kernel<<<nt * (nt + 1) / 2, C::THREADS, C::SMEM, stream>>>(P, M, keep, out,
                                                             D, ld, m);
   return (int)cudaGetLastError();
+}
+
+template <int TILE, int KP, int KMMA>
+int launch_dmma(const double* P, const double* M, const double* keep,
+                double* Mp, double* out, int D, int m, cudaStream_t stream) {
+  using C = Cfg64<TILE, KP>;
+  if (Mp == nullptr) return (int)cudaErrorInvalidValue;
+  const bool has_keep = keep != nullptr;
+  cudaError_t err = has_keep ? prepare_dmma<TILE, KP, KMMA, true>()
+                             : prepare_dmma<TILE, KP, KMMA, false>();
+  if (err != cudaSuccess) return (int)err;
+  const int ld = (D + 1) / 2 * 2;
+  pad_rows<<<m, 256, 0, stream>>>(M, Mp, D, ld);
+  const unsigned int nt = (D + TILE - 1) / TILE;
+  auto kernel = has_keep ? downdate_kernel_dmma<TILE, KP, KMMA, true>
+                         : downdate_kernel_dmma<TILE, KP, KMMA, false>;
+  kernel<<<nt * (nt + 1) / 2, C::THREADS, C::SMEM, stream>>>(P, Mp, keep, out,
+                                                            D, ld, m);
+  return (int)cudaGetLastError();
+}
+
+template <int TILE, int KP>
+int launch_dmma(const double* P, const double* M, const double* keep,
+                double* Mp, double* out, int D, int m, int kmma,
+                cudaStream_t stream) {
+  switch (kmma) {
+    case 4: return launch_dmma<TILE, KP, 4>(P, M, keep, Mp, out, D, m, stream);
+    case 8: return launch_dmma<TILE, KP, 8>(P, M, keep, Mp, out, D, m, stream);
+    case 16: return launch_dmma<TILE, KP, 16>(P, M, keep, Mp, out, D, m, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int TILE>
+int launch_dmma(const double* P, const double* M, const double* keep,
+                double* Mp, double* out, int D, int m, int kmma, int panel,
+                cudaStream_t stream) {
+  switch (panel) {
+    case 16: return launch_dmma<TILE, 16>(P, M, keep, Mp, out, D, m, kmma, stream);
+    case 32: return launch_dmma<TILE, 32>(P, M, keep, Mp, out, D, m, kmma, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -346,10 +598,20 @@ extern "C" int symmetric_downdate_f32(const float* P, const float* M,
   }
 }
 
-// The same for float64 P, M, keep and out, at 32-wide tiles (no scratch):
-// out = k k^T o (P - M^T M), lower triangle read, mirrored.
+// The same for float64 P, M, keep and out. tile 32: the SIMT kernel (Mp,
+// kmma and panel unused, may be NULL and 0); tile 64 or 128: the DMMA
+// kernel with m16n8k`kmma` MMAs (4, 8 or 16) and `panel` rows of M a panel
+// (16 or 32), Mp scratch of m x Dp doubles (Dp = D rounded up to 2).
 extern "C" int symmetric_downdate_f64(const double* P, const double* M,
-                                      const double* keep, double* out, int D,
-                                      int m, cudaStream_t stream) {
-  return launch<32, double>(P, M, keep, nullptr, out, D, m, stream);
+                                      const double* keep, double* Mp,
+                                      double* out, int D, int m, int tile,
+                                      int kmma, int panel, cudaStream_t stream) {
+  switch (tile) {
+    case 32: return launch<32, double>(P, M, keep, nullptr, out, D, m, stream);
+    case 64:
+      return launch_dmma<64>(P, M, keep, Mp, out, D, m, kmma, panel, stream);
+    case 128:
+      return launch_dmma<128>(P, M, keep, Mp, out, D, m, kmma, panel, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -8,8 +8,11 @@ EKF downdate goes through it: the fused frame step's masked downdate
 tensors on the CPU it runs :func:`symmetric_downdate_ref` (the tests' path);
 for CUDA tensors it launches ``csrc/symmetric_downdate.cu`` or raises: there
 is no fallback. Both versions read only the lower triangle of P and mirror
-it, so the result is exactly symmetric. The kernel's tile edge comes from D
-(:func:`downdate_config`); for 128-wide tiles the wrapper also allocates the
+it, so the result is exactly symmetric. The kernel and its tile edge come
+from D and the type (:func:`downdate_config`). float32 runs on the FP32
+lanes; float64 past a small D runs on the FP64 tensor cores (DMMA, the rate
+its bound assumes), at 32-wide tiles on the FP64 lanes below. For the
+128-wide float32 tiles and every DMMA tile the wrapper also allocates the
 scratch into which a first kernel copies M with padded rows, so such a call
 is two device launches.
 """
@@ -23,8 +26,9 @@ import torch
 from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
 
 # Wrapper calls in this process that launched a CUDA kernel, float32 or
-# float64 (the plain version never counts). A call with 128-wide tiles is two
-# device launches, the row padding copy and the downdate; it counts once.
+# float64 (the plain version never counts). A call that pads M's rows first
+# (float32 at 128-wide tiles, float64 on the tensor cores) is two device
+# launches, the row padding copy and the downdate; it counts once.
 LAUNCHES = 0
 
 _LIB = KernelLibrary(
@@ -33,7 +37,7 @@ _LIB = KernelLibrary(
 # the float64 entry point of the same source: the same library file
 _LIB64 = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_f64",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 # Output tile edge by D: D <= TILE_32_MAX_D takes 32, larger D 128. Wider
 # tiles reuse each loaded value more but give fewer blocks. In a sweep of
@@ -41,14 +45,27 @@ _LIB64 = KernelLibrary(
 # PERF.md), 32 was the faster edge at every D up to 1933 but 1549 (4%
 # slower there) and 128 at every D from 2317 on.
 TILE_32_MAX_D = 1933
+# float64: the SIMT tile (32) up to F64_TILE_32_MAX_D, then the DMMA tiles,
+# 64-wide up to F64_TILE_64_MAX_D and 128-wide above, with m16n8k
+# F64_MMA_K MMAs and F64_PANEL rows of M a panel (the same sweep in
+# float64; PERF.md).
+F64_TILE_32_MAX_D = 300
+F64_TILE_64_MAX_D = 1933
+F64_MMA_K = 4
+F64_PANEL = 16
 
 
-def downdate_config(D: int) -> tuple[int, int]:
-    """(tile edge, thread blocks) of the kernel for a [D,D] output: one block
-    per lower-triangle tile, the grid the kernel's entry point launches."""
+def downdate_config(D: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+    """(tile edge, thread blocks) of the kernel for a [D,D] output of
+    ``dtype``: one block per lower-triangle tile, the grid the kernel's entry
+    point launches. A float64 edge of 64 or 128 is the DMMA kernel's."""
     if D < 1:
         raise ValueError(f"D must be >= 1, got {D}")
-    tile = 32 if D <= TILE_32_MAX_D else 128
+    if dtype == torch.float64:
+        tile = (32 if D <= F64_TILE_32_MAX_D else
+                64 if D <= F64_TILE_64_MAX_D else 128)
+    else:
+        tile = 32 if D <= TILE_32_MAX_D else 128
     nt = -(-D // tile)
     return tile, nt * (nt + 1) // 2
 
@@ -93,19 +110,22 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
     m = M.shape[0]
     out = torch.empty_like(P)
     keep_ptr = None if keep is None else keep.data_ptr()
+    tile = downdate_config(D, P.dtype)[0]
+    f64 = P.dtype == torch.float64
+    # tiles past 32 (float32 128, float64 64 and 128) load M from a copy
+    # whose rows are padded to 16 bytes (4 floats, 2 doubles)
+    row = 2 if f64 else 4
+    scratch = (torch.empty((m, -(-D // row) * row), dtype=P.dtype,
+                           device=P.device) if tile > 32 else None)
+    scratch_ptr = None if scratch is None else scratch.data_ptr()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if P.dtype == torch.float64:
-            rc = _LIB64.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
-                             out.data_ptr(), D, m, stream)
+        if f64:
+            rc = _LIB64.fn()(P.data_ptr(), M.data_ptr(), keep_ptr, scratch_ptr,
+                             out.data_ptr(), D, m, tile, F64_MMA_K, F64_PANEL,
+                             stream)
         else:
-            tile = downdate_config(D)[0]
-            # 128-wide tiles load M from a copy whose rows are padded to a
-            # multiple of 4 floats (16-byte loads)
-            scratch = (torch.empty((m, -(-D // 4) * 4), dtype=P.dtype,
-                                   device=P.device) if tile == 128 else None)
-            rc = _LIB.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
-                           None if scratch is None else scratch.data_ptr(),
+            rc = _LIB.fn()(P.data_ptr(), M.data_ptr(), keep_ptr, scratch_ptr,
                            out.data_ptr(), D, m, tile, stream)
     if rc != 0:
         raise RuntimeError(f"symmetric_downdate kernel launch failed: CUDA error {rc}")

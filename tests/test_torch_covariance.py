@@ -124,6 +124,38 @@ def test_torch_downdate_config_covers_every_width():
         covariance.downdate_config(0)
 
 
+@pytest.mark.parametrize("D", [1, 43, 589, 1933, 2317, 4621])
+def test_torch_downdate_config_float32_is_the_default(D):
+    """The type is a keyword that defaults to float32, whose rule is the
+    one D alone gave: 32 up to TILE_32_MAX_D, 128 above."""
+    want = 32 if D <= covariance.TILE_32_MAX_D else 128
+    nt = -(-D // want)
+    assert covariance.downdate_config(D) == (want, nt * (nt + 1) // 2)
+    assert covariance.downdate_config(D, torch.float32) == covariance.downdate_config(D)
+    assert covariance.downdate_config(D, dtype=torch.float32) == covariance.downdate_config(D)
+
+
+def test_torch_downdate_config_float64_rule():
+    """float64: every D from 1 to 5000 gets the SIMT tile (32) or a DMMA
+    tile (64, 128), growing with D and switching just past each threshold,
+    and one block per lower-triangle tile."""
+    last = 0
+    for D in range(1, 5001):
+        tile, blocks = covariance.downdate_config(D, torch.float64)
+        assert tile in (32, 64, 128) and tile >= last
+        nt = len(range(0, D, tile))
+        assert blocks == sum(1 for bi in range(nt) for bj in range(bi + 1))
+        last = tile
+    for edge, below, above in ((covariance.F64_TILE_32_MAX_D, 32, 64),
+                               (covariance.F64_TILE_64_MAX_D, 64, 128)):
+        if edge >= 1:
+            assert covariance.downdate_config(edge, torch.float64)[0] == below
+        assert covariance.downdate_config(edge + 1, torch.float64)[0] == above
+    assert covariance.F64_MMA_K in (4, 8, 16)
+    with pytest.raises(ValueError):
+        covariance.downdate_config(0, torch.float64)
+
+
 def test_torch_kernel_libraries_keyed_by_their_own_source():
     """Each kernel source builds its own library, named after the source and
     keyed by sha256(source + nvcc flags)[:16] as the NCC library was."""

@@ -155,6 +155,71 @@ def test_torch_downdate_kernel_f64_matches_plain_on_card(D, m, with_keep):
     assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-12
 
 
+def f64_checked(P, M, keep):
+    """Two float64 wrapper calls against the plain version: both counted,
+    bitwise symmetric, bitwise equal to each other, finite, and within 1e-12
+    of the plain version in the relative Frobenius norm."""
+    before = covariance.LAUNCHES
+    got = covariance.symmetric_downdate(P, M, keep)
+    again = covariance.symmetric_downdate(P, M, keep)
+    want = covariance.symmetric_downdate_ref(P, M, keep)
+    torch.cuda.synchronize()
+    assert covariance.LAUNCHES == before + 2
+    assert got.dtype == torch.float64
+    assert torch.equal(got, got.T) and torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", ["F64_TILE_32_MAX_D", "F64_TILE_64_MAX_D"])
+@pytest.mark.parametrize("side", [-1, 0, 1])
+def test_torch_downdate_kernel_f64_at_tile_thresholds(edge, side):
+    """Each float64 tile threshold +-1 (the SIMT tile, then the 64- and
+    128-wide DMMA tiles), with a ragged m."""
+    dev = _card()
+    D = getattr(covariance, edge) + side
+    if D < 1:
+        pytest.skip(f"{edge} + {side} is no width")
+    f64_checked(*_inputs(D, 48, True, dev, torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1000, 4621])
+@pytest.mark.parametrize("m", [1, 3, 7, 17, 33])
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_torch_downdate_kernel_f64_ragged_m(D, m, with_keep):
+    """m short of the MMA depth and of the panel (zero-filled rows), at a
+    64-wide-or-wider and a 128-wide DMMA width."""
+    dev = _card()
+    f64_checked(*_inputs(D, m, with_keep, dev, torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [300, 2317])
+def test_torch_downdate_kernel_f64_tall_m(D):
+    """m = 2000 rows: many panels through the cp.async ring."""
+    dev = _card()
+    f64_checked(*_inputs(D, 2000, True, dev, torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_torch_downdate_kernel_f64_repeats_bitwise(with_keep):
+    """No split-K and no atomics in float64 either: two launches agree bit
+    for bit at the flagship shape, which runs on the FP64 tensor cores (a
+    kernel named for DMMA shows in the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = _card()
+    P, M, keep = _inputs(4621, 1536, with_keep, dev, torch.float64)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        first = covariance.symmetric_downdate(P, M, keep)
+        torch.cuda.synchronize()
+    assert torch.equal(first, covariance.symmetric_downdate(P, M, keep))
+    names = {e.name for e in prof.events()}
+    assert any("downdate_kernel_dmma" in n for n in names), names
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,m", [(43, 10), (129, 1), (130, 7), (300, 64),
                                  (2000, 17)])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Probe of the symmetric downdate kernel (csrc/symmetric_downdate.cu) on one
 CUDA card: ptxas's report, bitwise checks and a timing sweep over the tile
-edges, the data behind the tile threshold of ``ops/covariance.py``.
+edges, the data behind the tile thresholds of ``ops/covariance.py``.
 
     python3 tools/probe_downdate.py [--ref-source FILE] [--flagship-frames N]
                                     [--clock-seconds S] [--no-sweep] [--out FILE]
@@ -18,13 +18,18 @@ edges, the data behind the tile threshold of ``ops/covariance.py``.
 * float64: every shape of ``chip_smoke.DOWNDATE_SHAPES`` in float64 held to
   ``chip_smoke.compare_downdate_f64`` (bitwise symmetric, two launches
   bitwise equal, relative Frobenius difference to the plain version
-  <= 1e-12), and its device time at the main-path shapes.
+  <= 1e-12), and so is every f64 configuration of ``F64_CONFIGS`` (the SIMT
+  32-wide tile, the DMMA tiles at each MMA depth); its device time at the
+  main-path shapes. With ``--ref-source``, the reference build's float64
+  entry point too (the earlier ``(P, M, keep, out, D, m, stream)`` or the
+  current one), held to the same bound and timed in turns with the new.
 * ``--flagship-frames N`` runs the K=768 flagship loop for N frames and
   checks the kernel (and the reference build) on that state's (P, B, keep).
 * ``--clock-seconds S`` runs the kernel back to back at the flagship shape
   for about S seconds while nvidia-smi samples the SM clock and power.
 * the sweep times each tile edge at D = 13 + 6K, m = 2K for K from 16 to 768
-  with a 0/1 keep (CUDA events and the profiler's device time).
+  with a 0/1 keep (CUDA events and the profiler's device time), in float32
+  and, over ``F64_CONFIGS``, in float64.
 One JSON line per result on stdout, and also in ``--out`` FILE if given.
 """
 
@@ -44,6 +49,9 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 TILES = (32, 128)
+# float64 (tile, MMA depth, panel rows): the SIMT tile, then the DMMA tiles
+F64_CONFIGS = ((32, 0, 0),) + tuple((t, k, p) for t in (64, 128)
+                                    for k in (4, 8, 16) for p in (16, 32))
 SWEEP_K = (16, 32, 48, 64, 96, 128, 160, 192, 224, 256, 320, 384, 512, 768)
 
 
@@ -63,36 +71,103 @@ def run_f32(fn, P, M, keep, tile):
     return out
 
 
+def run_f64(fn, P, M, keep, tile, kmma, panel):
+    """One call of a build's current f64 entry point (scratch, tile edge, MMA
+    depth and panel rows), returning its output."""
+    import torch
+    D, m = P.shape[0], M.shape[0]
+    out = torch.empty_like(P)
+    scratch = (torch.empty((m, -(-D // 2) * 2), dtype=P.dtype, device=P.device)
+               if tile > 32 else None)
+    rc = fn(P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            D, m, tile, kmma, panel, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"f64 {cfg_name((tile, kmma, panel))}: CUDA error {rc}")
+    return out
+
+
 def launcher(cov, tile):
     """The wrapper's kernel with a forced tile edge."""
     fn = cov._LIB.fn()
     return lambda P, M, keep: run_f32(fn, P, M, keep, tile)
 
 
-def ref_launcher(path: str):
-    """A build of another kernel source. Its entry point takes the scratch
-    and the tile edge (the current one) if the source names ``Mp``, else
-    the earlier (P, M, keep, out, D, m, stream)."""
+def cfg_name(cfg) -> str:
+    """'32' for the SIMT tile, else e.g. '128k4p16': tile, MMA depth, panel."""
+    return str(cfg[0]) if cfg[0] == 32 else "{}k{}p{}".format(*cfg)
+
+
+def launcher_f64(cov, cfg):
+    """The wrapper's float64 kernel with a forced (tile, MMA depth, panel)."""
+    fn = cov._LIB64.fn()
+    return lambda P, M, keep: run_f64(fn, P, M, keep, *cfg)
+
+
+def run_early(fn, P, M, keep):
+    """One call of an earlier entry point (P, M, keep, out, D, m, stream)."""
     import torch
+    out = torch.empty_like(P)
+    rc = fn(P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
+            out.data_ptr(), P.shape[0], M.shape[0],
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"reference kernel: CUDA error {rc}")
+    return out
+
+
+def ref_launcher(path: str):
+    """Builds of another kernel source: (f32 run, f64 run or None, its f32
+    library). Each entry point takes the scratch and the tile edge (the
+    current ones) if the source names ``Mp`` for its type, else the earlier
+    (P, M, keep, out, D, m, stream); a source without
+    ``symmetric_downdate_f64`` gives no f64 run."""
     from surikatoko_tpu_torch.ops import covariance as cov
     from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
-    current = "float* Mp" in Path(path).read_text()
+    text = Path(path).read_text()
+    early = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    current = "float* Mp" in text
     lib = KernelLibrary(str(Path(path).resolve()), "symmetric_downdate_f32",
-                        cov._LIB.argtypes if current else
-                        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                        cov._LIB.argtypes if current else early)
     fn = lib.fn()
 
     def run(P, M, keep):
         if current:
             return run_f32(fn, P, M, keep, cov.downdate_config(P.shape[0])[0])
-        out = torch.empty_like(P)
-        rc = fn(P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
-                out.data_ptr(), P.shape[0], M.shape[0],
-                torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            raise RuntimeError(f"reference kernel: CUDA error {rc}")
-        return out
-    return run, lib
+        return run_early(fn, P, M, keep)
+
+    run64 = None
+    if "symmetric_downdate_f64" in text:
+        current64 = "double* Mp" in text
+        fn64 = KernelLibrary(str(Path(path).resolve()), "symmetric_downdate_f64",
+                             cov._LIB64.argtypes if current64 else early).fn()
+
+        def run64(P, M, keep):
+            if current64:
+                tile = cov.downdate_config(P.shape[0], P.dtype)[0]
+                return run_f64(fn64, P, M, keep, tile, cov.F64_MMA_K,
+                               cov.F64_PANEL)
+            return run_early(fn64, P, M, keep)
+    return run, run64, lib
+
+
+def sass_ops(lib_path, ops=("DMMA", "DFMA", "FFMA")) -> dict:
+    """{kernel: {opcode: count}} of the library's SASS (cuobjdump), for the
+    kernels that issue any of ``ops``: which run on the FP64 tensor cores
+    (DMMA) and which on the vector lanes (DFMA, FFMA)."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    cmd = [str(tool) if tool.exists() else "cuobjdump", "-sass", str(lib_path)]
+    text = subprocess.run(cmd, capture_output=True, text=True, timeout=120).stdout
+    counts, name = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+        elif name:
+            for op in ops:
+                if f" {op}" in ln:
+                    c = counts.setdefault(name, {})
+                    c[op] = c.get(op, 0) + 1
+    return counts
 
 
 def main() -> int:
@@ -128,11 +203,13 @@ def main() -> int:
     emit({"probe": "env", "nvidia_smi": cs.nvidia_smi("name,power.limit"),
           "clocks_max_sm": cs.nvidia_smi("clocks.max.sm"),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "ptxas": cs.ptxas_summary(cov._LIB)})
+          "ptxas": cs.ptxas_summary(cov._LIB),
+          "sass_ops": sass_ops(cov._LIB.build())})
     kern = {t: launcher(cov, t) for t in TILES}
-    ref = None
+    kern64 = {cfg_name(c): launcher_f64(cov, c) for c in F64_CONFIGS}
+    ref = ref64 = None
     if args.ref_source:
-        ref, ref_lib = ref_launcher(args.ref_source)
+        ref, ref64, ref_lib = ref_launcher(args.ref_source)
         emit({"probe": "ref_build", "source": args.ref_source,
               "ptxas": cs.ptxas_summary(ref_lib)})
 
@@ -157,12 +234,32 @@ def main() -> int:
         for with_keep in (False, True):
             ok &= check("random", *cs.downdate_case(D, m, with_keep, dev))
 
+    def rel_fro(got, want):
+        return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+    def f64_ok(got, again, want):
+        return (torch.equal(got, got.T) and torch.equal(got, again)
+                and bool(torch.isfinite(got).all())
+                and rel_fro(got, want) <= cs.F64_REL_FRO)
+
     for D, m in cs.DOWNDATE_SHAPES:
         for with_keep in (False, True):
             P, M, keep = cs.downdate_case(D, m, with_keep, dev, torch.float64)
             rel, ok64 = cs.compare_downdate_f64(cov, P, M, keep)
-            emit({"probe": "check_f64", "D": D, "m": m, "keep": with_keep,
-                  "rel_fro": rel, "ok": ok64})
+            want = cov.symmetric_downdate_ref(P, M, keep)
+            row = {"probe": "check_f64", "D": D, "m": m, "keep": with_keep,
+                   "tile": cov.downdate_config(D, torch.float64)[0],
+                   "rel_fro": rel, "configs_rel_fro": {}}
+            for c, f in kern64.items():
+                got = f(P, M, keep)
+                row["configs_rel_fro"][c] = rel_fro(got, want)
+                ok64 &= f64_ok(got, f(P, M, keep), want)
+            if ref64 is not None:
+                got = ref64(P, M, keep)
+                row["ref_rel_fro"] = rel_fro(got, want)
+                ok64 &= f64_ok(got, ref64(P, M, keep), want)
+            row["ok"] = ok64
+            emit(row)
             ok &= ok64
 
     if args.flagship_frames > 0:
@@ -193,8 +290,21 @@ def main() -> int:
                 tm[name].append(cs.cuda_ms(f, n))
             row.update(ref=cs.device_us_per_call(old), ref_vs_new_ms=tm)
         P, M, keep = cs.downdate_case(D, m, True, dev, torch.float64)
-        row["kernel_f64"] = cs.device_us_per_call(
-            lambda: cov.symmetric_downdate(P, M, keep))
+        new = lambda: cov.symmetric_downdate(P, M, keep)
+        row["kernel_f64"] = cs.device_us_per_call(new)
+        row["tile_f64"] = cov.downdate_config(D, torch.float64)[0]
+        if ref64 is not None:
+            old = lambda: ref64(P, M, keep)
+            n = 200 if D < 1000 else 20
+            tm = {"ref": [], "new": []}
+            us = {"ref": [], "new": []}
+            for name, f in (("ref", old), ("new", new), ("new", new), ("ref", old)):
+                tm[name].append(cs.cuda_ms(f, n))
+                us[name].append(cs.device_us_per_call(f))
+            row.update(ref_f64_vs_new_ms=tm, ref_f64_vs_new_device_us=us,
+                       ref_f64_vs_new_graph_ms={
+                           name: cs.cuda_graph_ms(f, max(n // 4, 5))
+                           for name, f in (("ref", old), ("new", new))})
         emit(row)
 
     if args.clock_seconds > 0:
@@ -231,6 +341,15 @@ def main() -> int:
                   "best_device": min(dev_us, key=dev_us.get),
                   "tfma_per_s_device": {t: fma / (v * 1e-6) / 1e12
                                         for t, v in dev_us.items()}})
+            P, M, keep = cs.downdate_case(D, m, True, dev, torch.float64)
+            dev_us = {c: cs.device_us_per_call(lambda: f(P, M, keep))
+                      for c, f in kern64.items()}
+            emit({"probe": "sweep_f64", "K": K, "D": D, "m": m,
+                  "device_us": dev_us,
+                  "pick": cov.downdate_config(D, torch.float64)[0],
+                  "best_device": min(dev_us, key=dev_us.get),
+                  "tfma_per_s_device": {c: fma / (v * 1e-6) / 1e12
+                                        for c, v in dev_us.items()}})
     if sink:
         sink.close()
     print(json.dumps({"ok": bool(ok)}), flush=True)
