@@ -25,7 +25,9 @@ Phases, one JSON line each:
            |kernel - plain| <= 1e-5 (|P| o |kk^T| + |M o k|^T |M o k|) + 1e-30.
            The downdate's float64 entry point at the same shapes against
            its plain version in float64 on the card: bitwise symmetric, two
-           launches bitwise equal, relative Frobenius difference <= 1e-12.
+           launches bitwise equal, relative Frobenius difference <= 1e-12
+           (32-wide SIMT tiles up to D = 589, the DMMA kernel's 64-wide
+           tiles on the FP64 tensor cores above).
            All timed with CUDA events over back-to-back calls, over
            replays of a CUDA graph of the calls (which leaves out the host's
            time between launches) and by the profiler's device time, each
@@ -80,8 +82,9 @@ Phases, one JSON line each:
            make_scan_runner(1) on build_oscillating_scenario(768), frames
            1-120, float64 without mitigations and float32 with
            max_undetected_frames=60 and covar_diag_inflation=1e-6; asserts
-           finite, matched median > 500 in both, and f32 ATE <= 2 x f64
-           ATE + 0.02.
+           finite, matched median > 500 in both, one downdate launch per
+           frame, and f32 ATE <= 2 x f64 ATE + 0.02. One more float64 frame
+           under the profiler: device busy time, B2's share, top kernels.
   ba_dino  the JAX bench's dino BA (bench.py:587-623), float32: the 36 x
            4983 synthetic turntable written in the VGG file formats and read
            back through the loader; the device-loop sparse LM (full-width
@@ -97,7 +100,8 @@ Phases, one JSON line each:
            Asserts finite outputs, both solves ok and a decreased error.
   Neither BA phase may launch kernel B1 or B2.
 Then a line with every kernel's launches, error and times (B2's float64
-entry point's too), the card's name
+entry point's too: its tile edge, its launches in precision_k768's float64
+run, and whether it beat its one-call yardstick), the card's name
 and power limit as nvidia-smi gives them, and the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero; with
 no CUDA device it exits 1 before printing anything on stdout.
@@ -233,10 +237,16 @@ def timed_build(mod):
     return os.path.relpath(path), time.perf_counter() - t0
 
 
-def device_us_per_call(fn, calls: int = 5) -> float:
+def device_us_per_call(fn, calls: int = 5, tries: int = 3) -> float:
     """Mean device time of one call of ``fn`` over ``calls`` calls under the
-    profiler (one profiled call alone varies by tens of percent)."""
-    return device_profile(lambda: [fn() for _ in range(calls)])[0] / calls
+    profiler (one profiled call alone varies by tens of percent). A profile
+    that recorded no device event at all is taken again, up to ``tries``
+    times in all."""
+    for _ in range(tries):
+        busy = device_profile(lambda: [fn() for _ in range(calls)])[0]
+        if busy > 0:
+            break
+    return busy / calls
 
 
 def ptxas_summary(lib) -> list:
@@ -620,12 +630,15 @@ def hostloop_summary(res) -> dict:
             "P_exactly_symmetric": bool(torch.equal(st.P, st.P.T))}
 
 
-def precision_run(device, dtype, mitigations: bool) -> dict:
+def precision_run(device, dtype, mitigations: bool, profile: bool = False) -> dict:
     """One run of the K=768 pin: GT bootstrap, make_scan_runner(1) over
-    PK_FRAMES; (ATE, matched median, finite, Cholesky infos, wall s)."""
+    PK_FRAMES; (ATE, matched median, finite, Cholesky infos, wall s, kernel
+    launches during the run) and with ``profile`` one more frame under the
+    profiler (device busy us, B2's [us, launches], top kernels)."""
     import torch
     from surikatoko_tpu_torch.geom.align import aligned_rmse
     from surikatoko_tpu_torch.models.monoslam import init_state
+    from surikatoko_tpu_torch.ops import covariance, ncc_cuda
     from surikatoko_tpu_torch.world.device_runner import (
         init_with_gt_landmarks, make_scan_runner)
     params, sc = oscillating_world(device, dtype, PK_K,
@@ -642,14 +655,27 @@ def precision_run(device, dtype, mitigations: bool) -> dict:
     st2, errs, n, pos, info = run(st, sc, PK_FRAMES, noise)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    launches = {"ncc_search": ncc_cuda.LAUNCHES,
+                "symmetric_downdate": covariance.LAUNCHES}
     finite = bool(torch.isfinite(st2.x).all() and torch.isfinite(pos).all())
-    return {"dtype": str(dtype).replace("torch.", ""),
-            "mitigations": mitigations, "frames": len(PK_FRAMES), "s": dt,
-            "ate": float(aligned_rmse(pos.double(),
-                                      gt_positions(sc, PK_FRAMES).double())),
-            "matched_med": float(np.median(n.cpu().numpy())),
-            "finite": finite, "chol_info_nonzero": int(torch.count_nonzero(info)),
-            "P_exactly_symmetric": bool(torch.equal(st2.P, st2.P.T))}
+    out = {"dtype": str(dtype).replace("torch.", ""),
+           "mitigations": mitigations, "frames": len(PK_FRAMES), "s": dt,
+           "ate": float(aligned_rmse(pos.double(),
+                                     gt_positions(sc, PK_FRAMES).double())),
+           "matched_med": float(np.median(n.cpu().numpy())),
+           "finite": finite, "chol_info_nonzero": int(torch.count_nonzero(info)),
+           "P_exactly_symmetric": bool(torch.equal(st2.P, st2.P.T)),
+           "launches": launches}
+    if profile:
+        frame = PK_FRAMES[-1] + 1
+        busy, nlaunch, top, by_kernel = device_profile(
+            lambda: run(st2, sc, [frame], noise[:1]))
+        out["profile_frame"] = {
+            "frame": frame, "device_busy_us": busy, "device_launches": nlaunch,
+            "symmetric_downdate_us_launches": kernel_share(
+                by_kernel, DOWNDATE_DEVICE_KERNELS),
+            "top_kernels_us_count": top}
+    return out
 
 
 def dino_problem(device, dtype, n_points=DINO_POINTS):
@@ -1022,6 +1048,7 @@ def main() -> int:
                 b_ms, b_by = bound_ms(fma, 2.0 * nbytes, f64_fma_per_s)
                 kern_ms = float(np.mean(tm["kernel"]))
                 tm.update(kernel_device_us=device_us_per_call(fns["kernel"]),
+                          tile=covariance.downdate_config(D, torch.float64)[0],
                           bound_ms=b_ms, bound_by=b_by,
                           pct_of_bound=100.0 * b_ms / kern_ms)
                 dd64_times[f"{D}x{m}"] = tm
@@ -1327,9 +1354,7 @@ def main() -> int:
     pk = {}
     for dtype, mit in ((torch.float64, False), (torch.float32, True)):
         covariance.LAUNCHES = ncc_cuda.LAUNCHES = 0
-        r = precision_run(device, dtype, mit)
-        r["launches"] = {"ncc_search": ncc_cuda.LAUNCHES,
-                         "symmetric_downdate": covariance.LAUNCHES}
+        r = precision_run(device, dtype, mit, profile=dtype == torch.float64)
         pk[r["dtype"]] = r
     pk_bound = 2 * pk["float64"]["ate"] + 0.02
     emit({"phase": "precision_k768", "K": PK_K, "D": 13 + 6 * PK_K, **pk,
@@ -1407,6 +1432,8 @@ def main() -> int:
         "bound_ms": dd_main["bound_ms"], "bound_by": dd_main["bound_by"],
         "pct_of_bound": 100.0 * dd_main["bound_ms"] / dd_ms,
         "library_ms": float(np.mean(dd_main["addmm"])),
+        "f64_tile": dd64_main["tile"],
+        "f64_launches": pk["float64"]["launches"]["symmetric_downdate"],
         "f64_ms": float(np.mean(dd64_main["kernel"])),
         "f64_graph_ms": dd64_main["graph_ms"]["kernel"],
         "f64_device_us": dd64_main["kernel_device_us"],
@@ -1415,6 +1442,9 @@ def main() -> int:
         "f64_bound_ms": dd64_main["bound_ms"],
         "f64_bound_by": dd64_main["bound_by"],
         "f64_pct_of_bound": dd64_main["pct_of_bound"],
+        "f64_faster_than_library": bool(
+            max(dd64_main["kernel"]) < min(dd64_main["addmm"])
+            and dd64_main["graph_ms"]["kernel"] < dd64_main["graph_ms"]["addmm"]),
         "f64_max_rel_fro": max(c["rel_fro"] for c in dd64_cases)}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

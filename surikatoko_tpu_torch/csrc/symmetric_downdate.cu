@@ -58,33 +58,33 @@
 // FMAs, D(D+1)/2 m at the FP64 tensor cores' 132 SMs x 128 FMA a clock x
 // 1.98 GHz (33.5 TFMA/s), 0.49 ms at D = 4621, m = 1536 against 0.093 ms
 // for its 313 MB. The FP64 vector lanes run half that rate, and wgmma has
-// no f64 form, so the large tiles run on the FP64 tensor cores through
-// mma.sync (DMMA), as one kernel of its own (downdate_kernel_dmma):
-// * TILE x TILE lower-triangle tiles (64 or 128), one block each; 2 x
-//   TILE/32 warps, each a (TILE/2) x 32 warp tile of m16n8 MMAs (4 x 4 of
-//   them at TILE = 128: 64 accumulators of two registers each). The MMA's
-//   depth (m16n8k4, k8 or k16) is the caller's choice.
+// no f64 form, so past a small D it runs on the FP64 tensor cores through
+// mma.sync (DMMA), as a kernel of its own (downdate_kernel_dmma):
+// * 64 x 64 lower-triangle tiles, one block each, 4 warps of 32 x 32 warp
+//   tiles, each 2 x 4 m16n8k16 MMAs (32 accumulators of two registers).
+//   In a sweep on an H100 (tools/probe_downdate.py) 64-wide tiles beat
+//   128-wide ones (8 warps of 64 x 32, one block an SM for registers) at
+//   every D, and k16 beat k4 and k8; three blocks share an SM.
 // * C_ij = sum_a M_ai M_aj: both operands are column strips of M, staged
-//   k-major as [KP, TILE] through a 4-deep cp.async ring. pad_rows first
-//   copies M into rows padded to an even count (16 bytes), so the strips
-//   move in 16-byte cp.async.cg copies. ldmatrix has no 64-bit form: the
-//   fragments come from plain 8-byte shared loads, and a strip row is
-//   TILE + 4 doubles long, so the 16 lanes of a half-warp (4 rows k x 4
-//   columns) hit 16 distinct bank pairs: no conflicts.
-// * summation order: one accumulator per output from 0, the MMA chain over
-//   a = 0 .. m-1 in increasing panels (rows past m are zero up to the
-//   MMA's depth); no split-K, no atomics, so two launches give equal bits.
-//   The MMA's internal order differs from an fma chain, so outputs differ
-//   from the SIMT kernel's in the last bits.
+//   k-major as [16, 64] (one MMA deep) through a 4-deep cp.async ring.
+//   pad_rows first copies M into rows padded to an even count (16 bytes),
+//   so the strips move in 16-byte cp.async.cg copies. ldmatrix has no
+//   64-bit form: the fragments come from plain 8-byte shared loads, and a
+//   strip row is 68 doubles long, so the 16 lanes of a half-warp (4 rows k
+//   x 4 columns) hit 16 distinct bank pairs: no conflicts.
+// * summation order: one accumulator per output from 0, one MMA a panel of
+//   16 rows of M in increasing order (rows past m are zero); no split-K,
+//   no atomics, so two launches give equal bits. The MMA's internal order
+//   is the tensor core's, not a spelled-out fma chain.
 // * the epilogue is the float32 kernel's (write_tile): keep mask and
 //   P_ij - acc applied, the mirror through the padded shared tile, so the
 //   output is bitwise symmetric.
-// Small D keeps the float32 kernel templated on double at 32-wide tiles
-// (8-byte cp.async copies of M, double2 shared loads, fma in double on the
-// vector lanes), where DMMA tiles leave most SMs idle; the caller picks
-// the kernel and tile from D (ops/covariance.py:downdate_config). The
-// float32 instantiations are the code they were before either, operation
-// for operation.
+// Up to a small D the float32 kernel templated on double at 32-wide tiles
+// is as fast (8-byte cp.async copies of M, double2 shared loads, fma in
+// double on the vector lanes, no padding launch); the caller picks the
+// kernel from D (ops/covariance.py:downdate_config). The float32
+// instantiations are the code they were before either, operation for
+// operation.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -324,68 +324,55 @@ downdate_kernel(const T* __restrict__ P, const T* __restrict__ Ms,
 
 // ---- float64 on the FP64 tensor cores ----
 
-template <int TILE, int KP>
+// 64 x 64 output tiles, 4 warps, each a 32 x 32 warp tile of 2 x 4
+// m16n8k16 MMAs; one panel of M's rows is one MMA deep. PADDED: M's rows
+// come padded to an even count and move in 16-byte copies, else 8-byte.
+template <bool PADDED>
 struct Cfg64 {
-  static constexpr int STAGES = KP >= 32 ? 3 : 4;  // panels in the ring
-  static constexpr int WARPS_M = 2;
-  static constexpr int WARPS_N = TILE / 32;
-  static constexpr int WM = TILE / WARPS_M;          // warp tile: WM x WN
-  static constexpr int WN = 32;
+  static constexpr int TILE = 64;
+  static constexpr int KP = 16;                      // rows of M per panel
+  static constexpr int STAGES = 4;                   // panels in the ring
+  static constexpr int WARPS_N = 2;                  // and 2 along the rows
+  static constexpr int WM = 32, WN = 32;             // warp tile
   static constexpr int MI = WM / 16, NI = WN / 8;    // m16n8 MMA tiles a warp
-  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int THREADS = 128;
   static constexpr int LD = TILE + 4;                // strip row, in doubles
   static constexpr int STRIP = KP * LD;
-  static constexpr int ROW_CHUNKS = TILE / 2;        // 16-byte copies a row
+  static constexpr int VEC = PADDED ? 2 : 1;         // doubles a copy
+  static constexpr int ROW_CHUNKS = TILE / VEC;      // copies a strip row
   static constexpr int ROW_STEP = THREADS / ROW_CHUNKS;
   static constexpr int LOADS = KP / ROW_STEP;        // copies a thread a strip
   static constexpr int RING = STAGES * 2 * STRIP * (int)sizeof(double);
   static constexpr int EPI = TILE * (TILE + 1) * (int)sizeof(double);
   static constexpr int SMEM = RING > EPI ? RING : EPI;
-  static constexpr int MIN_BLOCKS = TILE >= 128 ? 1 : 3;
+  static constexpr int MIN_BLOCKS = 3;               // 3 x 68 KB of shared
   static_assert(KP % ROW_STEP == 0 && LD % 16 == 4, "layout");
 };
 
-// c += a b on the FP64 tensor cores: one m16n8kK MMA. Fragments (g = lane
+// c += a b on the FP64 tensor cores: one m16n8k16 MMA. Fragments (g = lane
 // / 4, t = lane % 4): a[i] = A(g + 8 (i % 2), t + 4 (i / 2)), b[i] = B(t +
 // 4 i, g), c[v] = C(g + 8 (v / 2), 2 t + v % 2).
-template <int K>
-__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[K / 2],
-                                     const double (&b)[K / 4]) {
-  if constexpr (K == 4) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-        "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-        : "d"(a[0]), "d"(a[1]), "d"(b[0]));
-  } else if constexpr (K == 8) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
-  } else {
-    static_assert(K == 16, "MMA depth");
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, "
-        "{%0,%1,%2,%3};\n"
-        : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
-          "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
-  }
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[8],
+                                     const double (&b)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7,%8,%9,%10,%11}, {%12,%13,%14,%15}, "
+      "{%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+        "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
-// Mp is M with rows padded to ld (even) doubles; A = M's column strip i0..,
-// B = its strip j0..; C = A^T B accumulates in registers. KP rows of M a
-// panel, m16n8kKMMA MMAs.
-template <int TILE, int KP, int KMMA, bool HAS_KEEP>
-__global__ void __launch_bounds__(Cfg64<TILE, KP>::THREADS,
-                                  Cfg64<TILE, KP>::MIN_BLOCKS)
-downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ Mp,
+// Ms is M with rows ld doubles apart (D, or even in the padded copy); A =
+// M's column strip i0.., B = its strip j0..; C = A^T B accumulates in
+// registers
+template <bool PADDED, bool HAS_KEEP>
+__global__ void __launch_bounds__(Cfg64<PADDED>::THREADS, Cfg64<PADDED>::MIN_BLOCKS)
+downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ Ms,
                      const double* __restrict__ keep, double* __restrict__ out,
                      int D, int ld, int m) {
-  using C = Cfg64<TILE, KP>;
-  static_assert(KP % KMMA == 0, "panel depth");
+  using C = Cfg64<PADDED>;
+  constexpr int TILE = C::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* smem = reinterpret_cast<double*>(smem_raw);
 
@@ -400,15 +387,15 @@ downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ Mp
   const int wr = (warp / C::WARPS_N) * C::WM;   // the warp tile's first row
   const int wc = (warp % C::WARPS_N) * C::WN;   // and column
 
-  // this thread's copies: strip columns col, col + 1, rows row0 + ROW_STEP r
-  // (ld is even: a copy lies wholly inside or outside [0, ld))
-  const int col = 2 * (tid % C::ROW_CHUNKS);
+  // this thread's copies: strip columns col .. col + VEC - 1, rows row0 +
+  // ROW_STEP r (a copy lies wholly inside or outside [0, ld))
+  const int col = C::VEC * (tid % C::ROW_CHUNKS);
   const int row0 = tid / C::ROW_CHUNKS;
   const bool ok_i = i0 + col < ld;
   const bool ok_j = j0 + col < ld;
-  const double* src_i = Mp + (ok_i ? i0 + col : 0);
-  const double* src_j = Mp + (ok_j ? j0 + col : 0);
-  const int n_panels = (m + KP - 1) / KP;
+  const double* src_i = Ms + (ok_i ? i0 + col : 0);
+  const double* src_j = Ms + (ok_j ? j0 + col : 0);
+  const int n_panels = (m + C::KP - 1) / C::KP;
 
   auto load_panel = [&](int panel) {
     double* si = smem + (panel % C::STAGES) * 2 * C::STRIP;
@@ -416,10 +403,11 @@ downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ Mp
 #pragma unroll
     for (int r = 0; r < C::LOADS; ++r) {
       const int row = row0 + r * C::ROW_STEP;
-      const int k = panel * KP + row;
+      const int k = panel * C::KP + row;
       const size_t off = k < m ? (size_t)k * (size_t)ld : 0;
-      cp_async<16>(si + row * C::LD + col, src_i + off, k < m && ok_i);
-      cp_async<16>(sj + row * C::LD + col, src_j + off, k < m && ok_j);
+      constexpr int BYTES = 8 * C::VEC;
+      cp_async<BYTES>(si + row * C::LD + col, src_i + off, k < m && ok_i);
+      cp_async<BYTES>(sj + row * C::LD + col, src_j + off, k < m && ok_j);
     }
   };
 
@@ -437,33 +425,28 @@ downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ Mp
     cp_async_commit();
   }
   for (int panel = 0; panel < n_panels; ++panel) {
+    // panel's group has landed for every thread, and every thread is done
+    // with the stage the next load overwrites (panel - 1's)
     cp_async_wait<C::STAGES - 2>();
     __syncthreads();
     if (panel + C::STAGES - 1 < n_panels) load_panel(panel + C::STAGES - 1);
     cp_async_commit();
     const double* si = smem + (panel % C::STAGES) * 2 * C::STRIP + wr + g;
     const double* sj = si - wr + C::STRIP + wc;
-    // MMA steps wholly past m are skipped (their rows are zero)
-    const int rows = m - panel * KP;
+    double a[C::MI][8], b[C::NI][4];
 #pragma unroll
-    for (int kk = 0; kk < KP; kk += KMMA) {
-      if (kk >= rows) break;
-      double a[C::MI][KMMA / 2], b[C::NI][KMMA / 4];
+    for (int p = 0; p < C::MI; ++p)
 #pragma unroll
-      for (int p = 0; p < C::MI; ++p)
+      for (int i = 0; i < 8; ++i)
+        a[p][i] = si[(t + 4 * (i / 2)) * C::LD + 16 * p + 8 * (i % 2)];
 #pragma unroll
-        for (int i = 0; i < KMMA / 2; ++i)
-          a[p][i] = si[(kk + t + 4 * (i / 2)) * C::LD + 16 * p + 8 * (i % 2)];
+    for (int q = 0; q < C::NI; ++q)
 #pragma unroll
-      for (int q = 0; q < C::NI; ++q)
+      for (int i = 0; i < 4; ++i) b[q][i] = sj[(t + 4 * i) * C::LD + 8 * q];
 #pragma unroll
-        for (int i = 0; i < KMMA / 4; ++i)
-          b[q][i] = sj[(kk + t + 4 * i) * C::LD + 8 * q];
+    for (int p = 0; p < C::MI; ++p)
 #pragma unroll
-      for (int p = 0; p < C::MI; ++p)
-#pragma unroll
-        for (int q = 0; q < C::NI; ++q) dmma<KMMA>(acc[p][q], a[p], b[q]);
-    }
+      for (int q = 0; q < C::NI; ++q) dmma(acc[p][q], a[p], b[q]);
   }
   cp_async_wait<0>();
   __syncthreads();   // the ring is free: it becomes the epilogue tile
@@ -508,11 +491,11 @@ cudaError_t prepare() {
   return set_smem(downdate_kernel<TILE, HAS_KEEP, T>, Cfg<TILE, T>::SMEM, ready);
 }
 
-template <int TILE, int KP, int KMMA, bool HAS_KEEP>
+template <bool PADDED, bool HAS_KEEP>
 cudaError_t prepare_dmma() {
   static unsigned long long ready = 0;
-  return set_smem(downdate_kernel_dmma<TILE, KP, KMMA, HAS_KEEP>,
-                  Cfg64<TILE, KP>::SMEM, ready);
+  return set_smem(downdate_kernel_dmma<PADDED, HAS_KEEP>, Cfg64<PADDED>::SMEM,
+                  ready);
 }
 
 template <int TILE, typename T>
@@ -537,46 +520,26 @@ int launch(const T* P, const T* M, const T* keep, T* Mp, T* out, int D, int m,
   return (int)cudaGetLastError();
 }
 
-template <int TILE, int KP, int KMMA>
+template <bool PADDED>
 int launch_dmma(const double* P, const double* M, const double* keep,
                 double* Mp, double* out, int D, int m, cudaStream_t stream) {
-  using C = Cfg64<TILE, KP>;
-  if (Mp == nullptr) return (int)cudaErrorInvalidValue;
+  using C = Cfg64<PADDED>;
   const bool has_keep = keep != nullptr;
-  cudaError_t err = has_keep ? prepare_dmma<TILE, KP, KMMA, true>()
-                             : prepare_dmma<TILE, KP, KMMA, false>();
+  cudaError_t err = has_keep ? prepare_dmma<PADDED, true>()
+                             : prepare_dmma<PADDED, false>();
   if (err != cudaSuccess) return (int)err;
-  const int ld = (D + 1) / 2 * 2;
-  pad_rows<<<m, 256, 0, stream>>>(M, Mp, D, ld);
-  const unsigned int nt = (D + TILE - 1) / TILE;
-  auto kernel = has_keep ? downdate_kernel_dmma<TILE, KP, KMMA, true>
-                         : downdate_kernel_dmma<TILE, KP, KMMA, false>;
-  kernel<<<nt * (nt + 1) / 2, C::THREADS, C::SMEM, stream>>>(P, Mp, keep, out,
+  int ld = D;
+  if constexpr (PADDED) {
+    ld = (D + 1) / 2 * 2;
+    pad_rows<<<m, 256, 0, stream>>>(M, Mp, D, ld);
+    M = Mp;
+  }
+  const unsigned int nt = (D + C::TILE - 1) / C::TILE;
+  auto kernel = has_keep ? downdate_kernel_dmma<PADDED, true>
+                         : downdate_kernel_dmma<PADDED, false>;
+  kernel<<<nt * (nt + 1) / 2, C::THREADS, C::SMEM, stream>>>(P, M, keep, out,
                                                             D, ld, m);
   return (int)cudaGetLastError();
-}
-
-template <int TILE, int KP>
-int launch_dmma(const double* P, const double* M, const double* keep,
-                double* Mp, double* out, int D, int m, int kmma,
-                cudaStream_t stream) {
-  switch (kmma) {
-    case 4: return launch_dmma<TILE, KP, 4>(P, M, keep, Mp, out, D, m, stream);
-    case 8: return launch_dmma<TILE, KP, 8>(P, M, keep, Mp, out, D, m, stream);
-    case 16: return launch_dmma<TILE, KP, 16>(P, M, keep, Mp, out, D, m, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <int TILE>
-int launch_dmma(const double* P, const double* M, const double* keep,
-                double* Mp, double* out, int D, int m, int kmma, int panel,
-                cudaStream_t stream) {
-  switch (panel) {
-    case 16: return launch_dmma<TILE, 16>(P, M, keep, Mp, out, D, m, kmma, stream);
-    case 32: return launch_dmma<TILE, 32>(P, M, keep, Mp, out, D, m, kmma, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -598,20 +561,19 @@ extern "C" int symmetric_downdate_f32(const float* P, const float* M,
   }
 }
 
-// The same for float64 P, M, keep and out. tile 32: the SIMT kernel (Mp,
-// kmma and panel unused, may be NULL and 0); tile 64 or 128: the DMMA
-// kernel with m16n8k`kmma` MMAs (4, 8 or 16) and `panel` rows of M a panel
-// (16 or 32), Mp scratch of m x Dp doubles (Dp = D rounded up to 2).
+// The same for float64 P, M, keep and out. tile 32: the SIMT kernel (Mp
+// unused, may be NULL); tile 64: the DMMA kernel, which with Mp (scratch of
+// m x Dp doubles, Dp = D rounded up to 2) first pads M's rows and loads
+// them in 16-byte copies, and with Mp NULL loads M in 8-byte copies.
 extern "C" int symmetric_downdate_f64(const double* P, const double* M,
                                       const double* keep, double* Mp,
                                       double* out, int D, int m, int tile,
-                                      int kmma, int panel, cudaStream_t stream) {
+                                      cudaStream_t stream) {
   switch (tile) {
     case 32: return launch<32, double>(P, M, keep, nullptr, out, D, m, stream);
     case 64:
-      return launch_dmma<64>(P, M, keep, Mp, out, D, m, kmma, panel, stream);
-    case 128:
-      return launch_dmma<128>(P, M, keep, Mp, out, D, m, kmma, panel, stream);
+      return Mp ? launch_dmma<true>(P, M, keep, Mp, out, D, m, stream)
+                : launch_dmma<false>(P, M, keep, nullptr, out, D, m, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -31,13 +31,11 @@ from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
 # launches, the row padding copy and the downdate; it counts once.
 LAUNCHES = 0
 
-_LIB = KernelLibrary(
-    "symmetric_downdate.cu", "symmetric_downdate_f32",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# (P, M, keep, Mp, out, D, m, tile, stream) in both types
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_LIB = KernelLibrary("symmetric_downdate.cu", "symmetric_downdate_f32", _ARGTYPES)
 # the float64 entry point of the same source: the same library file
-_LIB64 = KernelLibrary(
-    "symmetric_downdate.cu", "symmetric_downdate_f64",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_LIB64 = KernelLibrary("symmetric_downdate.cu", "symmetric_downdate_f64", _ARGTYPES)
 
 # Output tile edge by D: D <= TILE_32_MAX_D takes 32, larger D 128. Wider
 # tiles reuse each loaded value more but give fewer blocks. In a sweep of
@@ -45,25 +43,20 @@ _LIB64 = KernelLibrary(
 # PERF.md), 32 was the faster edge at every D up to 1933 but 1549 (4%
 # slower there) and 128 at every D from 2317 on.
 TILE_32_MAX_D = 1933
-# float64: the SIMT tile (32) up to F64_TILE_32_MAX_D, then the DMMA tiles,
-# 64-wide up to F64_TILE_64_MAX_D and 128-wide above, with m16n8k
-# F64_MMA_K MMAs and F64_PANEL rows of M a panel (the same sweep in
-# float64; PERF.md).
-F64_TILE_32_MAX_D = 300
-F64_TILE_64_MAX_D = 1933
-F64_MMA_K = 4
-F64_PANEL = 16
+# float64: the SIMT kernel's 32-wide tiles up to F64_TILE_32_MAX_D, the
+# DMMA kernel's 64-wide tiles above. In the same sweep in float64, 32 tied
+# at D = 589 and lost from D = 781 on (PERF.md).
+F64_TILE_32_MAX_D = 589
 
 
 def downdate_config(D: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """(tile edge, thread blocks) of the kernel for a [D,D] output of
     ``dtype``: one block per lower-triangle tile, the grid the kernel's entry
-    point launches. A float64 edge of 64 or 128 is the DMMA kernel's."""
+    point launches. A float64 edge of 64 is the DMMA kernel's."""
     if D < 1:
         raise ValueError(f"D must be >= 1, got {D}")
     if dtype == torch.float64:
-        tile = (32 if D <= F64_TILE_32_MAX_D else
-                64 if D <= F64_TILE_64_MAX_D else 128)
+        tile = 32 if D <= F64_TILE_32_MAX_D else 64
     else:
         tile = 32 if D <= TILE_32_MAX_D else 128
     nt = -(-D // tile)
@@ -112,21 +105,16 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
     keep_ptr = None if keep is None else keep.data_ptr()
     tile = downdate_config(D, P.dtype)[0]
     f64 = P.dtype == torch.float64
-    # tiles past 32 (float32 128, float64 64 and 128) load M from a copy
-    # whose rows are padded to 16 bytes (4 floats, 2 doubles)
+    # tiles past 32 (float32 128, float64 64) load M from a copy whose rows
+    # are padded to 16 bytes (4 floats, 2 doubles)
     row = 2 if f64 else 4
     scratch = (torch.empty((m, -(-D // row) * row), dtype=P.dtype,
                            device=P.device) if tile > 32 else None)
-    scratch_ptr = None if scratch is None else scratch.data_ptr()
     with torch.cuda.device(P.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if f64:
-            rc = _LIB64.fn()(P.data_ptr(), M.data_ptr(), keep_ptr, scratch_ptr,
-                             out.data_ptr(), D, m, tile, F64_MMA_K, F64_PANEL,
-                             stream)
-        else:
-            rc = _LIB.fn()(P.data_ptr(), M.data_ptr(), keep_ptr, scratch_ptr,
-                           out.data_ptr(), D, m, tile, stream)
+        rc = (_LIB64 if f64 else _LIB).fn()(
+            P.data_ptr(), M.data_ptr(), keep_ptr,
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            D, m, tile, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"symmetric_downdate kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -136,22 +136,17 @@ def test_torch_downdate_config_float32_is_the_default(D):
 
 
 def test_torch_downdate_config_float64_rule():
-    """float64: every D from 1 to 5000 gets the SIMT tile (32) or a DMMA
-    tile (64, 128), growing with D and switching just past each threshold,
-    and one block per lower-triangle tile."""
-    last = 0
+    """float64: every D from 1 to 5000 gets the SIMT kernel's 32-wide tile up
+    to F64_TILE_32_MAX_D and the DMMA kernel's 64-wide tile above, one
+    block per lower-triangle tile."""
+    edge = covariance.F64_TILE_32_MAX_D
     for D in range(1, 5001):
         tile, blocks = covariance.downdate_config(D, torch.float64)
-        assert tile in (32, 64, 128) and tile >= last
+        assert tile == (32 if D <= edge else 64)
         nt = len(range(0, D, tile))
         assert blocks == sum(1 for bi in range(nt) for bj in range(bi + 1))
-        last = tile
-    for edge, below, above in ((covariance.F64_TILE_32_MAX_D, 32, 64),
-                               (covariance.F64_TILE_64_MAX_D, 64, 128)):
-        if edge >= 1:
-            assert covariance.downdate_config(edge, torch.float64)[0] == below
-        assert covariance.downdate_config(edge + 1, torch.float64)[0] == above
-    assert covariance.F64_MMA_K in (4, 8, 16)
+    assert covariance.downdate_config(589, torch.float64) == (32, 19 * 20 // 2)
+    assert covariance.downdate_config(4621, torch.float64) == (64, 73 * 74 // 2)
     with pytest.raises(ValueError):
         covariance.downdate_config(0, torch.float64)
 

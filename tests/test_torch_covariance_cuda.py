@@ -172,15 +172,13 @@ def f64_checked(P, M, keep):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("edge", ["F64_TILE_32_MAX_D", "F64_TILE_64_MAX_D"])
 @pytest.mark.parametrize("side", [-1, 0, 1])
-def test_torch_downdate_kernel_f64_at_tile_thresholds(edge, side):
-    """Each float64 tile threshold +-1 (the SIMT tile, then the 64- and
-    128-wide DMMA tiles), with a ragged m."""
+def test_torch_downdate_kernel_f64_at_tile_threshold(side):
+    """The float64 tile threshold +-1: the SIMT kernel's 32-wide tiles up to
+    it, the DMMA kernel's 64-wide tiles past it, with a ragged m."""
     dev = _card()
-    D = getattr(covariance, edge) + side
-    if D < 1:
-        pytest.skip(f"{edge} + {side} is no width")
+    D = covariance.F64_TILE_32_MAX_D + side
+    assert covariance.downdate_config(D, torch.float64)[0] == (32 if side < 1 else 64)
     f64_checked(*_inputs(D, 48, True, dev, torch.float64))
 
 
@@ -189,8 +187,8 @@ def test_torch_downdate_kernel_f64_at_tile_thresholds(edge, side):
 @pytest.mark.parametrize("m", [1, 3, 7, 17, 33])
 @pytest.mark.parametrize("with_keep", [False, True])
 def test_torch_downdate_kernel_f64_ragged_m(D, m, with_keep):
-    """m short of the MMA depth and of the panel (zero-filled rows), at a
-    64-wide-or-wider and a 128-wide DMMA width."""
+    """m short of the 16-row panel (zero-filled rows) and past it, on the
+    DMMA kernel, D past a tile edge (1000) and at the flagship's 4621."""
     dev = _card()
     f64_checked(*_inputs(D, m, with_keep, dev, torch.float64))
 
@@ -198,7 +196,8 @@ def test_torch_downdate_kernel_f64_ragged_m(D, m, with_keep):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [300, 2317])
 def test_torch_downdate_kernel_f64_tall_m(D):
-    """m = 2000 rows: many panels through the cp.async ring."""
+    """m = 2000 rows, many panels through the cp.async ring: the SIMT kernel
+    (D = 300) and the DMMA kernel (2317)."""
     dev = _card()
     f64_checked(*_inputs(D, 2000, True, dev, torch.float64))
 

@@ -18,18 +18,22 @@ edges, the data behind the tile thresholds of ``ops/covariance.py``.
 * float64: every shape of ``chip_smoke.DOWNDATE_SHAPES`` in float64 held to
   ``chip_smoke.compare_downdate_f64`` (bitwise symmetric, two launches
   bitwise equal, relative Frobenius difference to the plain version
-  <= 1e-12), and so is every f64 configuration of ``F64_CONFIGS`` (the SIMT
-  32-wide tile, the DMMA tiles at each MMA depth); its device time at the
-  main-path shapes. With ``--ref-source``, the reference build's float64
-  entry point too (the earlier ``(P, M, keep, out, D, m, stream)`` or the
-  current one), held to the same bound and timed in turns with the new.
+  <= 1e-12), and so is each f64 configuration of ``F64_CONFIGS`` (the SIMT
+  kernel; the DMMA kernel on padded rows of M, or loading M directly); its
+  device time at the main-path shapes. With
+  ``--ref-source``, the reference build's float64 entry point too (the
+  earlier ``(P, M, keep, out, D, m, stream)`` or the current one), held to
+  the same bound and timed in turns with the new (events, graph replay,
+  device time).
+* the SASS opcode counts of each kernel (DMMA on the FP64 tensor cores,
+  DFMA and FFMA on the vector lanes), from cuobjdump.
 * ``--flagship-frames N`` runs the K=768 flagship loop for N frames and
   checks the kernel (and the reference build) on that state's (P, B, keep).
 * ``--clock-seconds S`` runs the kernel back to back at the flagship shape
   for about S seconds while nvidia-smi samples the SM clock and power.
 * the sweep times each tile edge at D = 13 + 6K, m = 2K for K from 16 to 768
   with a 0/1 keep (CUDA events and the profiler's device time), in float32
-  and, over ``F64_CONFIGS``, in float64.
+  and in float64.
 One JSON line per result on stdout, and also in ``--out`` FILE if given.
 """
 
@@ -49,20 +53,22 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 TILES = (32, 128)
-# float64 (tile, MMA depth, panel rows): the SIMT tile, then the DMMA tiles
-F64_CONFIGS = ((32, 0, 0),) + tuple((t, k, p) for t in (64, 128)
-                                    for k in (4, 8, 16) for p in (16, 32))
+# float64 (tile edge, padded rows of M): the SIMT kernel, then the DMMA
+# kernel on the padded copy of M (16-byte loads) or on M itself (8-byte)
+F64_CONFIGS = {"32": (32, False), "64": (64, True), "64u": (64, False)}
 SWEEP_K = (16, 32, 48, 64, 96, 128, 160, 192, 224, 256, 320, 384, 512, 768)
 
 
-def run_f32(fn, P, M, keep, tile):
-    """One call of a build's current f32 entry point (scratch and tile
-    edge), returning its output."""
+def run_current(fn, P, M, keep, tile, pad=True):
+    """One call of a build's current entry point, either type (scratch and
+    tile edge; a float64 DMMA call without ``pad`` gets no scratch and loads
+    M directly), returning its output."""
     import torch
     D, m = P.shape[0], M.shape[0]
     out = torch.empty_like(P)
-    scratch = (torch.empty((m, -(-D // 4) * 4), device=P.device)
-               if tile == 128 else None)
+    row = 2 if P.dtype == torch.float64 else 4
+    scratch = (torch.empty((m, -(-D // row) * row), dtype=P.dtype,
+                           device=P.device) if tile > 32 and pad else None)
     rc = fn(P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             D, m, tile, torch.cuda.current_stream().cuda_stream)
@@ -71,37 +77,11 @@ def run_f32(fn, P, M, keep, tile):
     return out
 
 
-def run_f64(fn, P, M, keep, tile, kmma, panel):
-    """One call of a build's current f64 entry point (scratch, tile edge, MMA
-    depth and panel rows), returning its output."""
-    import torch
-    D, m = P.shape[0], M.shape[0]
-    out = torch.empty_like(P)
-    scratch = (torch.empty((m, -(-D // 2) * 2), dtype=P.dtype, device=P.device)
-               if tile > 32 else None)
-    rc = fn(P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            D, m, tile, kmma, panel, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"f64 {cfg_name((tile, kmma, panel))}: CUDA error {rc}")
-    return out
-
-
-def launcher(cov, tile):
-    """The wrapper's kernel with a forced tile edge."""
-    fn = cov._LIB.fn()
-    return lambda P, M, keep: run_f32(fn, P, M, keep, tile)
-
-
-def cfg_name(cfg) -> str:
-    """'32' for the SIMT tile, else e.g. '128k4p16': tile, MMA depth, panel."""
-    return str(cfg[0]) if cfg[0] == 32 else "{}k{}p{}".format(*cfg)
-
-
-def launcher_f64(cov, cfg):
-    """The wrapper's float64 kernel with a forced (tile, MMA depth, panel)."""
-    fn = cov._LIB64.fn()
-    return lambda P, M, keep: run_f64(fn, P, M, keep, *cfg)
+def launcher(lib, tile, pad=True):
+    """The wrapper's kernel (``cov._LIB`` or ``cov._LIB64``) with a forced
+    tile edge (and for float64 padding)."""
+    fn = lib.fn()
+    return lambda P, M, keep: run_current(fn, P, M, keep, tile, pad)
 
 
 def run_early(fn, P, M, keep):
@@ -133,7 +113,7 @@ def ref_launcher(path: str):
 
     def run(P, M, keep):
         if current:
-            return run_f32(fn, P, M, keep, cov.downdate_config(P.shape[0])[0])
+            return run_current(fn, P, M, keep, cov.downdate_config(P.shape[0])[0])
         return run_early(fn, P, M, keep)
 
     run64 = None
@@ -144,9 +124,8 @@ def ref_launcher(path: str):
 
         def run64(P, M, keep):
             if current64:
-                tile = cov.downdate_config(P.shape[0], P.dtype)[0]
-                return run_f64(fn64, P, M, keep, tile, cov.F64_MMA_K,
-                               cov.F64_PANEL)
+                return run_current(fn64, P, M, keep,
+                                   cov.downdate_config(P.shape[0], P.dtype)[0])
             return run_early(fn64, P, M, keep)
     return run, run64, lib
 
@@ -205,8 +184,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": cs.ptxas_summary(cov._LIB),
           "sass_ops": sass_ops(cov._LIB.build())})
-    kern = {t: launcher(cov, t) for t in TILES}
-    kern64 = {cfg_name(c): launcher_f64(cov, c) for c in F64_CONFIGS}
+    kern = {t: launcher(cov._LIB, t) for t in TILES}
+    kern64 = {c: launcher(cov._LIB64, *cfg) for c, cfg in F64_CONFIGS.items()}
     ref = ref64 = None
     if args.ref_source:
         ref, ref64, ref_lib = ref_launcher(args.ref_source)
@@ -340,7 +319,7 @@ def main() -> int:
                   "ms": times, "device_us": dev_us, "pick": cov.downdate_config(D)[0],
                   "best_device": min(dev_us, key=dev_us.get),
                   "tfma_per_s_device": {t: fma / (v * 1e-6) / 1e12
-                                        for t, v in dev_us.items()}})
+                                        for t, v in dev_us.items() if v}})
             P, M, keep = cs.downdate_case(D, m, True, dev, torch.float64)
             dev_us = {c: cs.device_us_per_call(lambda: f(P, M, keep))
                       for c, f in kern64.items()}
@@ -349,7 +328,7 @@ def main() -> int:
                   "pick": cov.downdate_config(D, torch.float64)[0],
                   "best_device": min(dev_us, key=dev_us.get),
                   "tfma_per_s_device": {c: fma / (v * 1e-6) / 1e12
-                                        for c, v in dev_us.items()}})
+                                        for c, v in dev_us.items() if v}})
     if sink:
         sink.close()
     print(json.dumps({"ok": bool(ok)}), flush=True)
