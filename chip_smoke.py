@@ -26,7 +26,7 @@ Phases, one JSON line each:
            The downdate's float64 entry point at the same shapes against
            its plain version in float64 on the card: bitwise symmetric, two
            launches bitwise equal, relative Frobenius difference <= 1e-12
-           (32-wide SIMT tiles up to D = 589, the DMMA kernel's 64-wide
+           (32-wide SIMT tiles up to D = 397, the DMMA kernel's 64-wide
            tiles on the FP64 tensor cores above).
            All timed with CUDA events over back-to-back calls, over
            replays of a CUDA graph of the calls (which leaves out the host's

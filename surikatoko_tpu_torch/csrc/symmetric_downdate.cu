@@ -61,30 +61,33 @@
 // no f64 form, so past a small D it runs on the FP64 tensor cores through
 // mma.sync (DMMA), as a kernel of its own (downdate_kernel_dmma):
 // * 64 x 64 lower-triangle tiles, one block each, 4 warps of 32 x 32 warp
-//   tiles, each 2 x 4 m16n8k16 MMAs (32 accumulators of two registers).
-//   In a sweep on an H100 (tools/probe_downdate.py) 64-wide tiles beat
-//   128-wide ones (8 warps of 64 x 32, one block an SM for registers) at
-//   every D, and k16 beat k4 and k8; three blocks share an SM.
+//   tiles, each 2 x 4 m16n8k16 MMAs (32 accumulators of two registers);
+//   three blocks share an SM (68 KB of shared memory each). In a sweep on
+//   an H100 (tools/probe_downdate.py) these beat 128-wide tiles (8 warps of
+//   64 x 32, one block an SM for registers) at every D, k16 beat k4 and
+//   k8, and 16-row panels beat 32-row ones.
 // * C_ij = sum_a M_ai M_aj: both operands are column strips of M, staged
-//   k-major as [16, 64] (one MMA deep) through a 4-deep cp.async ring.
-//   pad_rows first copies M into rows padded to an even count (16 bytes),
-//   so the strips move in 16-byte cp.async.cg copies. ldmatrix has no
-//   64-bit form: the fragments come from plain 8-byte shared loads, and a
-//   strip row is 68 doubles long, so the 16 lanes of a half-warp (4 rows k
-//   x 4 columns) hit 16 distinct bank pairs: no conflicts.
+//   k-major as [16, 64] (one MMA deep) through a 4-deep ring of 8-byte
+//   cp.async copies straight from M (src-size 0 zero-fills past D and m).
+//   Rows of M start at a D doubles, D odd, so 16-byte copies would need
+//   the padded copy the float32 tiles use; in float64 that copy cost more
+//   than it saved at every D in the sweep. ldmatrix has no 64-bit form: the
+//   fragments come from plain 8-byte shared loads, and a strip row is 68
+//   doubles long, so the 16 lanes of a half-warp (4 rows k x 4 columns)
+//   hit 16 distinct bank pairs: no conflicts.
 // * summation order: one accumulator per output from 0, one MMA a panel of
 //   16 rows of M in increasing order (rows past m are zero); no split-K,
-//   no atomics, so two launches give equal bits. The MMA's internal order
-//   is the tensor core's, not a spelled-out fma chain.
+//   no atomics, so two launches give equal bits. Within an MMA the order is
+//   the tensor core's, so the outputs may differ from the SIMT kernel's in
+//   the last bits (they are held to the plain version at 1e-12).
 // * the epilogue is the float32 kernel's (write_tile): keep mask and
 //   P_ij - acc applied, the mirror through the padded shared tile, so the
 //   output is bitwise symmetric.
 // Up to a small D the float32 kernel templated on double at 32-wide tiles
-// is as fast (8-byte cp.async copies of M, double2 shared loads, fma in
-// double on the vector lanes, no padding launch); the caller picks the
-// kernel from D (ops/covariance.py:downdate_config). The float32
-// instantiations are the code they were before either, operation for
-// operation.
+// is faster (8-byte cp.async copies of M, double2 shared loads, fma in
+// double on the vector lanes); the caller picks the kernel from D
+// (ops/covariance.py:downdate_config). The float32 instantiations are the
+// code they were before either, operation for operation.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -162,12 +165,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Mp [m, Dp] = M [m, D] with zero columns D .. Dp-1; one block per row.
-template <typename T>
-__global__ void pad_rows(const T* __restrict__ M, T* __restrict__ Mp, int D,
-                         int Dp) {
+__global__ void pad_rows(const float* __restrict__ M, float* __restrict__ Mp,
+                         int D, int Dp) {
   const size_t k = blockIdx.x;
   for (int c = threadIdx.x; c < Dp; c += blockDim.x)
-    Mp[k * Dp + c] = c < D ? M[k * D + c] : T(0);
+    Mp[k * Dp + c] = c < D ? M[k * D + c] : 0.f;
 }
 
 // lower-triangle tile (bi >= bj) of block t = bi (bi + 1) / 2 + bj
@@ -325,9 +327,7 @@ downdate_kernel(const T* __restrict__ P, const T* __restrict__ Ms,
 // ---- float64 on the FP64 tensor cores ----
 
 // 64 x 64 output tiles, 4 warps, each a 32 x 32 warp tile of 2 x 4
-// m16n8k16 MMAs; one panel of M's rows is one MMA deep. PADDED: M's rows
-// come padded to an even count and move in 16-byte copies, else 8-byte.
-template <bool PADDED>
+// m16n8k16 MMAs; one panel of M's rows is one MMA deep
 struct Cfg64 {
   static constexpr int TILE = 64;
   static constexpr int KP = 16;                      // rows of M per panel
@@ -338,9 +338,7 @@ struct Cfg64 {
   static constexpr int THREADS = 128;
   static constexpr int LD = TILE + 4;                // strip row, in doubles
   static constexpr int STRIP = KP * LD;
-  static constexpr int VEC = PADDED ? 2 : 1;         // doubles a copy
-  static constexpr int ROW_CHUNKS = TILE / VEC;      // copies a strip row
-  static constexpr int ROW_STEP = THREADS / ROW_CHUNKS;
+  static constexpr int ROW_STEP = THREADS / TILE;   // strip rows a pass
   static constexpr int LOADS = KP / ROW_STEP;        // copies a thread a strip
   static constexpr int RING = STAGES * 2 * STRIP * (int)sizeof(double);
   static constexpr int EPI = TILE * (TILE + 1) * (int)sizeof(double);
@@ -363,15 +361,14 @@ __device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[8],
         "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
 }
 
-// Ms is M with rows ld doubles apart (D, or even in the padded copy); A =
-// M's column strip i0.., B = its strip j0..; C = A^T B accumulates in
+// A = M's column strip i0.., B = its strip j0..; C = A^T B accumulates in
 // registers
-template <bool PADDED, bool HAS_KEEP>
-__global__ void __launch_bounds__(Cfg64<PADDED>::THREADS, Cfg64<PADDED>::MIN_BLOCKS)
-downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ Ms,
+template <bool HAS_KEEP>
+__global__ void __launch_bounds__(Cfg64::THREADS, Cfg64::MIN_BLOCKS)
+downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ M,
                      const double* __restrict__ keep, double* __restrict__ out,
-                     int D, int ld, int m) {
-  using C = Cfg64<PADDED>;
+                     int D, int m) {
+  using C = Cfg64;
   constexpr int TILE = C::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* smem = reinterpret_cast<double*>(smem_raw);
@@ -387,14 +384,13 @@ downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ Ms
   const int wr = (warp / C::WARPS_N) * C::WM;   // the warp tile's first row
   const int wc = (warp % C::WARPS_N) * C::WN;   // and column
 
-  // this thread's copies: strip columns col .. col + VEC - 1, rows row0 +
-  // ROW_STEP r (a copy lies wholly inside or outside [0, ld))
-  const int col = C::VEC * (tid % C::ROW_CHUNKS);
-  const int row0 = tid / C::ROW_CHUNKS;
-  const bool ok_i = i0 + col < ld;
-  const bool ok_j = j0 + col < ld;
-  const double* src_i = Ms + (ok_i ? i0 + col : 0);
-  const double* src_j = Ms + (ok_j ? j0 + col : 0);
+  // this thread's copies: strip column col, rows row0 + ROW_STEP r
+  const int col = tid % TILE;
+  const int row0 = tid / TILE;
+  const bool ok_i = i0 + col < D;
+  const bool ok_j = j0 + col < D;
+  const double* src_i = M + (ok_i ? i0 + col : 0);
+  const double* src_j = M + (ok_j ? j0 + col : 0);
   const int n_panels = (m + C::KP - 1) / C::KP;
 
   auto load_panel = [&](int panel) {
@@ -404,10 +400,9 @@ downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ Ms
     for (int r = 0; r < C::LOADS; ++r) {
       const int row = row0 + r * C::ROW_STEP;
       const int k = panel * C::KP + row;
-      const size_t off = k < m ? (size_t)k * (size_t)ld : 0;
-      constexpr int BYTES = 8 * C::VEC;
-      cp_async<BYTES>(si + row * C::LD + col, src_i + off, k < m && ok_i);
-      cp_async<BYTES>(sj + row * C::LD + col, src_j + off, k < m && ok_j);
+      const size_t off = k < m ? (size_t)k * (size_t)D : 0;
+      cp_async<8>(si + row * C::LD + col, src_i + off, k < m && ok_i);
+      cp_async<8>(sj + row * C::LD + col, src_j + off, k < m && ok_j);
     }
   };
 
@@ -491,11 +486,10 @@ cudaError_t prepare() {
   return set_smem(downdate_kernel<TILE, HAS_KEEP, T>, Cfg<TILE, T>::SMEM, ready);
 }
 
-template <bool PADDED, bool HAS_KEEP>
+template <bool HAS_KEEP>
 cudaError_t prepare_dmma() {
   static unsigned long long ready = 0;
-  return set_smem(downdate_kernel_dmma<PADDED, HAS_KEEP>, Cfg64<PADDED>::SMEM,
-                  ready);
+  return set_smem(downdate_kernel_dmma<HAS_KEEP>, Cfg64::SMEM, ready);
 }
 
 template <int TILE, typename T>
@@ -507,7 +501,7 @@ int launch(const T* P, const T* M, const T* keep, T* Mp, T* out, int D, int m,
   cudaError_t err = has_keep ? prepare<TILE, true, T>() : prepare<TILE, false, T>();
   if (err != cudaSuccess) return (int)err;
   int ld = D;
-  if constexpr (C::PADDED) {   // float only (the f64 SIMT tile is 32)
+  if constexpr (C::PADDED) {   // float only: pad_rows copies floats
     ld = (D + 3) / 4 * 4;
     pad_rows<<<m, 256, 0, stream>>>(M, Mp, D, ld);
     M = Mp;
@@ -520,25 +514,16 @@ int launch(const T* P, const T* M, const T* keep, T* Mp, T* out, int D, int m,
   return (int)cudaGetLastError();
 }
 
-template <bool PADDED>
 int launch_dmma(const double* P, const double* M, const double* keep,
-                double* Mp, double* out, int D, int m, cudaStream_t stream) {
-  using C = Cfg64<PADDED>;
+                double* out, int D, int m, cudaStream_t stream) {
+  using C = Cfg64;
   const bool has_keep = keep != nullptr;
-  cudaError_t err = has_keep ? prepare_dmma<PADDED, true>()
-                             : prepare_dmma<PADDED, false>();
+  cudaError_t err = has_keep ? prepare_dmma<true>() : prepare_dmma<false>();
   if (err != cudaSuccess) return (int)err;
-  int ld = D;
-  if constexpr (PADDED) {
-    ld = (D + 1) / 2 * 2;
-    pad_rows<<<m, 256, 0, stream>>>(M, Mp, D, ld);
-    M = Mp;
-  }
   const unsigned int nt = (D + C::TILE - 1) / C::TILE;
-  auto kernel = has_keep ? downdate_kernel_dmma<PADDED, true>
-                         : downdate_kernel_dmma<PADDED, false>;
+  auto kernel = has_keep ? downdate_kernel_dmma<true> : downdate_kernel_dmma<false>;
   kernel<<<nt * (nt + 1) / 2, C::THREADS, C::SMEM, stream>>>(P, M, keep, out,
-                                                            D, ld, m);
+                                                            D, m);
   return (int)cudaGetLastError();
 }
 
@@ -561,19 +546,14 @@ extern "C" int symmetric_downdate_f32(const float* P, const float* M,
   }
 }
 
-// The same for float64 P, M, keep and out. tile 32: the SIMT kernel (Mp
-// unused, may be NULL); tile 64: the DMMA kernel, which with Mp (scratch of
-// m x Dp doubles, Dp = D rounded up to 2) first pads M's rows and loads
-// them in 16-byte copies, and with Mp NULL loads M in 8-byte copies.
+// The same for float64 P, M, keep and out, with no scratch: tile 32 is the
+// SIMT kernel, tile 64 the DMMA kernel.
 extern "C" int symmetric_downdate_f64(const double* P, const double* M,
-                                      const double* keep, double* Mp,
-                                      double* out, int D, int m, int tile,
-                                      cudaStream_t stream) {
+                                      const double* keep, double* out, int D,
+                                      int m, int tile, cudaStream_t stream) {
   switch (tile) {
     case 32: return launch<32, double>(P, M, keep, nullptr, out, D, m, stream);
-    case 64:
-      return Mp ? launch_dmma<true>(P, M, keep, Mp, out, D, m, stream)
-                : launch_dmma<false>(P, M, keep, nullptr, out, D, m, stream);
+    case 64: return launch_dmma(P, M, keep, out, D, m, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,11 +10,12 @@ for CUDA tensors it launches ``csrc/symmetric_downdate.cu`` or raises: there
 is no fallback. Both versions read only the lower triangle of P and mirror
 it, so the result is exactly symmetric. The kernel and its tile edge come
 from D and the type (:func:`downdate_config`). float32 runs on the FP32
-lanes; float64 past a small D runs on the FP64 tensor cores (DMMA, the rate
-its bound assumes), at 32-wide tiles on the FP64 lanes below. For the
-128-wide float32 tiles and every DMMA tile the wrapper also allocates the
-scratch into which a first kernel copies M with padded rows, so such a call
-is two device launches.
+lanes; for its 128-wide tiles the wrapper also allocates the scratch into
+which a first kernel copies M with padded rows, so such a call is two
+device launches. float64 past a small D runs on the FP64 tensor cores
+(``mma.sync`` m16n8k16 in 64-wide tiles, DMMA: the rate its bound assumes,
+0.49 ms at the flagship's D = 4621, m = 1536), below it at 32-wide tiles on
+the FP64 lanes; both load M directly, one launch a call.
 """
 
 from __future__ import annotations
@@ -26,16 +27,20 @@ import torch
 from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
 
 # Wrapper calls in this process that launched a CUDA kernel, float32 or
-# float64 (the plain version never counts). A call that pads M's rows first
-# (float32 at 128-wide tiles, float64 on the tensor cores) is two device
-# launches, the row padding copy and the downdate; it counts once.
+# float64 (the plain version never counts). A float32 call with 128-wide
+# tiles is two device launches, the row padding copy and the downdate; it
+# counts once.
 LAUNCHES = 0
 
-# (P, M, keep, Mp, out, D, m, tile, stream) in both types
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_LIB = KernelLibrary("symmetric_downdate.cu", "symmetric_downdate_f32", _ARGTYPES)
-# the float64 entry point of the same source: the same library file
-_LIB64 = KernelLibrary("symmetric_downdate.cu", "symmetric_downdate_f64", _ARGTYPES)
+# (P, M, keep, Mp, out, D, m, tile, stream)
+_LIB = KernelLibrary(
+    "symmetric_downdate.cu", "symmetric_downdate_f32",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# the float64 entry point of the same source, the same library file: (P, M,
+# keep, out, D, m, tile, stream)
+_LIB64 = KernelLibrary(
+    "symmetric_downdate.cu", "symmetric_downdate_f64",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 # Output tile edge by D: D <= TILE_32_MAX_D takes 32, larger D 128. Wider
 # tiles reuse each loaded value more but give fewer blocks. In a sweep of
@@ -44,9 +49,9 @@ _LIB64 = KernelLibrary("symmetric_downdate.cu", "symmetric_downdate_f64", _ARGTY
 # slower there) and 128 at every D from 2317 on.
 TILE_32_MAX_D = 1933
 # float64: the SIMT kernel's 32-wide tiles up to F64_TILE_32_MAX_D, the
-# DMMA kernel's 64-wide tiles above. In the same sweep in float64, 32 tied
-# at D = 589 and lost from D = 781 on (PERF.md).
-F64_TILE_32_MAX_D = 589
+# DMMA kernel's 64-wide tiles above. In the same sweep in float64, 32 was
+# the faster at every D up to 397 and 64 at every D from 589 on (PERF.md).
+F64_TILE_32_MAX_D = 397
 
 
 def downdate_config(D: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
@@ -104,17 +109,19 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
     out = torch.empty_like(P)
     keep_ptr = None if keep is None else keep.data_ptr()
     tile = downdate_config(D, P.dtype)[0]
-    f64 = P.dtype == torch.float64
-    # tiles past 32 (float32 128, float64 64) load M from a copy whose rows
-    # are padded to 16 bytes (4 floats, 2 doubles)
-    row = 2 if f64 else 4
-    scratch = (torch.empty((m, -(-D // row) * row), dtype=P.dtype,
-                           device=P.device) if tile > 32 else None)
     with torch.cuda.device(P.device):
-        rc = (_LIB64 if f64 else _LIB).fn()(
-            P.data_ptr(), M.data_ptr(), keep_ptr,
-            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            D, m, tile, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if P.dtype == torch.float64:
+            rc = _LIB64.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
+                             out.data_ptr(), D, m, tile, stream)
+        else:
+            # 128-wide tiles load M from a copy whose rows are padded to a
+            # multiple of 4 floats (16-byte loads)
+            scratch = (torch.empty((m, -(-D // 4) * 4), dtype=P.dtype,
+                                   device=P.device) if tile == 128 else None)
+            rc = _LIB.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
+                           None if scratch is None else scratch.data_ptr(),
+                           out.data_ptr(), D, m, tile, stream)
     if rc != 0:
         raise RuntimeError(f"symmetric_downdate kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

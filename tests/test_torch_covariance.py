@@ -145,7 +145,8 @@ def test_torch_downdate_config_float64_rule():
         assert tile == (32 if D <= edge else 64)
         nt = len(range(0, D, tile))
         assert blocks == sum(1 for bi in range(nt) for bj in range(bi + 1))
-    assert covariance.downdate_config(589, torch.float64) == (32, 19 * 20 // 2)
+    assert covariance.downdate_config(109, torch.float64) == (32, 4 * 5 // 2)
+    assert covariance.downdate_config(589, torch.float64) == (64, 10 * 11 // 2)
     assert covariance.downdate_config(4621, torch.float64) == (64, 73 * 74 // 2)
     with pytest.raises(ValueError):
         covariance.downdate_config(0, torch.float64)

@@ -18,9 +18,8 @@ edges, the data behind the tile thresholds of ``ops/covariance.py``.
 * float64: every shape of ``chip_smoke.DOWNDATE_SHAPES`` in float64 held to
   ``chip_smoke.compare_downdate_f64`` (bitwise symmetric, two launches
   bitwise equal, relative Frobenius difference to the plain version
-  <= 1e-12), and so is each f64 configuration of ``F64_CONFIGS`` (the SIMT
-  kernel; the DMMA kernel on padded rows of M, or loading M directly); its
-  device time at the main-path shapes. With
+  <= 1e-12), and so is each f64 tile edge (32: the SIMT kernel, 64: the
+  DMMA kernel); its device time at the main-path shapes. With
   ``--ref-source``, the reference build's float64 entry point too (the
   earlier ``(P, M, keep, out, D, m, stream)`` or the current one), held to
   the same bound and timed in turns with the new (events, graph replay,
@@ -53,22 +52,19 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 TILES = (32, 128)
-# float64 (tile edge, padded rows of M): the SIMT kernel, then the DMMA
-# kernel on the padded copy of M (16-byte loads) or on M itself (8-byte)
-F64_CONFIGS = {"32": (32, False), "64": (64, True), "64u": (64, False)}
+# float64: the SIMT kernel's tile edge, then the DMMA kernel's
+F64_TILES = (32, 64)
 SWEEP_K = (16, 32, 48, 64, 96, 128, 160, 192, 224, 256, 320, 384, 512, 768)
 
 
-def run_current(fn, P, M, keep, tile, pad=True):
-    """One call of a build's current entry point, either type (scratch and
-    tile edge; a float64 DMMA call without ``pad`` gets no scratch and loads
-    M directly), returning its output."""
+def run_f32(fn, P, M, keep, tile):
+    """One call of a build's current f32 entry point (scratch and tile
+    edge), returning its output."""
     import torch
     D, m = P.shape[0], M.shape[0]
     out = torch.empty_like(P)
-    row = 2 if P.dtype == torch.float64 else 4
-    scratch = (torch.empty((m, -(-D // row) * row), dtype=P.dtype,
-                           device=P.device) if tile > 32 and pad else None)
+    scratch = (torch.empty((m, -(-D // 4) * 4), device=P.device)
+               if tile == 128 else None)
     rc = fn(P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
             None if scratch is None else scratch.data_ptr(), out.data_ptr(),
             D, m, tile, torch.cuda.current_stream().cuda_stream)
@@ -77,31 +73,42 @@ def run_current(fn, P, M, keep, tile, pad=True):
     return out
 
 
-def launcher(lib, tile, pad=True):
-    """The wrapper's kernel (``cov._LIB`` or ``cov._LIB64``) with a forced
-    tile edge (and for float64 padding)."""
-    fn = lib.fn()
-    return lambda P, M, keep: run_current(fn, P, M, keep, tile, pad)
-
-
-def run_early(fn, P, M, keep):
-    """One call of an earlier entry point (P, M, keep, out, D, m, stream)."""
+def run_f64(fn, P, M, keep, tile=None):
+    """One call of a build's f64 entry point, returning its output: the
+    current one (P, M, keep, out, D, m, tile, stream) given a tile edge,
+    else the earlier one without it."""
     import torch
     out = torch.empty_like(P)
-    rc = fn(P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
-            out.data_ptr(), P.shape[0], M.shape[0],
-            torch.cuda.current_stream().cuda_stream)
+    args = [P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
+            out.data_ptr(), P.shape[0], M.shape[0]]
+    if tile is not None:
+        args.append(tile)
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"reference kernel: CUDA error {rc}")
+        raise RuntimeError(f"f64 tile {tile}: CUDA error {rc}")
     return out
 
 
+def launcher(cov, tile):
+    """The wrapper's kernel with a forced tile edge."""
+    fn = cov._LIB.fn()
+    return lambda P, M, keep: run_f32(fn, P, M, keep, tile)
+
+
+def launcher_f64(cov, tile):
+    """The wrapper's float64 kernel with a forced tile edge."""
+    fn = cov._LIB64.fn()
+    return lambda P, M, keep: run_f64(fn, P, M, keep, tile)
+
+
 def ref_launcher(path: str):
-    """Builds of another kernel source: (f32 run, f64 run or None, its f32
-    library). Each entry point takes the scratch and the tile edge (the
-    current ones) if the source names ``Mp`` for its type, else the earlier
-    (P, M, keep, out, D, m, stream); a source without
+    """Builds of another kernel source: (f32 run, f64 run or None, its
+    library). The f32 entry point takes the scratch and the tile edge (the
+    current one) if the source names ``Mp``, else the earlier (P, M, keep,
+    out, D, m, stream); the f64 one takes the tile edge if the source has
+    the DMMA kernel, else it is the earlier; a source without
     ``symmetric_downdate_f64`` gives no f64 run."""
+    import torch
     from surikatoko_tpu_torch.ops import covariance as cov
     from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
     text = Path(path).read_text()
@@ -113,20 +120,24 @@ def ref_launcher(path: str):
 
     def run(P, M, keep):
         if current:
-            return run_current(fn, P, M, keep, cov.downdate_config(P.shape[0])[0])
-        return run_early(fn, P, M, keep)
+            return run_f32(fn, P, M, keep, cov.downdate_config(P.shape[0])[0])
+        out = torch.empty_like(P)
+        rc = fn(P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
+                out.data_ptr(), P.shape[0], M.shape[0],
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"reference kernel: CUDA error {rc}")
+        return out
 
     run64 = None
     if "symmetric_downdate_f64" in text:
-        current64 = "double* Mp" in text
+        current64 = "downdate_kernel_dmma" in text
         fn64 = KernelLibrary(str(Path(path).resolve()), "symmetric_downdate_f64",
                              cov._LIB64.argtypes if current64 else early).fn()
 
         def run64(P, M, keep):
-            if current64:
-                return run_current(fn64, P, M, keep,
-                                   cov.downdate_config(P.shape[0], P.dtype)[0])
-            return run_early(fn64, P, M, keep)
+            tile = cov.downdate_config(P.shape[0], P.dtype)[0] if current64 else None
+            return run_f64(fn64, P, M, keep, tile)
     return run, run64, lib
 
 
@@ -184,8 +195,8 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "ptxas": cs.ptxas_summary(cov._LIB),
           "sass_ops": sass_ops(cov._LIB.build())})
-    kern = {t: launcher(cov._LIB, t) for t in TILES}
-    kern64 = {c: launcher(cov._LIB64, *cfg) for c, cfg in F64_CONFIGS.items()}
+    kern = {t: launcher(cov, t) for t in TILES}
+    kern64 = {t: launcher_f64(cov, t) for t in F64_TILES}
     ref = ref64 = None
     if args.ref_source:
         ref, ref64, ref_lib = ref_launcher(args.ref_source)
@@ -228,10 +239,10 @@ def main() -> int:
             want = cov.symmetric_downdate_ref(P, M, keep)
             row = {"probe": "check_f64", "D": D, "m": m, "keep": with_keep,
                    "tile": cov.downdate_config(D, torch.float64)[0],
-                   "rel_fro": rel, "configs_rel_fro": {}}
-            for c, f in kern64.items():
+                   "rel_fro": rel, "tiles_rel_fro": {}}
+            for t, f in kern64.items():
                 got = f(P, M, keep)
-                row["configs_rel_fro"][c] = rel_fro(got, want)
+                row["tiles_rel_fro"][t] = rel_fro(got, want)
                 ok64 &= f64_ok(got, f(P, M, keep), want)
             if ref64 is not None:
                 got = ref64(P, M, keep)
@@ -321,14 +332,14 @@ def main() -> int:
                   "tfma_per_s_device": {t: fma / (v * 1e-6) / 1e12
                                         for t, v in dev_us.items() if v}})
             P, M, keep = cs.downdate_case(D, m, True, dev, torch.float64)
-            dev_us = {c: cs.device_us_per_call(lambda: f(P, M, keep))
-                      for c, f in kern64.items()}
+            dev_us = {t: cs.device_us_per_call(lambda: f(P, M, keep))
+                      for t, f in kern64.items()}
             emit({"probe": "sweep_f64", "K": K, "D": D, "m": m,
                   "device_us": dev_us,
                   "pick": cov.downdate_config(D, torch.float64)[0],
                   "best_device": min(dev_us, key=dev_us.get),
-                  "tfma_per_s_device": {c: fma / (v * 1e-6) / 1e12
-                                        for c, v in dev_us.items() if v}})
+                  "tfma_per_s_device": {t: fma / (v * 1e-6) / 1e12
+                                        for t, v in dev_us.items() if v}})
     if sink:
         sink.close()
     print(json.dumps({"ok": bool(ok)}), flush=True)
