@@ -332,7 +332,7 @@ struct Cfg64 {
   static constexpr int TILE = 64;
   static constexpr int KP = 16;                      // rows of M per panel
   static constexpr int STAGES = 4;                   // panels in the ring
-  static constexpr int WARPS_N = 2;                  // and 2 along the rows
+  static constexpr int WARPS_N = 2;                  // warps across; 2 down
   static constexpr int WM = 32, WN = 32;             // warp tile
   static constexpr int MI = WM / 16, NI = WN / 8;    // m16n8 MMA tiles a warp
   static constexpr int THREADS = 128;

@@ -135,26 +135,6 @@ def test_torch_downdate_kernel_rejects_what_it_cannot_take():
         covariance.symmetric_downdate(P.double(), M)               # mixed
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("D,m", SHAPES)
-@pytest.mark.parametrize("with_keep", [False, True])
-def test_torch_downdate_kernel_f64_matches_plain_on_card(D, m, with_keep):
-    """The float64 entry point: counted, bitwise symmetric, two launches
-    bitwise equal, and within 1e-12 of the plain version in the relative
-    Frobenius norm."""
-    dev = _card()
-    P, M, keep = _inputs(D, m, with_keep, dev, torch.float64)
-    before = covariance.LAUNCHES
-    got = covariance.symmetric_downdate(P, M, keep)
-    again = covariance.symmetric_downdate(P, M, keep)
-    want = covariance.symmetric_downdate_ref(P, M, keep)
-    torch.cuda.synchronize()
-    assert covariance.LAUNCHES == before + 2
-    assert got.dtype == torch.float64
-    assert torch.equal(got, got.T) and torch.equal(got, again)
-    assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-12
-
-
 def f64_checked(P, M, keep):
     """Two float64 wrapper calls against the plain version: both counted,
     bitwise symmetric, bitwise equal to each other, finite, and within 1e-12
@@ -169,6 +149,15 @@ def f64_checked(P, M, keep):
     assert torch.equal(got, got.T) and torch.equal(got, again)
     assert bool(torch.isfinite(got).all())
     assert float(torch.linalg.norm(got - want) / torch.linalg.norm(want)) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,m", SHAPES)
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_torch_downdate_kernel_f64_matches_plain_on_card(D, m, with_keep):
+    """The float64 entry point at every shape (f64_checked)."""
+    dev = _card()
+    f64_checked(*_inputs(D, m, with_keep, dev, torch.float64))
 
 
 @pytest.mark.cuda

@@ -42,6 +42,7 @@ import argparse
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -145,9 +146,9 @@ def sass_ops(lib_path, ops=("DMMA", "DFMA", "FFMA")) -> dict:
     """{kernel: {opcode: count}} of the library's SASS (cuobjdump), for the
     kernels that issue any of ``ops``: which run on the FP64 tensor cores
     (DMMA) and which on the vector lanes (DFMA, FFMA)."""
-    tool = Path("/usr/local/cuda/bin/cuobjdump")
-    cmd = [str(tool) if tool.exists() else "cuobjdump", "-sass", str(lib_path)]
-    text = subprocess.run(cmd, capture_output=True, text=True, timeout=120).stdout
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120).stdout
     counts, name = {}, None
     for ln in text.splitlines():
         if "Function :" in ln:
