@@ -59,7 +59,9 @@
 // 1.98 GHz (33.5 TFMA/s), 0.49 ms at D = 4621, m = 1536 against 0.093 ms
 // for its 313 MB. The FP64 vector lanes run half that rate, and wgmma has
 // no f64 form, so past a small D it runs on the FP64 tensor cores through
-// mma.sync (DMMA), as a kernel of its own (downdate_kernel_dmma):
+// mma.sync (DMMA), as a kernel of its own (downdate_kernel_dmma). At the
+// flagship shape it reaches about half that bound; PERF.md says what holds
+// the rest.
 // * 64 x 64 lower-triangle tiles, one block each, 4 warps of 32 x 32 warp
 //   tiles, each 2 x 4 m16n8k16 MMAs (32 accumulators of two registers);
 //   three blocks share an SM (68 KB of shared memory each). In a sweep on

@@ -85,8 +85,9 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
     """Kernel wrapper, same contract as :func:`symmetric_downdate_ref`.
     P [D,D] (symmetric; its lower triangle is read), M [m,D], keep [D] with
     0/1 entries or None; contiguous, all float32 or all float64, on one CUDA
-    device, D, m >= 1. The values of ``keep`` are not checked (that would
-    wait for the card)."""
+    device, D, m >= 1. float64 past ``F64_TILE_32_MAX_D`` runs the DMMA
+    kernel (FP64 tensor cores), one launch a call. The values of ``keep``
+    are not checked (that would wait for the card)."""
     global LAUNCHES
     if P.device.type == "cpu":
         return symmetric_downdate_ref(P, M, keep)

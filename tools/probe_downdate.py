@@ -144,8 +144,8 @@ def ref_launcher(path: str):
 
 def sass_ops(lib_path, ops=("DMMA", "DFMA", "FFMA")) -> dict:
     """{kernel: {opcode: count}} of the library's SASS (cuobjdump), for the
-    kernels that issue any of ``ops``: which run on the FP64 tensor cores
-    (DMMA) and which on the vector lanes (DFMA, FFMA)."""
+    kernels that contain any of ``ops``: which run on the FP64 tensor
+    cores (DMMA) and which on the vector lanes (DFMA, FFMA)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=120).stdout
