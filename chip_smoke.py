@@ -26,8 +26,7 @@ Phases, one JSON line each:
            The downdate's float64 entry point at the same shapes against
            its plain version in float64 on the card: bitwise symmetric, two
            launches bitwise equal, relative Frobenius difference <= 1e-12
-           (32-wide SIMT tiles up to D = 397, the DMMA kernel's 64-wide
-           tiles on the FP64 tensor cores above).
+           (the DMMA kernel's 64-wide tiles on the FP64 tensor cores).
            All timed with CUDA events over back-to-back calls, over
            replays of a CUDA graph of the calls (which leaves out the host's
            time between launches) and by the profiler's device time, each
@@ -139,6 +138,8 @@ F64_REL_FRO = 1e-12
 # tiles only) and the downdate itself
 DOWNDATE_DEVICE_KERNELS = ("pad_rows", "downdate_kernel")
 NCC_DEVICE_KERNELS = ("ncc_search_kernel",)
+# profiles taken for one device time before it counts as not measured
+PROFILE_TRIES = 3
 
 # the published peak rate of HBM3 on an H100 SXM (bytes/s); f32 lanes per
 # SM; FP64 FMAs per SM and clock on the FP64 tensor cores (DMMA), twice the
@@ -237,16 +238,16 @@ def timed_build(mod):
     return os.path.relpath(path), time.perf_counter() - t0
 
 
-def device_us_per_call(fn, calls: int = 5, tries: int = 3) -> float:
+def device_us_per_call(fn, calls: int = 5) -> float:
     """Mean device time of one call of ``fn`` over ``calls`` calls under the
     profiler (one profiled call alone varies by tens of percent). A profile
-    that recorded no device event at all is taken again, up to ``tries``
-    times in all."""
-    for _ in range(tries):
+    that recorded no device event at all is taken again, PROFILE_TRIES times
+    in all; then it raises, so no time is reported that was not measured."""
+    for _ in range(PROFILE_TRIES):
         busy = device_profile(lambda: [fn() for _ in range(calls)])[0]
         if busy > 0:
-            break
-    return busy / calls
+            return busy / calls
+    raise RuntimeError(f"{PROFILE_TRIES} profiles recorded no device event")
 
 
 def ptxas_summary(lib) -> list:

@@ -58,8 +58,8 @@
 // FMAs, D(D+1)/2 m at the FP64 tensor cores' 132 SMs x 128 FMA a clock x
 // 1.98 GHz (33.5 TFMA/s), 0.49 ms at D = 4621, m = 1536 against 0.093 ms
 // for its 313 MB. The FP64 vector lanes run half that rate, and wgmma has
-// no f64 form, so past a small D it runs on the FP64 tensor cores through
-// mma.sync (DMMA), as a kernel of its own (downdate_kernel_dmma). At the
+// no f64 form, so every float64 call runs on the FP64 tensor cores through
+// mma.sync (DMMA), in a kernel of its own (downdate_kernel_dmma). At the
 // flagship shape it reaches about half that bound; PERF.md says what holds
 // the rest.
 // * 64 x 64 lower-triangle tiles, one block each, 4 warps of 32 x 32 warp
@@ -80,16 +80,14 @@
 // * summation order: one accumulator per output from 0, one MMA a panel of
 //   16 rows of M in increasing order (rows past m are zero); no split-K,
 //   no atomics, so two launches give equal bits. Within an MMA the order is
-//   the tensor core's, so the outputs may differ from the SIMT kernel's in
-//   the last bits (they are held to the plain version at 1e-12).
+//   the tensor core's, so the outputs may differ from a sequential fma
+//   chain's in the last bits (they are held to the plain version at 1e-12).
 // * the epilogue is the float32 kernel's (write_tile): keep mask and
 //   P_ij - acc applied, the mirror through the padded shared tile, so the
 //   output is bitwise symmetric.
-// Up to a small D the float32 kernel templated on double at 32-wide tiles
-// is faster (8-byte cp.async copies of M, double2 shared loads, fma in
-// double on the vector lanes); the caller picks the kernel from D
-// (ops/covariance.py:downdate_config). The float32 instantiations are the
-// code they were before either, operation for operation.
+// * one tile edge at every D. At D <= 397, where a call lasts 5-11 us, the
+//   earlier float64 kernel (the float32 one in double, 32-wide tiles on the
+//   vector lanes) ran 2-3 us faster, but no float64 path runs there.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -100,7 +98,7 @@ constexpr int KP = 32;       // rows of M per panel
 constexpr int STAGES = 3;    // panels in the cp.async ring
 constexpr int EPI_LOADS = 4; // loads of P in flight per thread in the epilogue
 
-template <int TILE, typename T>
+template <int TILE>
 struct Cfg {
   static constexpr int H = TILE >= 128 ? 2 : 1;     // row groups of 4 per thread
   static constexpr int RT = 4 * H;                  // register tile edge
@@ -108,13 +106,13 @@ struct Cfg {
   static constexpr int THREADS = TS * TS;
   static constexpr int HALF = TILE / H;             // offset between row groups
   static constexpr bool PADDED = TILE >= 128;       // loads from the scratch
-  static constexpr int VEC = PADDED ? 4 : 1;        // elements per copy
-  static constexpr int STRIP = KP * TILE;           // elements per strip
+  static constexpr int VEC = PADDED ? 4 : 1;        // floats per copy
+  static constexpr int STRIP = KP * TILE;           // floats per strip
   static constexpr int ROW_CHUNKS = TILE / VEC;     // copies per strip row
   static constexpr int ROW_STEP = THREADS / ROW_CHUNKS;  // strip rows per pass
   static constexpr int LOADS = STRIP / VEC / THREADS;    // passes per strip
-  static constexpr int RING = STAGES * 2 * STRIP * (int)sizeof(T);
-  static constexpr int EPI = TILE * (TILE + 1) * (int)sizeof(T);
+  static constexpr int RING = STAGES * 2 * STRIP * 4;
+  static constexpr int EPI = TILE * (TILE + 1) * 4;
   static constexpr int SMEM = RING > EPI ? RING : EPI;
   static constexpr int MIN_BLOCKS = TILE >= 128 ? 2 : 4;
   static_assert(TS % 8 == 0 && THREADS % ROW_CHUNKS == 0, "layout");
@@ -141,20 +139,6 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
 __device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-
-__device__ __forceinline__ void load4(const double* p, double* v) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
-__device__ __forceinline__ float fma_t(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-
-__device__ __forceinline__ double fma_t(double a, double b, double c) {
-  return fma(a, b, c);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -227,14 +211,14 @@ __device__ __forceinline__ void write_tile(T* tile, const T* __restrict__ P,
   }
 }
 
-template <int TILE, bool HAS_KEEP, typename T>
-__global__ void __launch_bounds__(Cfg<TILE, T>::THREADS, Cfg<TILE, T>::MIN_BLOCKS)
-downdate_kernel(const T* __restrict__ P, const T* __restrict__ Ms,
-                const T* __restrict__ keep, T* __restrict__ out,
+template <int TILE, bool HAS_KEEP>
+__global__ void __launch_bounds__(Cfg<TILE>::THREADS, Cfg<TILE>::MIN_BLOCKS)
+downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
+                const float* __restrict__ keep, float* __restrict__ out,
                 int D, int ld, int m) {
-  using C = Cfg<TILE, T>;
+  using C = Cfg<TILE>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+  float* smem = reinterpret_cast<float*>(smem_raw);
 
   long long bi, bj;
   tile_of_block(blockIdx.x, bi, bj);
@@ -246,36 +230,36 @@ downdate_kernel(const T* __restrict__ P, const T* __restrict__ Ms,
   const int tx = (warp % (C::TS / 8)) * 8 + lane % 8;   // columns 4 tx ..
   const int ty = (warp / (C::TS / 8)) * 4 + lane / 8;   // rows    4 ty ..
 
-  // M's rows, ld elements apart (D, or Dp in the scratch); this thread's
+  // M's rows, ld floats apart (D, or Dp in the scratch); this thread's
   // copies: strip columns col .. col + VEC - 1, rows row0 + ROW_STEP r (a
   // copy lies wholly inside or outside [0, ld))
   const int col = C::VEC * (tid % C::ROW_CHUNKS);
   const int row0 = tid / C::ROW_CHUNKS;
   const bool ok_i = i0 + col < ld;
   const bool ok_j = j0 + col < ld;
-  const T* src_i = Ms + (ok_i ? i0 + col : 0);
-  const T* src_j = Ms + (ok_j ? j0 + col : 0);
+  const float* src_i = Ms + (ok_i ? i0 + col : 0);
+  const float* src_j = Ms + (ok_j ? j0 + col : 0);
   const int n_panels = (m + KP - 1) / KP;
 
   auto load_panel = [&](int panel) {
-    T* si = smem + (panel % STAGES) * 2 * C::STRIP;
-    T* sj = si + C::STRIP;
+    float* si = smem + (panel % STAGES) * 2 * C::STRIP;
+    float* sj = si + C::STRIP;
 #pragma unroll
     for (int r = 0; r < C::LOADS; ++r) {
       const int row = row0 + r * C::ROW_STEP;
       const int k = panel * KP + row;
       const size_t off = k < m ? (size_t)k * (size_t)ld : 0;
-      constexpr int BYTES = C::VEC * (int)sizeof(T);
+      constexpr int BYTES = C::VEC * 4;
       cp_async<BYTES>(si + row * TILE + col, src_i + off, k < m && ok_i);
       cp_async<BYTES>(sj + row * TILE + col, src_j + off, k < m && ok_j);
     }
   };
 
-  T acc[C::RT][C::RT];
+  float acc[C::RT][C::RT];
 #pragma unroll
   for (int p = 0; p < C::RT; ++p)
 #pragma unroll
-    for (int q = 0; q < C::RT; ++q) acc[p][q] = T(0);
+    for (int q = 0; q < C::RT; ++q) acc[p][q] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -289,14 +273,14 @@ downdate_kernel(const T* __restrict__ P, const T* __restrict__ Ms,
     __syncthreads();
     if (panel + STAGES - 1 < n_panels) load_panel(panel + STAGES - 1);
     cp_async_commit();
-    const T* si = smem + (panel % STAGES) * 2 * C::STRIP;
-    const T* sj = si + C::STRIP;
+    const float* si = smem + (panel % STAGES) * 2 * C::STRIP;
+    const float* sj = si + C::STRIP;
     // rows past m rounded up to 16 are skipped (see the summation order)
     const bool second_half = panel * KP + KP / 2 < m;
 #pragma unroll
     for (int kk = 0; kk < KP; ++kk) {
       if (kk == KP / 2 && !second_half) break;
-      T a[C::RT], b[C::RT];
+      float a[C::RT], b[C::RT];
 #pragma unroll
       for (int h = 0; h < C::H; ++h) {
         load4(si + kk * TILE + h * C::HALF + 4 * ty, a + 4 * h);
@@ -305,13 +289,13 @@ downdate_kernel(const T* __restrict__ P, const T* __restrict__ Ms,
 #pragma unroll
       for (int p = 0; p < C::RT; ++p)
 #pragma unroll
-        for (int q = 0; q < C::RT; ++q) acc[p][q] = fma_t(a[p], b[q], acc[p][q]);
+        for (int q = 0; q < C::RT; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
     }
   }
   cp_async_wait<0>();
   __syncthreads();   // the ring is free: it becomes the epilogue tile
 
-  T* tile = smem;   // [TILE][TILE + 1]
+  float* tile = smem;   // [TILE][TILE + 1]
 #pragma unroll
   for (int p = 0; p < C::RT; ++p) {
     const int r = (p / 4) * C::HALF + 4 * ty + p % 4;
@@ -482,10 +466,10 @@ cudaError_t set_smem(Kernel kernel, int smem, unsigned long long& ready) {
   return err;
 }
 
-template <int TILE, bool HAS_KEEP, typename T>
+template <int TILE, bool HAS_KEEP>
 cudaError_t prepare() {
   static unsigned long long ready = 0;
-  return set_smem(downdate_kernel<TILE, HAS_KEEP, T>, Cfg<TILE, T>::SMEM, ready);
+  return set_smem(downdate_kernel<TILE, HAS_KEEP>, Cfg<TILE>::SMEM, ready);
 }
 
 template <bool HAS_KEEP>
@@ -494,23 +478,23 @@ cudaError_t prepare_dmma() {
   return set_smem(downdate_kernel_dmma<HAS_KEEP>, Cfg64::SMEM, ready);
 }
 
-template <int TILE, typename T>
-int launch(const T* P, const T* M, const T* keep, T* Mp, T* out, int D, int m,
-           cudaStream_t stream) {
-  using C = Cfg<TILE, T>;
+template <int TILE>
+int launch(const float* P, const float* M, const float* keep, float* Mp,
+           float* out, int D, int m, cudaStream_t stream) {
+  using C = Cfg<TILE>;
   if (C::PADDED && Mp == nullptr) return (int)cudaErrorInvalidValue;
   const bool has_keep = keep != nullptr;
-  cudaError_t err = has_keep ? prepare<TILE, true, T>() : prepare<TILE, false, T>();
+  cudaError_t err = has_keep ? prepare<TILE, true>() : prepare<TILE, false>();
   if (err != cudaSuccess) return (int)err;
   int ld = D;
-  if constexpr (C::PADDED) {   // float only: pad_rows copies floats
+  if (C::PADDED) {
     ld = (D + 3) / 4 * 4;
     pad_rows<<<m, 256, 0, stream>>>(M, Mp, D, ld);
     M = Mp;
   }
   const unsigned int nt = (D + TILE - 1) / TILE;
-  auto kernel = has_keep ? downdate_kernel<TILE, true, T>
-                         : downdate_kernel<TILE, false, T>;
+  auto kernel = has_keep ? downdate_kernel<TILE, true>
+                         : downdate_kernel<TILE, false>;
   kernel<<<nt * (nt + 1) / 2, C::THREADS, C::SMEM, stream>>>(P, M, keep, out,
                                                             D, ld, m);
   return (int)cudaGetLastError();
@@ -542,20 +526,16 @@ extern "C" int symmetric_downdate_f32(const float* P, const float* M,
                                       int D, int m, int tile,
                                       cudaStream_t stream) {
   switch (tile) {
-    case 32: return launch<32, float>(P, M, keep, Mp, out, D, m, stream);
-    case 128: return launch<128, float>(P, M, keep, Mp, out, D, m, stream);
+    case 32: return launch<32>(P, M, keep, Mp, out, D, m, stream);
+    case 128: return launch<128>(P, M, keep, Mp, out, D, m, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The same for float64 P, M, keep and out, with no scratch: tile 32 is the
-// SIMT kernel, tile 64 the DMMA kernel.
+// The same for float64 P, M, keep and out, with no scratch: the DMMA
+// kernel's 64 x 64 tiles at every D.
 extern "C" int symmetric_downdate_f64(const double* P, const double* M,
                                       const double* keep, double* out, int D,
-                                      int m, int tile, cudaStream_t stream) {
-  switch (tile) {
-    case 32: return launch<32, double>(P, M, keep, nullptr, out, D, m, stream);
-    case 64: return launch_dmma(P, M, keep, out, D, m, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                                      int m, cudaStream_t stream) {
+  return launch_dmma(P, M, keep, out, D, m, stream);
 }

@@ -8,14 +8,13 @@ EKF downdate goes through it: the fused frame step's masked downdate
 tensors on the CPU it runs :func:`symmetric_downdate_ref` (the tests' path);
 for CUDA tensors it launches ``csrc/symmetric_downdate.cu`` or raises: there
 is no fallback. Both versions read only the lower triangle of P and mirror
-it, so the result is exactly symmetric. The kernel and its tile edge come
-from D and the type (:func:`downdate_config`). float32 runs on the FP32
-lanes; for its 128-wide tiles the wrapper also allocates the scratch into
-which a first kernel copies M with padded rows, so such a call is two
-device launches. float64 past a small D runs on the FP64 tensor cores
-(``mma.sync`` m16n8k16 in 64-wide tiles, DMMA: the rate its bound assumes,
-0.49 ms at the flagship's D = 4621, m = 1536), below it at 32-wide tiles on
-the FP64 lanes; both load M directly, one launch a call.
+it, so the result is exactly symmetric. The tile edge comes from D and the
+type (:func:`downdate_config`). float32 runs on the FP32 lanes; for its
+128-wide tiles the wrapper also allocates the scratch into which a first
+kernel copies M with padded rows, so such a call is two device launches.
+float64 runs on the FP64 tensor cores (``mma.sync`` m16n8k16 in 64-wide
+tiles, DMMA: the rate its bound assumes, 0.49 ms at the flagship's D =
+4621, m = 1536), loading M directly, one launch a call.
 """
 
 from __future__ import annotations
@@ -37,10 +36,10 @@ _LIB = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_f32",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 # the float64 entry point of the same source, the same library file: (P, M,
-# keep, out, D, m, tile, stream)
+# keep, out, D, m, stream)
 _LIB64 = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_f64",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 # Output tile edge by D: D <= TILE_32_MAX_D takes 32, larger D 128. Wider
 # tiles reuse each loaded value more but give fewer blocks. In a sweep of
@@ -48,20 +47,18 @@ _LIB64 = KernelLibrary(
 # PERF.md), 32 was the faster edge at every D up to 1933 but 1549 (4%
 # slower there) and 128 at every D from 2317 on.
 TILE_32_MAX_D = 1933
-# float64: the SIMT kernel's 32-wide tiles up to F64_TILE_32_MAX_D, the
-# DMMA kernel's 64-wide tiles above. In the same sweep in float64, 32 was
-# the faster at every D up to 397 and 64 at every D from 589 on (PERF.md).
-F64_TILE_32_MAX_D = 397
+# float64 takes the DMMA kernel's 64-wide tiles at every D
+F64_TILE = 64
 
 
 def downdate_config(D: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """(tile edge, thread blocks) of the kernel for a [D,D] output of
     ``dtype``: one block per lower-triangle tile, the grid the kernel's entry
-    point launches. A float64 edge of 64 is the DMMA kernel's."""
+    point launches."""
     if D < 1:
         raise ValueError(f"D must be >= 1, got {D}")
     if dtype == torch.float64:
-        tile = 32 if D <= F64_TILE_32_MAX_D else 64
+        tile = F64_TILE
     else:
         tile = 32 if D <= TILE_32_MAX_D else 128
     nt = -(-D // tile)
@@ -85,9 +82,9 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
     """Kernel wrapper, same contract as :func:`symmetric_downdate_ref`.
     P [D,D] (symmetric; its lower triangle is read), M [m,D], keep [D] with
     0/1 entries or None; contiguous, all float32 or all float64, on one CUDA
-    device, D, m >= 1. float64 past ``F64_TILE_32_MAX_D`` runs the DMMA
-    kernel (FP64 tensor cores), one launch a call. The values of ``keep``
-    are not checked (that would wait for the card)."""
+    device, D, m >= 1. float64 runs the DMMA kernel (FP64 tensor cores),
+    one launch a call. The values of ``keep`` are not checked (that would
+    wait for the card)."""
     global LAUNCHES
     if P.device.type == "cpu":
         return symmetric_downdate_ref(P, M, keep)
@@ -109,13 +106,13 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
     m = M.shape[0]
     out = torch.empty_like(P)
     keep_ptr = None if keep is None else keep.data_ptr()
-    tile = downdate_config(D, P.dtype)[0]
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream().cuda_stream
         if P.dtype == torch.float64:
             rc = _LIB64.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
-                             out.data_ptr(), D, m, tile, stream)
+                             out.data_ptr(), D, m, stream)
         else:
+            tile = downdate_config(D)[0]
             # 128-wide tiles load M from a copy whose rows are padded to a
             # multiple of 4 floats (16-byte loads)
             scratch = (torch.empty((m, -(-D // 4) * 4), dtype=P.dtype,

@@ -136,16 +136,15 @@ def test_torch_downdate_config_float32_is_the_default(D):
 
 
 def test_torch_downdate_config_float64_rule():
-    """float64: every D from 1 to 5000 gets the SIMT kernel's 32-wide tile up
-    to F64_TILE_32_MAX_D and the DMMA kernel's 64-wide tile above, one
-    block per lower-triangle tile."""
-    edge = covariance.F64_TILE_32_MAX_D
+    """float64: every D from 1 to 5000 gets the DMMA kernel's 64-wide tile,
+    one block per lower-triangle tile."""
     for D in range(1, 5001):
         tile, blocks = covariance.downdate_config(D, torch.float64)
-        assert tile == (32 if D <= edge else 64)
+        assert tile == covariance.F64_TILE == 64
         nt = len(range(0, D, tile))
         assert blocks == sum(1 for bi in range(nt) for bj in range(bi + 1))
-    assert covariance.downdate_config(109, torch.float64) == (32, 4 * 5 // 2)
+    assert covariance.downdate_config(1, torch.float64) == (64, 1)
+    assert covariance.downdate_config(109, torch.float64) == (64, 2 * 3 // 2)
     assert covariance.downdate_config(589, torch.float64) == (64, 10 * 11 // 2)
     assert covariance.downdate_config(4621, torch.float64) == (64, 73 * 74 // 2)
     with pytest.raises(ValueError):

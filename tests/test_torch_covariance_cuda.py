@@ -161,32 +161,31 @@ def test_torch_downdate_kernel_f64_matches_plain_on_card(D, m, with_keep):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("side", [-1, 0, 1])
-def test_torch_downdate_kernel_f64_at_tile_threshold(side):
-    """The float64 tile threshold +-1: the SIMT kernel's 32-wide tiles up to
-    it, the DMMA kernel's 64-wide tiles past it, with a ragged m."""
+@pytest.mark.parametrize("D", [1, 2, 63, 64, 65, 127, 128, 129])
+def test_torch_downdate_kernel_f64_at_tile_edges(D):
+    """The DMMA kernel's 64-wide tile edges +-1, and D below one MMA tile,
+    with a ragged m: one diagonal tile, or a ragged last row of tiles."""
     dev = _card()
-    D = covariance.F64_TILE_32_MAX_D + side
-    assert covariance.downdate_config(D, torch.float64)[0] == (32 if side < 1 else 64)
+    assert covariance.downdate_config(D, torch.float64)[0] == 64
     f64_checked(*_inputs(D, 48, True, dev, torch.float64))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [1000, 4621])
+@pytest.mark.parametrize("D", [43, 1000, 4621])
 @pytest.mark.parametrize("m", [1, 3, 7, 17, 33])
 @pytest.mark.parametrize("with_keep", [False, True])
 def test_torch_downdate_kernel_f64_ragged_m(D, m, with_keep):
-    """m short of the 16-row panel (zero-filled rows) and past it, on the
-    DMMA kernel, D past a tile edge (1000) and at the flagship's 4621."""
+    """m short of the 16-row panel (zero-filled rows) and past it, D inside
+    one tile (43), past a tile edge (1000) and at the flagship's 4621."""
     dev = _card()
     f64_checked(*_inputs(D, m, with_keep, dev, torch.float64))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [300, 2317])
+@pytest.mark.parametrize("D", [43, 300, 2317])
 def test_torch_downdate_kernel_f64_tall_m(D):
-    """m = 2000 rows, many panels through the cp.async ring: the SIMT kernel
-    (D = 300) and the DMMA kernel (2317)."""
+    """m = 2000 rows, many panels through the cp.async ring, at a small D
+    and at a large one."""
     dev = _card()
     f64_checked(*_inputs(D, 2000, True, dev, torch.float64))
 
@@ -195,17 +194,18 @@ def test_torch_downdate_kernel_f64_tall_m(D):
 @pytest.mark.parametrize("with_keep", [False, True])
 def test_torch_downdate_kernel_f64_repeats_bitwise(with_keep):
     """No split-K and no atomics in float64 either: two launches agree bit
-    for bit at the flagship shape, which runs on the FP64 tensor cores (a
-    kernel named for DMMA shows in the profile)."""
+    for bit at a small shape and at the flagship's, and both run on the FP64
+    tensor cores (a kernel named for DMMA shows in the profile)."""
     from torch.profiler import ProfilerActivity, profile
     dev = _card()
-    P, M, keep = _inputs(4621, 1536, with_keep, dev, torch.float64)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        first = covariance.symmetric_downdate(P, M, keep)
-        torch.cuda.synchronize()
-    assert torch.equal(first, covariance.symmetric_downdate(P, M, keep))
-    names = {e.name for e in prof.events()}
-    assert any("downdate_kernel_dmma" in n for n in names), names
+    for D, m in ((43, 10), (4621, 1536)):
+        P, M, keep = _inputs(D, m, with_keep, dev, torch.float64)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            first = covariance.symmetric_downdate(P, M, keep)
+            torch.cuda.synchronize()
+        assert torch.equal(first, covariance.symmetric_downdate(P, M, keep))
+        names = {e.name for e in prof.events()}
+        assert any("downdate_kernel_dmma" in n for n in names), names
 
 
 @pytest.mark.cuda

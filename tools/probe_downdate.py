@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Probe of the symmetric downdate kernel (csrc/symmetric_downdate.cu) on one
 CUDA card: ptxas's report, bitwise checks and a timing sweep over the tile
-edges, the data behind the tile thresholds of ``ops/covariance.py``.
+edges, the data behind the tile threshold of ``ops/covariance.py``.
 
     python3 tools/probe_downdate.py [--ref-source FILE] [--flagship-frames N]
                                     [--clock-seconds S] [--no-sweep] [--out FILE]
@@ -18,12 +18,11 @@ edges, the data behind the tile thresholds of ``ops/covariance.py``.
 * float64: every shape of ``chip_smoke.DOWNDATE_SHAPES`` in float64 held to
   ``chip_smoke.compare_downdate_f64`` (bitwise symmetric, two launches
   bitwise equal, relative Frobenius difference to the plain version
-  <= 1e-12), and so is each f64 tile edge (32: the SIMT kernel, 64: the
-  DMMA kernel); its device time at the main-path shapes. With
-  ``--ref-source``, the reference build's float64 entry point too (the
-  earlier ``(P, M, keep, out, D, m, stream)`` or the current one), held to
-  the same bound and timed in turns with the new (events, graph replay,
-  device time).
+  <= 1e-12); its device time at the main-path shapes. With
+  ``--ref-source``, the reference build's float64 entry point
+  ``symmetric_downdate_f64(P, M, keep, out, D, m, stream)`` too, held to the
+  same bound and timed in turns with the new (events, graph replay, device
+  time).
 * the SASS opcode counts of each kernel (DMMA on the FP64 tensor cores,
   DFMA and FFMA on the vector lanes), from cuobjdump.
 * ``--flagship-frames N`` runs the K=768 flagship loop for N frames and
@@ -31,8 +30,9 @@ edges, the data behind the tile thresholds of ``ops/covariance.py``.
 * ``--clock-seconds S`` runs the kernel back to back at the flagship shape
   for about S seconds while nvidia-smi samples the SM clock and power.
 * the sweep times each tile edge at D = 13 + 6K, m = 2K for K from 16 to 768
-  with a 0/1 keep (CUDA events and the profiler's device time), in float32
-  and in float64.
+  with a 0/1 keep (CUDA events and the profiler's device time), and the
+  float64 entry point there by device time (and the reference build's with
+  ``--ref-source``).
 One JSON line per result on stdout, and also in ``--out`` FILE if given.
 """
 
@@ -53,8 +53,6 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 TILES = (32, 128)
-# float64: the SIMT kernel's tile edge, then the DMMA kernel's
-F64_TILES = (32, 64)
 SWEEP_K = (16, 32, 48, 64, 96, 128, 160, 192, 224, 256, 320, 384, 512, 768)
 
 
@@ -74,41 +72,18 @@ def run_f32(fn, P, M, keep, tile):
     return out
 
 
-def run_f64(fn, P, M, keep, tile=None):
-    """One call of a build's f64 entry point, returning its output: the
-    current one (P, M, keep, out, D, m, tile, stream) given a tile edge,
-    else the earlier one without it."""
-    import torch
-    out = torch.empty_like(P)
-    args = [P.data_ptr(), M.data_ptr(), None if keep is None else keep.data_ptr(),
-            out.data_ptr(), P.shape[0], M.shape[0]]
-    if tile is not None:
-        args.append(tile)
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"f64 tile {tile}: CUDA error {rc}")
-    return out
-
-
 def launcher(cov, tile):
     """The wrapper's kernel with a forced tile edge."""
     fn = cov._LIB.fn()
     return lambda P, M, keep: run_f32(fn, P, M, keep, tile)
 
 
-def launcher_f64(cov, tile):
-    """The wrapper's float64 kernel with a forced tile edge."""
-    fn = cov._LIB64.fn()
-    return lambda P, M, keep: run_f64(fn, P, M, keep, tile)
-
-
 def ref_launcher(path: str):
     """Builds of another kernel source: (f32 run, f64 run or None, its
     library). The f32 entry point takes the scratch and the tile edge (the
     current one) if the source names ``Mp``, else the earlier (P, M, keep,
-    out, D, m, stream); the f64 one takes the tile edge if the source has
-    the DMMA kernel, else it is the earlier; a source without
-    ``symmetric_downdate_f64`` gives no f64 run."""
+    out, D, m, stream); the f64 one is (P, M, keep, out, D, m, stream), and
+    a source without ``symmetric_downdate_f64`` gives no f64 run."""
     import torch
     from surikatoko_tpu_torch.ops import covariance as cov
     from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
@@ -132,13 +107,17 @@ def ref_launcher(path: str):
 
     run64 = None
     if "symmetric_downdate_f64" in text:
-        current64 = "downdate_kernel_dmma" in text
         fn64 = KernelLibrary(str(Path(path).resolve()), "symmetric_downdate_f64",
-                             cov._LIB64.argtypes if current64 else early).fn()
+                             cov._LIB64.argtypes).fn()
 
         def run64(P, M, keep):
-            tile = cov.downdate_config(P.shape[0], P.dtype)[0] if current64 else None
-            return run_f64(fn64, P, M, keep, tile)
+            out = torch.empty_like(P)
+            rc = fn64(P.data_ptr(), M.data_ptr(),
+                      None if keep is None else keep.data_ptr(), out.data_ptr(),
+                      P.shape[0], M.shape[0], torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"reference f64 kernel: CUDA error {rc}")
+            return out
     return run, run64, lib
 
 
@@ -197,7 +176,6 @@ def main() -> int:
           "ptxas": cs.ptxas_summary(cov._LIB),
           "sass_ops": sass_ops(cov._LIB.build())})
     kern = {t: launcher(cov, t) for t in TILES}
-    kern64 = {t: launcher_f64(cov, t) for t in F64_TILES}
     ref = ref64 = None
     if args.ref_source:
         ref, ref64, ref_lib = ref_launcher(args.ref_source)
@@ -237,15 +215,10 @@ def main() -> int:
         for with_keep in (False, True):
             P, M, keep = cs.downdate_case(D, m, with_keep, dev, torch.float64)
             rel, ok64 = cs.compare_downdate_f64(cov, P, M, keep)
-            want = cov.symmetric_downdate_ref(P, M, keep)
             row = {"probe": "check_f64", "D": D, "m": m, "keep": with_keep,
-                   "tile": cov.downdate_config(D, torch.float64)[0],
-                   "rel_fro": rel, "tiles_rel_fro": {}}
-            for t, f in kern64.items():
-                got = f(P, M, keep)
-                row["tiles_rel_fro"][t] = rel_fro(got, want)
-                ok64 &= f64_ok(got, f(P, M, keep), want)
+                   "rel_fro": rel}
             if ref64 is not None:
+                want = cov.symmetric_downdate_ref(P, M, keep)
                 got = ref64(P, M, keep)
                 row["ref_rel_fro"] = rel_fro(got, want)
                 ok64 &= f64_ok(got, ref64(P, M, keep), want)
@@ -283,7 +256,6 @@ def main() -> int:
         P, M, keep = cs.downdate_case(D, m, True, dev, torch.float64)
         new = lambda: cov.symmetric_downdate(P, M, keep)
         row["kernel_f64"] = cs.device_us_per_call(new)
-        row["tile_f64"] = cov.downdate_config(D, torch.float64)[0]
         if ref64 is not None:
             old = lambda: ref64(P, M, keep)
             n = 200 if D < 1000 else 20
@@ -331,16 +303,17 @@ def main() -> int:
                   "ms": times, "device_us": dev_us, "pick": cov.downdate_config(D)[0],
                   "best_device": min(dev_us, key=dev_us.get),
                   "tfma_per_s_device": {t: fma / (v * 1e-6) / 1e12
-                                        for t, v in dev_us.items() if v}})
+                                        for t, v in dev_us.items()}})
+            # float64: the wrapper's DMMA kernel, and the reference build's
             P, M, keep = cs.downdate_case(D, m, True, dev, torch.float64)
-            dev_us = {t: cs.device_us_per_call(lambda: f(P, M, keep))
-                      for t, f in kern64.items()}
+            fns = {"new": lambda: cov.symmetric_downdate(P, M, keep)}
+            if ref64 is not None:
+                fns["ref"] = lambda: ref64(P, M, keep)
+            dev_us = {k: cs.device_us_per_call(f) for k, f in fns.items()}
             emit({"probe": "sweep_f64", "K": K, "D": D, "m": m,
                   "device_us": dev_us,
-                  "pick": cov.downdate_config(D, torch.float64)[0],
-                  "best_device": min(dev_us, key=dev_us.get),
-                  "tfma_per_s_device": {t: fma / (v * 1e-6) / 1e12
-                                        for t, v in dev_us.items() if v}})
+                  "tfma_per_s_device": {k: fma / (v * 1e-6) / 1e12
+                                        for k, v in dev_us.items()}})
     if sink:
         sink.close()
     print(json.dumps({"ok": bool(ok)}), flush=True)
