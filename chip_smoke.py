@@ -9,8 +9,11 @@ Phases, one JSON line each:
            builds both kernels from the checkout, one nvcc each, started
            together, times the builds and shows ptxas's registers and spills.
   kernel   each kernel against its plain PyTorch version on the card.
-           NCC search (csrc/ncc_search.cu): random data at the test shapes
-           and at the main path's (K,T,S) = (768,15,15), then the edge
+           NCC search (csrc/ncc_search.cu): random data at the test shapes,
+           at the main path's (K,T,S) = (768,15,15) and at the image loop's
+           (48,15,21) and the demo defaults' (32,17,25) (these two also
+           timed by events, graph replay and device time beside their
+           bound), then the edge
            cases of ncc_edge_case (ragged K = 769, flat windows, exact ties,
            all-false gates, argmaxes on window corners with clamped
            neighbours), each without and with the neighbour output: corr
@@ -75,6 +78,29 @@ Phases, one JSON line each:
            float64 run's first 30 frames within 1e-9 (cam_state) of the
            same run on the CPU with equal counts, and f32 ATE <= 2 x the
            float64 ATE + 0.02.
+  imageseq_hostloop  the host-driven image loop of bench.py:371-473: the
+           grid world, the camera oscillating over 2 periods of 100 shots,
+           200 frames of 320x240 rendered on the host, written as PGM through
+           save_picture and read back through FrameLoader(prefetch_depth=4);
+           MonoSlamFilter(capacity=48, update_impl=1) from the GT velocity
+           with ImageTemplCornersMatcher (templ 15, radius 10, corr 0.6, 48
+           corners, 15 px from tracked) through run_image_sequence_pipelined,
+           in float32 and float64 on the card: fps of the better of two timed
+           runs after a 30-frame warm-up run, ATE, matched median, frame 0's
+           recruits, one profiled 40-frame run (device busy, idle share, B1's
+           and B2's us a frame), the host syncs a frame that torch's sync
+           debug mode reports (runs of 5 and 15 frames), and each stage's
+           ms a frame in a 40-frame sequential run synchronized around every
+           stage. Asserts native decoding, finite state, P == P^T, one
+           B1 and one B2 launch per frame, matched median >= 24, f32 ATE <= 2
+           x the f64 ATE + 0.02, and the float64 run's frames 0-29 against
+           the same run on the CPU: counts and new slots equal, cam_state
+           within 1e-9, up to the first frame where B1's float32 surface (its
+           sum order differs from the plain version's) flips a near tie,
+           shown with its slot and both corr values, which must lie within
+           B1's tolerance. Then KltCornersMatcher (3 levels, window 7, 10
+           iterations) over 60 frames in float32: no B1 launch, one B2 launch
+           per frame, matched median > 0, fps.
   scenario03_f64  make_scan_runner(1) in float64 on the card, frames 1-30,
            against the CPU: camera positions within 1e-9, P == P^T.
   precision_k768  the K=768 pin of tests/test_precision_large_k.py:
@@ -100,7 +126,9 @@ Phases, one JSON line each:
   Neither BA phase may launch kernel B1 or B2.
 Then a line with every kernel's launches, error and times (B2's float64
 entry point's too: its tile edge, its launches in precision_k768's float64
-run, and whether it beat its one-call yardstick), the card's name
+run, and whether it beat its one-call yardstick; each kernel's launches on
+each path that launches it; B1's times at the image loop's shapes), the
+card's name
 and power limit as nvidia-smi gives them, and the last line
 {"ok": true, "device": {...}}. Any failure raises and exits nonzero; with
 no CUDA device it exits 1 before printing anything on stdout.
@@ -108,18 +136,23 @@ no CUDA device it exits 1 before printing anything on stdout.
 
 from __future__ import annotations
 
+import functools
+import itertools
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 K_FLAGSHIP = 768
-# (K, T, S): the CPU tests' shapes and the main path's
-TEST_SHAPES = ((8, 9, 7), (5, 17, 25), (3, 9, 11), (768, 15, 15))
+# (K, T, S): the CPU tests' shapes and the main path's, then the image
+# loop's (IMSEQ_SHAPES: bench.py's matcher, the demo's default T = 17, R = 12)
+IMSEQ_SHAPES = ((48, 15, 21), (32, 17, 25))
+TEST_SHAPES = ((8, 9, 7), (5, 17, 25), (3, 9, 11), (768, 15, 15)) + IMSEQ_SHAPES
 RTOL, ATOL = 1e-4, 1e-5
 # the search kernel's edge cases (ncc_edge_case); all but "ragged" have an
 # argmax known exactly by construction
@@ -165,6 +198,18 @@ SC03_F64_FRAMES = range(1, 31)
 # after a warm-up run of 30, one profiled run of 40, and the first 30 frames
 # of the float64 run against the CPU
 HOSTLOOP_FRAMES, HOSTLOOP_WARM, HOSTLOOP_PROFILE, HOSTLOOP_CPU = 300, 30, 40, 30
+
+# the host-driven image loop (bench.py:371-473): 200 frames timed after a
+# warm-up run of 30, a profiled run of 40, the first 30 frames of the
+# float64 run against the CPU, and the KLT matcher over 60 frames
+IMSEQ_K, IMSEQ_FRAMES, IMSEQ_WARM, IMSEQ_PROFILE, IMSEQ_CPU, IMSEQ_KLT = (
+    48, 200, 30, 40, 30, 60)
+# frames of the two runs whose host syncs are counted (their difference is
+# IMSEQ_SYNC_FRAMES[1] - IMSEQ_SYNC_FRAMES[0] frames' worth)
+IMSEQ_SYNC_FRAMES = (5, 15)
+IMSEQ_MATCHER = dict(templ_width=15, search_radius=10, min_corr_coeff=0.6,
+                     detector_max_corners=48, min_distance_new_to_tracked=15.0)
+IMSEQ_KLT_KW = dict(klt_levels=3, klt_win=7, klt_iters=10)
 
 # the K=768 f32-vs-f64 pin (tests/test_precision_large_k.py, ekf mode):
 # make_scan_runner(1) over frames 1-120 of build_oscillating_scenario(768),
@@ -494,6 +539,22 @@ def run_loop(params, sc, recruit, device):
     return run, res, t_init, dt, tm_w
 
 
+def host_syncs(fn) -> int:
+    """Synchronizing CUDA calls that torch's sync debug mode reports while
+    ``fn()`` runs (a prototype detector: it may miss some)."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
 def frame_without_host_sync(run, *args) -> None:
     """Run with every synchronizing CUDA call raising (torch's detector is
     a prototype and may miss some)."""
@@ -507,14 +568,17 @@ def frame_without_host_sync(run, *args) -> None:
     torch.cuda.synchronize()
 
 
-def device_profile(fn):
+def device_profile(fn, host_ops: bool = True):
     """(device busy us, device launches, top kernels, {kernel: [us,
     launches]} of all) of one call of ``fn`` under torch.profiler. The
     device-side events are the kernels and copies themselves; the aten rows
-    of key_averages() repeat their time, so only these are summed."""
+    of key_averages() repeat their time, so only these are summed. Without
+    ``host_ops`` the profiler records the device alone, which costs the
+    host far less over runs of many small launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
     kernels: dict[str, list] = {}
@@ -629,6 +693,228 @@ def hostloop_summary(res) -> dict:
                            and torch.isfinite(st.P).all()
                            and np.isfinite(res.cam_pos_est).all()),
             "P_exactly_symmetric": bool(torch.equal(st.P, st.P.T))}
+
+
+@functools.lru_cache(maxsize=1)
+def imageseq_world():
+    """bench.py:385-404: the grid world in WorldBounds(0, 0.6, 0, 0.6, 0,
+    0.6001) and the camera oscillating right and left (2 periods of 100
+    shots), in float64 on the host: (points in the tracker frame [N,3]
+    numpy, GT camera-from-tracker SE3 [200])."""
+    import torch
+    from surikatoko_tpu_torch.geom.se3 import SE3
+    from surikatoko_tpu_torch.world import scene_gen
+    from surikatoko_tpu_torch.world.runner import gt_poses_in_tracker_frame
+    wb = scene_gen.WorldBounds(0.0, 0.6, 0.0, 0.6, 0.0, 0.6001)
+    pts_world = scene_gen.generate_grid_points(wb, (0.5, 0.5, 0.5), 0.2)
+    center = np.array([0.3, 0.3, 0.3])
+    gt_world = scene_gen.oscillate_right_and_left(
+        center + np.array([0, -1.5, 0]), center, (0, 0, 1), max_deviation=0.3,
+        periods_count=2, shots_per_period=100, const_view_dir=True)
+    tfw = SE3(gt_world.R[0], gt_world.t[0])
+    pts = (pts_world @ tfw.R.T + tfw.t).numpy()
+    gt = gt_poses_in_tracker_frame(gt_world)
+    return pts, SE3(gt.R.to(torch.float64), gt.t.to(torch.float64))
+
+
+def imageseq_params(device, dtype):
+    """bench.py:404-411's camera (320x240) and filter parameters."""
+    from surikatoko_tpu_torch.geom import camera
+    from surikatoko_tpu_torch.models.monoslam import make_params
+    cam = camera.make_intrinsics((320, 240), (160.0, 120.0), 1.95, (0.01, 0.01),
+                                 dtype=dtype, device=device)
+    return make_params(cam, None, dt=1.0, process_noise_lin_veloc_std=0.02,
+                       process_noise_ang_veloc_std=0.005,
+                       measurm_noise_std_pix=1.0, sal_pnt_init_inv_dist=0.6,
+                       sal_pnt_init_inv_dist_std=0.6, dtype=dtype, device=device)
+
+
+def render_host(f: int) -> np.ndarray:
+    """Frame ``f`` of the image loop as bench.py:413-430 renders it (and
+    tests/test_imageseq.py's render_world): every visible GT point splatted
+    as a Gaussian blob on a static noise background, uint8 [H,W]."""
+    import torch
+    from surikatoko_tpu_torch.geom import camera
+    pts, gt = imageseq_world()
+    H, W, sigma = 240, 320, 1.8
+    xc = pts @ gt.R[f].numpy().T + gt.t[f].numpy()
+    vis = xc[:, 2] > 1e-6
+    cam = camera.make_intrinsics((320, 240), (160.0, 120.0), 1.95, (0.01, 0.01),
+                                 dtype=torch.float64, device="cpu")
+    pix = camera.project_camera_point(cam, None, torch.as_tensor(xc)).numpy()
+    img = np.random.default_rng(0).uniform(20, 60, size=(H, W))
+    ys, xs = np.mgrid[0:H, 0:W]
+    for k in np.nonzero(vis)[0]:
+        x, y = pix[k]
+        if -10 < x < W + 10 and -10 < y < H + 10:
+            img += 170.0 * np.exp(-((xs - x) ** 2 + (ys - y) ** 2)
+                                  / (2 * sigma ** 2))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_imageseq(directory: str, n_frames: int = IMSEQ_FRAMES) -> None:
+    """Render frames 0 .. n_frames-1 and write them as PGM
+    (``%06d.pgm``) through the port's save_picture."""
+    from surikatoko_tpu_torch.vision.picture import save_picture
+    imageseq_world()
+
+    def one(f):
+        save_picture(os.path.join(directory, f"{f:06d}.pgm"), render_host(f))
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(one, range(n_frames)))
+
+
+def imageseq_run(directory, device, dtype, n_frames=None, klt=False,
+                 record=False, pipelined=True, instrument=None):
+    """One run of the host-driven image loop: a fresh
+    MonoSlamFilter(capacity=48, update_impl=1) started from the GT velocity,
+    the NCC (or KLT) matcher, frames 0 .. n_frames-1 of ``directory``
+    through FrameLoader(prefetch_depth=4) and run_image_sequence_pipelined
+    (or the sequential loop). With ``record`` the matcher keeps every NCC
+    search result (on the device); ``instrument(tracker, matcher)`` may wrap
+    their methods before the run. Returns (state, stats, matcher,
+    loader.native, seconds by the host clock, synchronized at the end)."""
+    import torch
+    from surikatoko_tpu_torch.io.frame_loader import FrameLoader
+    from surikatoko_tpu_torch.models.monoslam.filter import MonoSlamFilter
+    from surikatoko_tpu_torch.vision import matcher as mt
+    from surikatoko_tpu_torch.world import runner
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+    tracker = MonoSlamFilter(imageseq_params(device, dtype), capacity=IMSEQ_K,
+                             update_impl=1)
+    if klt:
+        matcher = mt.KltCornersMatcher(tracker, **IMSEQ_MATCHER, **IMSEQ_KLT_KW)
+    else:
+        matcher = mt.ImageTemplCornersMatcher(tracker, **IMSEQ_MATCHER)
+    if record:
+        matcher.records, search = [], matcher._search
+
+        def recorded(*args, **kw):
+            res = search(*args, **kw)
+            matcher.records.append(res)
+            return res
+        matcher._search = recorded
+    if instrument is not None:
+        instrument(tracker, matcher)
+    st0 = runner.init_tracker_state_from_gt(tracker, imageseq_world()[1])
+    run = (runner.run_image_sequence_pipelined if pipelined
+           else runner.run_image_sequence)
+    sync()
+    t0 = time.perf_counter()
+    with FrameLoader(directory, prefetch_depth=4, device=device) as fl:
+        frames = itertools.islice((g for _, g in fl), n_frames)
+        st, stats = run(tracker, matcher, frames, st0)
+        native = fl.native
+    sync()
+    return st, stats, matcher, native, time.perf_counter() - t0
+
+
+def imageseq_stages(directory, device, dtype, n_frames) -> dict:
+    """Host-clock ms a frame of each stage of the sequential image loop,
+    with the card synchronized before and after every stage (so each
+    stage's own host and device time, without the pipelined overlap):
+    analyze (upload), match (prediction, gate, B1, the read), recruit
+    (detection, suppression, the read), the filter step, and the template
+    bookkeeping (its reads)."""
+    import torch
+    from surikatoko_tpu_torch.vision import matcher as mt
+    from surikatoko_tpu_torch.models.monoslam.filter import MonoSlamFilter
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+    ms = {}
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            ms[name] = ms.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+            return out
+        return run
+
+    def make(tracker, matcher):
+        for name, obj, attr in (
+                ("analyze", matcher, "analyze_frame"),
+                ("match", matcher, "match_salient_points"),
+                ("recruit", matcher, "recruit_new_salient_points"),
+                ("filter_step", tracker, "process_frame"),
+                ("bookkeeping", matcher, "on_landmarks_added"),
+                ("bookkeeping", matcher, "sync_removed")):
+            setattr(obj, attr, timed(name, getattr(obj, attr)))
+    imageseq_run(directory, device, dtype, n_frames, pipelined=False,
+                 instrument=make)
+    return {k: v / n_frames for k, v in ms.items()}
+
+
+def imageseq_summary(st, stats) -> dict:
+    """ATE (Umeyama-aligned, against the GT camera centres), counts and the
+    end state's health of one image-loop run; one read of the stats."""
+    import torch
+    from surikatoko_tpu_torch.geom.align import aligned_rmse
+    gt = imageseq_world()[1]
+    n = len(stats)
+    pos = torch.stack([s.cam_state[:3] for s in stats]).double().cpu()
+    counts = torch.stack([torch.stack([s.obs_count, s.new_count,
+                                       s.estimated_count]) for s in stats]
+                         ).cpu().numpy()
+    gt_pos = -torch.einsum("fji,fj->fi", gt.R[:n], gt.t[:n])
+    return {"frames": n, "ate": float(aligned_rmse(pos, gt_pos)),
+            "obs_count_med": float(np.median(counts[:, 0])),
+            "recruits_frame0": int(counts[0, 1]),
+            "recruited_total": int(counts[:, 1].sum()),
+            "estimated_count_end": int(counts[-1, 2]),
+            "finite": bool(torch.isfinite(st.x).all() and torch.isfinite(st.P).all()
+                           and torch.isfinite(pos).all()),
+            "P_exactly_symmetric": bool(torch.equal(st.P, st.P.T))}
+
+
+def imageseq_card_vs_cpu(card, cpu, n_frames: int) -> dict:
+    """The float64 image loop on the card against the same run on the CPU,
+    frame by frame (each a (stats, matcher with records) pair): the B1
+    results, then obs and new counts, new slots and cam_state within
+    F64_CAM_TOL. At the first frame where the match differs (B1's float32
+    surface sums in another order than its plain version, so a near tie may
+    flip), each differing slot is shown with both corr values, which must
+    agree within RTOL / ATOL; the comparison holds the frames before it."""
+    import torch
+    (st_a, m_a), (st_b, m_b) = card, cpu
+    held, flips, cam_diff = n_frames, [], 0.0
+    for f in range(n_frames):
+        ra, rb = m_a.records[f], m_b.records[f]
+        ma, mb = ra.matched.cpu(), rb.matched
+        ca, cb = ra.best_center.cpu(), rb.best_center
+        differ = (ma != mb) | (ma & (ca != cb).any(dim=1))
+        if bool(differ.any()):
+            corr_a, corr_b = ra.best_corr.cpu().double(), rb.best_corr.double()
+            for k in torch.nonzero(differ)[:, 0].tolist():
+                a, b = float(corr_a[k]), float(corr_b[k])
+                flips.append({"frame": f, "slot": k, "corr_card": a,
+                              "corr_cpu": b, "center_card": ca[k].tolist(),
+                              "center_cpu": cb[k].tolist()})
+                if not abs(a - b) <= ATOL + RTOL * abs(b):
+                    raise AssertionError(f"image loop: B1 on the card and its "
+                                         f"plain version part by more than a "
+                                         f"near tie: {flips[-1]}")
+            held = f
+            break
+        sa, sb = st_a[f], st_b[f]
+        for name in ("obs_count", "new_count"):
+            if int(getattr(sa, name)) != int(getattr(sb, name)):
+                raise AssertionError(f"image loop frame {f}: {name} "
+                                     f"{int(getattr(sa, name))} on the card, "
+                                     f"{int(getattr(sb, name))} on the CPU")
+        if not torch.equal(sa.new_slots.cpu(), sb.new_slots):
+            raise AssertionError(f"image loop frame {f}: new slots differ")
+        cam_diff = max(cam_diff, float((sa.cam_state.cpu() - sb.cam_state)
+                                       .abs().max()))
+        if not cam_diff <= F64_CAM_TOL:
+            raise AssertionError(f"image loop frame {f}: cam_state differs "
+                                 f"by {cam_diff} from the CPU")
+    return {"frames": n_frames, "frames_held": held,
+            "cam_state_max_abs_diff": cam_diff, "tol": F64_CAM_TOL,
+            "near_tie_flips": flips}
 
 
 def precision_run(device, dtype, mitigations: bool, profile: bool = False) -> dict:
@@ -991,6 +1277,22 @@ def main() -> int:
                     "plain": cuda_graph_ms(plain, reps // 4)}
     ncc_bound, ncc_bound_by = bound_ms(*ncc_work(fp, ft, fg), fma_per_s)
     ncc_device_us = device_us_per_call(kern)
+    # the image loop's shapes, random data: a launch-bound call
+    ncc_imseq = {}
+    for K, T, S in IMSEQ_SHAPES:
+        ip, it_, ig = random_case(np.random.default_rng(K), K, T, S, device)
+        ik = lambda: ncc_cuda.ncc_surface_argmax(ip, it_, ig)
+        ipl = lambda: ncc_cuda.ncc_surface_argmax_ref(ip, it_, ig)
+        b_ms, b_by = bound_ms(*ncc_work(ip, it_, ig), fma_per_s)
+        g_ms = cuda_graph_ms(ik, reps)
+        ncc_imseq[f"{K}x{T}x{S}"] = {
+            "K": K, "T": T, "S": S, "kernel_ms": cuda_ms(ik, reps),
+            "plain_ms": cuda_ms(ipl, reps // 4), "graph_ms": g_ms,
+            "plain_graph_ms": cuda_graph_ms(ipl, reps // 4),
+            "kernel_device_us": device_us_per_call(ik),
+            "bound_ms": b_ms, "bound_by": b_by, "fma": ncc_work(ip, it_, ig)[0],
+            "bytes": ncc_work(ip, it_, ig)[1],
+            "pct_of_bound": 100.0 * b_ms / g_ms}
 
     dd_cases, dd_times = [], {}
     for D, m in DOWNDATE_SHAPES:
@@ -1064,7 +1366,8 @@ def main() -> int:
                                       "bound_ms": ncc_bound,
                                       "bound_by": ncc_bound_by,
                                       "pct_of_bound": 100.0 * ncc_bound
-                                      / ncc_graph_ms["kernel"]}},
+                                      / ncc_graph_ms["kernel"]},
+                         "imageseq_shapes": ncc_imseq},
           "symmetric_downdate": {"cases": dd_cases, "ms_with_keep": dd_times},
           "symmetric_downdate_f64": {"cases": dd64_cases,
                                      "ms_with_keep": dd64_times,
@@ -1324,6 +1627,106 @@ def main() -> int:
                              f"{host_bound}")
     del res_f64_card, res_cpu, res_h
 
+    # ---- the host-driven image loop (NCC matcher, then KLT) ----
+    imseq_dir = tempfile.mkdtemp(prefix="imageseq_")
+    t0 = time.perf_counter()
+    write_imageseq(imseq_dir)
+    t_render = time.perf_counter() - t0
+    imseq, t_phase = {}, time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        imageseq_run(imseq_dir, device, dtype, IMSEQ_WARM)     # warm-up
+        runs = []
+        for _ in range(2):
+            ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+            st_i, stats_i, _, native_i, dt_i = imageseq_run(imseq_dir, device,
+                                                            dtype)
+            runs.append((dt_i, {"ncc_search": ncc_cuda.LAUNCHES,
+                                "symmetric_downdate": covariance.LAUNCHES},
+                         imageseq_summary(st_i, stats_i), native_i))
+        dt_i, launches_i, summ, native_i = min(runs, key=lambda r: r[0])
+        t0 = time.perf_counter()
+        busy_i, nl_i, top_i, by_i = device_profile(
+            lambda: imageseq_run(imseq_dir, device, dtype, IMSEQ_PROFILE),
+            host_ops=False)
+        t_profile = time.perf_counter() - t0
+        syncs = [host_syncs(lambda: imageseq_run(imseq_dir, device, dtype, n))
+                 for n in IMSEQ_SYNC_FRAMES]
+        stages = imageseq_stages(imseq_dir, device, dtype, IMSEQ_PROFILE)
+        wall_us = 1e6 * dt_i / IMSEQ_FRAMES
+        imseq[name] = {
+            **summ, "native": native_i, "runs_s": [r[0] for r in runs],
+            "s": dt_i, "fps": IMSEQ_FRAMES / dt_i,
+            "launches": launches_i,
+            "launches_each_run": [r[1] for r in runs],
+            "host_syncs_per_frame": (syncs[1] - syncs[0])
+            / (IMSEQ_SYNC_FRAMES[1] - IMSEQ_SYNC_FRAMES[0]),
+            "host_syncs_runs": dict(zip(IMSEQ_SYNC_FRAMES, syncs)),
+            "stage_ms_per_frame_synchronized": stages,
+            "profile": {
+                "frames": IMSEQ_PROFILE, "profile_s": t_profile,
+                "device_busy_us_per_frame": busy_i / IMSEQ_PROFILE,
+                "device_launches_per_frame": nl_i / IMSEQ_PROFILE,
+                "wall_us_per_frame": wall_us,
+                "device_idle_share": 1.0 - busy_i / IMSEQ_PROFILE / wall_us,
+                "ncc_search_us_launches_per_frame": [
+                    v / IMSEQ_PROFILE for v in kernel_share(by_i,
+                                                            NCC_DEVICE_KERNELS)],
+                "symmetric_downdate_us_launches_per_frame": [
+                    v / IMSEQ_PROFILE for v in kernel_share(
+                        by_i, DOWNDATE_DEVICE_KERNELS)],
+                "top_kernels_us_count": top_i}}
+        if not all(r[3] for r in runs):
+            raise AssertionError(f"imageseq_hostloop {name}: frames were not "
+                                 "decoded by the native loader")
+        for _, launches_r, summ_r, _ in runs:
+            if not (summ_r["finite"] and summ_r["P_exactly_symmetric"]):
+                raise AssertionError(f"imageseq_hostloop {name}: non-finite "
+                                     f"or P != P^T")
+            if launches_r != {"ncc_search": IMSEQ_FRAMES,
+                              "symmetric_downdate": IMSEQ_FRAMES}:
+                raise AssertionError(f"imageseq_hostloop {name}: launches "
+                                     f"{launches_r} for {IMSEQ_FRAMES} frames")
+            if not summ_r["obs_count_med"] >= IMSEQ_K / 2:
+                raise AssertionError(f"imageseq_hostloop {name}: matched median "
+                                     f"{summ_r['obs_count_med']} < K/2")
+        del st_i, stats_i, runs
+    # float64 on the card against the CPU, frames 0-29, with B1's results
+    card = imageseq_run(imseq_dir, device, torch.float64, IMSEQ_CPU, record=True)
+    cpu = imageseq_run(imseq_dir, "cpu", torch.float64, IMSEQ_CPU, record=True)
+    vs_cpu = imageseq_card_vs_cpu(card[1:3], cpu[1:3], IMSEQ_CPU)
+    vs_cpu["cpu_s"] = cpu[4]
+    del card, cpu
+    # the KLT matcher over 60 frames, float32
+    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    st_k, stats_k, _, native_k, dt_k = imageseq_run(
+        imseq_dir, device, torch.float32, IMSEQ_KLT, klt=True)
+    klt = {**imageseq_summary(st_k, stats_k), "native": native_k, "s": dt_k,
+           "fps": IMSEQ_KLT / dt_k, **IMSEQ_KLT_KW,
+           "launches": {"ncc_search": ncc_cuda.LAUNCHES,
+                        "symmetric_downdate": covariance.LAUNCHES}}
+    del st_k, stats_k
+    imseq_bound = 2 * imseq["float64"]["ate"] + 0.02
+    emit({"phase": "imageseq_hostloop", "K": IMSEQ_K, "D": 13 + 6 * IMSEQ_K,
+          "phase_s": time.perf_counter() - t_phase + t_render,
+          "frames": IMSEQ_FRAMES, "warmup_frames": IMSEQ_WARM,
+          "image": [320, 240], "update_impl": 1,
+          "matcher": IMSEQ_MATCHER, "render_and_write_s": t_render, **imseq,
+          "f64_card_vs_cpu": vs_cpu, "ate_bound_f32": imseq_bound,
+          "klt": klt})
+    if not imseq["float32"]["ate"] <= imseq_bound:
+        raise AssertionError(f"imageseq_hostloop: f32 ATE "
+                             f"{imseq['float32']['ate']} > {imseq_bound}")
+    if not (klt["finite"] and klt["P_exactly_symmetric"] and klt["native"]):
+        raise AssertionError(f"imageseq_hostloop klt: {klt}")
+    if klt["launches"] != {"ncc_search": 0, "symmetric_downdate": IMSEQ_KLT}:
+        raise AssertionError(f"imageseq_hostloop klt: launches {klt['launches']}")
+    if not klt["obs_count_med"] > 0:
+        raise AssertionError("imageseq_hostloop klt: nothing matched")
+    for f in os.listdir(imseq_dir):
+        os.unlink(os.path.join(imseq_dir, f))
+    os.rmdir(imseq_dir)
+
     # ---- scenario03 in float64 on the card against the CPU ----
     pos64 = {}
     for dev in (device, torch.device("cpu")):
@@ -1418,6 +1821,14 @@ def main() -> int:
         "source": "surikatoko_tpu_torch/csrc/ncc_search.cu",
         "replaces": "surikatoko_tpu/ops/ncc_pallas.py:92",
         "launches": launches["ncc_search"], "max_abs_err": flag_err,
+        "launches_by_path": {
+            "flagship": launches["ncc_search"],
+            "imageseq_hostloop_f32": imseq["float32"]["launches"]["ncc_search"],
+            "imageseq_hostloop_f64": imseq["float64"]["launches"]["ncc_search"],
+            "imageseq_klt": klt["launches"]["ncc_search"]},
+        "imageseq_shapes": {k: {n: v[n] for n in (
+            "kernel_ms", "plain_ms", "graph_ms", "kernel_device_us", "bound_ms",
+            "bound_by", "pct_of_bound")} for k, v in ncc_imseq.items()},
         "ms": kernel_ms, "plain_ms": plain_ms,
         "graph_ms": ncc_graph_ms["kernel"], "device_us": ncc_device_us,
         "bound_ms": ncc_bound, "bound_by": ncc_bound_by,
@@ -1427,6 +1838,13 @@ def main() -> int:
         "source": "surikatoko_tpu_torch/csrc/symmetric_downdate.cu",
         "replaces": "surikatoko_tpu/ops/covariance.py:53",
         "launches": launches["symmetric_downdate"], "max_abs_err": dd_err,
+        "launches_by_path": {
+            "flagship": launches["symmetric_downdate"],
+            "imageseq_hostloop_f32":
+                imseq["float32"]["launches"]["symmetric_downdate"],
+            "imageseq_hostloop_f64":
+                imseq["float64"]["launches"]["symmetric_downdate"],
+            "imageseq_klt": klt["launches"]["symmetric_downdate"]},
         "ms": dd_ms, "plain_ms": float(np.mean(dd_main["plain"])),
         "graph_ms": dd_main["graph_ms"]["kernel"],
         "device_us": dd_main["kernel_device_us"],

@@ -6,11 +6,14 @@ the port is tested against; this package imports ``torch`` and numpy and never
 ``jax`` (nor ``surikatoko_tpu``, whose ``__init__`` imports jax).
 
 Layer map (mirrors ``surikatoko_tpu``; the on-device loops are ported):
-  geom/      quaternions, SE(3), pinhole camera, similarity alignment (ATE)
-  vision/    ZNCC surface (plain version of the search kernel), Shi-Tomasi
+  geom/      quaternions, SE(3), pinhole camera, uncertainty ellipses,
+             similarity alignment (ATE)
+  vision/    ZNCC surface (plain version of the search kernel), Shi-Tomasi,
+             pyramidal KLT, the NCC and KLT matchers, PNM pictures
+  io/        the native PGM frame loader, the tracker log, the BA formats
   world/     scenarios, the on-device runners (scenario03 with the GT
-             matcher, the image sequence) and the host-driven runner with
-             its GT matcher
+             matcher, the image sequence) and the host-driven runners (the
+             GT matcher's scenario loop, the image-sequence loops)
   models/    the MonoSlam EKF: state, measurement, predict, the four update
              strategies, fused congruence, health, the host-driven filter;
              bundle adjustment

@@ -83,6 +83,18 @@ def templates_from_numpy(t, device: torch.device | str = "cuda") -> torch.Tensor
     return _t(t, device)
 
 
+def matcher_store_from_numpy(m, matcher):
+    """Fill ``matcher``'s host template store (``templates``,
+    ``templ_valid``, ``last_center``) from an object with those numpy
+    arrays, e.g. a JAX ``ImageTemplCornersMatcher``, so that both matchers
+    search from the same state. The store stays on the host, as in both
+    packages; returns ``matcher``."""
+    matcher.templates = np.array(m.templates, np.float32)
+    matcher.templ_valid = np.array(m.templ_valid, bool)
+    matcher.last_center = np.array(m.last_center, np.float32)
+    return matcher
+
+
 def ba_problem_from_numpy(p, device: torch.device | str = "cuda") -> BAProblem:
     """BAProblem from an object with the JAX BA problem's field names."""
     out = _fields(BAProblem, p, device)

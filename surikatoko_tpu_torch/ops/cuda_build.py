@@ -24,6 +24,37 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
+def library_path(source: Path, flags: list[str]) -> Path:
+    """``_build/lib<stem>_<hash>.so``, keyed by the source and the flags."""
+    tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()
+                         ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{tag}.so"
+
+
+def build_library(source: Path, cmd: list[str]) -> tuple[Path, str | None]:
+    """Compile ``source`` with ``cmd`` (the compiler and its flags; ``-o``
+    and the source are appended) into :func:`library_path` unless it is
+    there. Returns (path, the compiler's output, or None if it was built
+    already). The library appears whole or not at all: it is written to a
+    temporary name and renamed."""
+    out = library_path(source, cmd[1:])
+    if out.exists():
+        return out, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        done = subprocess.run([*cmd, "-o", tmp, str(source)], check=True,
+                              capture_output=True, text=True)
+        os.replace(tmp, out)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"{cmd[0]} failed on {source}:\n{e.stderr}") from e
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out, done.stdout + done.stderr
+
+
 class KernelLibrary:
     """One ``csrc/<name>.cu`` source and the C function it exports, which
     returns a ``cudaError_t`` (0 = launched). ``source`` is a file name
@@ -39,31 +70,18 @@ class KernelLibrary:
 
     def path(self) -> Path:
         """Where the library of the current source and flags lives."""
-        src = self.source.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.source.stem}_{tag}.so"
+        return library_path(self.source, NVCC_FLAGS)
 
     def build(self) -> Path:
         """Compile the library if it is not built yet; returns its path."""
-        out = self.path()
-        if out.exists():
-            return out
+        if self.path().exists():
+            return self.path()
         nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
         if not os.path.exists(nvcc):
             raise RuntimeError(f"nvcc not found: {self.source.name} cannot be built")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            done = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(self.source)],
-                                  check=True, capture_output=True, text=True)
-            os.replace(tmp, out)
-            self.ptxas = done.stdout + done.stderr
-        except subprocess.CalledProcessError as e:
-            raise RuntimeError(f"nvcc failed on {self.source}:\n{e.stderr}") from e
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        out, report = build_library(self.source, [nvcc, *NVCC_FLAGS])
+        if report is not None:
+            self.ptxas = report
         return out
 
     def fn(self):

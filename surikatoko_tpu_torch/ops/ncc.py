@@ -11,11 +11,13 @@ shapes throughout; no host synchronization.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from surikatoko_tpu_torch.ops import ncc_cuda
+from surikatoko_tpu_torch.vision import templ_match
 
 
 class NccSearchResult(NamedTuple):
@@ -61,12 +63,15 @@ def ncc_search(image: torch.Tensor, centers: torch.Tensor,
                search_radius: int, min_corr_coeff: float = 0.5,
                sigma_inv: torch.Tensor | None = None,
                chi2_gate: float | None = None,
+               templ_stats: templ_match.TemplateStats | None = None,
                min_search_rect: int = 7,
                subpixel: bool = False) -> NccSearchResult:
     """Each landmark's best template placement within ``search_radius`` of
     its predicted center (``centers`` [K,2] float (x,y)). ``subpixel`` fits
     1-D parabolas through the raw surface at the best cell's 4-neighbours;
-    a best cell on the window edge keeps its integer center on that axis."""
+    a best cell on the window edge keeps its integer center on that axis.
+    ``templ_stats`` goes to the plain surface on the CPU; the kernel forms
+    the templates' mean and norm itself and only checks its shape."""
     K, T, _ = templates.shape
     R = search_radius
     S = 2 * R + 1
@@ -97,7 +102,7 @@ def ncc_search(image: torch.Tensor, centers: torch.Tensor,
     res = ncc_cuda.ncc_surface_argmax(
         patches.to(torch.float32).contiguous(),
         templates.to(torch.float32).contiguous(), gate.contiguous(),
-        with_neigh=subpixel)
+        with_neigh=subpixel, templ_stats=templ_stats)
     best_corr, best = res[0].to(dtype), res[1].to(torch.int64)
     flat_x = cand_x.reshape(K, S * S)
     flat_y = cand_y.reshape(K, S * S)
@@ -131,3 +136,14 @@ def ncc_search(image: torch.Tensor, centers: torch.Tensor,
     return NccSearchResult(best_center=best_center, best_corr=best_corr,
                            matched=matched, n_gated=n_gated,
                            in_ellipse=in_ellipse)
+
+
+def make_ncc_search(search_radius: int, min_corr_coeff: float = 0.5,
+                    chi2_gate: float | None = None, min_search_rect: int = 7,
+                    subpixel: bool = False):
+    """:func:`ncc_search` with its static parameters bound. The port has one
+    route, the kernel on the card and its plain version on the CPU, so the
+    JAX package's ``use_pallas`` switch has no counterpart."""
+    return functools.partial(
+        ncc_search, search_radius=search_radius, min_corr_coeff=min_corr_coeff,
+        chi2_gate=chi2_gate, min_search_rect=min_search_rect, subpixel=subpixel)

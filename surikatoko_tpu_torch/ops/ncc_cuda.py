@@ -28,13 +28,19 @@ _LIB = KernelLibrary(
 
 
 def ncc_surface_argmax_ref(patches: torch.Tensor, templates: torch.Tensor,
-                           gate: torch.Tensor, with_neigh: bool = False):
+                           gate: torch.Tensor, with_neigh: bool = False,
+                           templ_stats: templ_match.TemplateStats | None = None):
     """Plain version: (best_corr [K], best_idx [K] int32[, neigh [K,4]]) of
     the gated ZNCC surface; ``neigh`` is the raw (ungated) surface at the
     argmax's x-1, x+1, y-1, y+1 cells, index-clamped to the window (the
-    caller masks cells outside it). Ties go to the lower flat index."""
+    caller masks cells outside it). Ties go to the lower flat index.
+    ``templ_stats`` (cached template mean and norm) replaces the ones the
+    surface would form from ``templates``."""
     K, S, _ = gate.shape
-    surf = templ_match.corr_coeff_surface(patches, templates)
+    if templ_stats is not None:
+        templ_stats = templ_match.TemplateStats(
+            *(t.to(patches.dtype) for t in templ_stats))
+    surf = templ_match.corr_coeff_surface(patches, templates, templ_stats)
     flat = torch.where(gate, surf, -torch.inf).reshape(K, S * S)
     best = torch.argmax(flat, dim=1)
     best_corr = torch.take_along_dim(flat, best[:, None], dim=1)[:, 0]
@@ -47,13 +53,18 @@ def ncc_surface_argmax_ref(patches: torch.Tensor, templates: torch.Tensor,
 
 
 def ncc_surface_argmax(patches: torch.Tensor, templates: torch.Tensor,
-                       gate: torch.Tensor, with_neigh: bool = False):
+                       gate: torch.Tensor, with_neigh: bool = False,
+                       templ_stats: templ_match.TemplateStats | None = None):
     """Kernel wrapper, same contract as :func:`ncc_surface_argmax_ref`.
     patches [K,P,P] f32, templates [K,T,T] f32, gate [K,S,S] bool with
-    S = P - T + 1, all contiguous and on one device."""
+    S = P - T + 1, all contiguous and on one device. The kernel forms each
+    template's mean and norm itself (csrc/ncc_search.cu), so on the card
+    ``templ_stats`` is checked for shape and not used; on the CPU the plain
+    surface takes it."""
     global LAUNCHES
     if patches.device.type == "cpu":
-        return ncc_surface_argmax_ref(patches, templates, gate, with_neigh)
+        return ncc_surface_argmax_ref(patches, templates, gate, with_neigh,
+                                      templ_stats)
     if patches.device.type != "cuda":
         raise ValueError(f"no NCC kernel for device {patches.device}")
     K, P, P2 = patches.shape
@@ -64,6 +75,8 @@ def ncc_surface_argmax(patches: torch.Tensor, templates: torch.Tensor,
         raise ValueError(f"bad shapes: patches {tuple(patches.shape)}, "
                          f"templates {tuple(templates.shape)}, "
                          f"gate {tuple(gate.shape)}")
+    if templ_stats is not None and any(t.shape != (K,) for t in templ_stats):
+        raise ValueError(f"templ_stats must hold two [K] tensors, K = {K}")
     for name, t, dt in (("patches", patches, torch.float32),
                         ("templates", templates, torch.float32),
                         ("gate", gate, torch.bool)):

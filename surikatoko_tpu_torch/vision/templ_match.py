@@ -58,3 +58,10 @@ def corr_coeff_surface(patches: torch.Tensor, templates: torch.Tensor,
     denom = torch.sqrt(var_term) * st.sqrt_sum_sqr_diff[:, None, None]
     ok = denom > eps
     return torch.where(ok, corr_prod / torch.where(ok, denom, 1.0), 0.0)
+
+
+def corr_coeff_single(image_roi: torch.Tensor, template: torch.Tensor
+                      ) -> torch.Tensor:
+    """Scalar ZNCC of one window against one template (reference
+    CalcCorrCoeff)."""
+    return corr_coeff_surface(image_roi[None], template[None])[0, 0, 0]

@@ -4,9 +4,9 @@ pose helpers.
 
 Port of ``surikatoko_tpu/world/runner.py``: ``ScenarioResult``,
 ``init_tracker_state_from_gt``, ``gt_poses_in_tracker_frame``,
-``run_scenario`` and ``camera_orientation_error_deg``. The matcher runs on
-the host between filter steps; the image-sequence runners wait for the
-host-side NCC/KLT matchers.
+``run_scenario``, ``run_image_sequence``, ``run_image_sequence_pipelined``
+and ``camera_orientation_error_deg``. The matcher runs on the host between
+filter steps.
 """
 
 from __future__ import annotations
@@ -95,6 +95,85 @@ def run_scenario(tracker: MonoSlamFilter, matcher, gt_cfw_tracker: SE3,
     pos_gt = -np.einsum("fji,fj->fi", gt_R[:n_frames], gt_t[:n_frames])
     err = np.linalg.norm(pos_est - pos_gt, axis=-1)
     return ScenarioResult(state, stats_list, err, pos_gt, pos_est)
+
+
+def _new_pix_host(matcher, new_pix) -> np.ndarray:
+    """Host copy of the recruits ``new_pix`` that recruitment returned:
+    the matcher's own copy of that very tensor where it keeps one
+    (``host_new_pix``), else a read."""
+    host = getattr(matcher, "host_new_pix", None)
+    return host(new_pix) if host is not None else new_pix.cpu().numpy()
+
+
+def run_image_sequence(tracker: MonoSlamFilter, matcher, images,
+                       state: MonoSlamState | None = None
+                       ) -> tuple[MonoSlamState, list]:
+    """Frame loop of the real-image perception path (the reference's
+    imageseq scenario): analyze -> match -> recruit -> filter step ->
+    template bookkeeping. ``images`` yields [H,W] grayscale frames (numpy
+    arrays or host tensors)."""
+    if state is None:
+        state = tracker.init_state()
+    stats_list = []
+    for f, img in enumerate(images):
+        matcher.analyze_frame(img)
+        obs, obs_mask = matcher.match_salient_points(state, f)
+        new_pix, new_mask = matcher.recruit_new_salient_points(state, f, obs_mask)
+        state, stats = tracker.process_frame(state, obs, obs_mask, new_pix,
+                                             new_mask)
+        matcher.on_landmarks_added(stats.new_slots.cpu().numpy(),
+                                   _new_pix_host(matcher, new_pix), state)
+        matcher.sync_removed(state)
+        stats_list.append(stats)
+    return state, stats_list
+
+
+def run_image_sequence_pipelined(tracker: MonoSlamFilter, matcher, images,
+                                 state: MonoSlamState | None = None
+                                 ) -> tuple[MonoSlamState, list]:
+    """:func:`run_image_sequence` with the next frame's perception queued
+    behind the current filter step; bit for bit the same results, only the
+    schedule differs. The host orders each frame so that its one blocking
+    read of the step's results comes after the next frame's work that
+    needs no state is queued:
+
+      queue the filter step of frame f              [card busy]
+      prefetch frame f+1: decode (the loader's thread), upload from pinned
+        memory without blocking, queue its Shi-Tomasi pass
+      read frame f's new slots and active mask      [first wait]
+
+    so decoding and the host's queueing of frame f+1 overlap the card's
+    step f. The reference gets this overlap from a worker/UI thread split
+    (demo-davison-mono-slam-ui.h:164). The templates are cut at the
+    ``new_pix`` that recruitment returned."""
+    if state is None:
+        state = tracker.init_state()
+    stats_list = []
+    it = iter(images)
+    cur = next(it, None)
+    if cur is None:
+        return state, stats_list
+    matcher.prefetch_frame(cur)
+    f = 0
+    while cur is not None:
+        matcher.analyze_frame()                 # take the prefetched frame
+        obs, obs_mask = matcher.match_salient_points(state, f)
+        new_pix, new_mask = matcher.recruit_new_salient_points(state, f, obs_mask)
+        state, stats = tracker.process_frame(state, obs, obs_mask, new_pix,
+                                             new_mask)
+        cur = next(it, None)
+        if cur is not None:                     # overlaps the step above
+            matcher.prefetch_frame(cur)
+        # one read for the frame's bookkeeping
+        K = state.lm_active.shape[0]
+        packed = torch.cat([stats.new_slots.to(torch.int64),
+                            state.lm_active.to(torch.int64)]).cpu().numpy()
+        matcher.on_landmarks_added(packed[:-K], _new_pix_host(matcher, new_pix),
+                                   state)
+        matcher.sync_removed(state, packed[-K:].astype(bool))
+        stats_list.append(stats)
+        f += 1
+    return state, stats_list
 
 
 def camera_orientation_error_deg(stats_cam_state, cfw_gt: SE3) -> float:

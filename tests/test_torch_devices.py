@@ -13,9 +13,11 @@ import torch
 
 from surikatoko_tpu_torch import interop
 from surikatoko_tpu_torch.geom import camera, se3
-from surikatoko_tpu_torch.io import dino
+from surikatoko_tpu_torch.io import dino, frame_loader
 from surikatoko_tpu_torch.models.ba import derivs
+from surikatoko_tpu_torch.models.monoslam import filter as filter_mod
 from surikatoko_tpu_torch.models.monoslam import state
+from surikatoko_tpu_torch.vision import matcher
 from surikatoko_tpu_torch.world import ba_scene, device_runner
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -108,3 +110,42 @@ def test_torch_entry_point_defaults_to_the_card(name):
     out = list(_tensors(call(fn, device="cpu")))
     assert out and all(t.device.type == "cpu" for t in out)
     assert all(t.dtype == torch.float64 for t in out if t.is_floating_point())
+
+
+def test_torch_frame_loader_defaults_to_the_card():
+    """FrameLoader's frames are for the card unless the caller asks for the
+    CPU: on the card they come in pinned host memory (their upload does not
+    block the host); without a card the default raises from torch."""
+    fn = frame_loader.FrameLoader
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    frames_dir = os.path.join(FIXTURES, "frames")
+    if torch.cuda.is_available():
+        with fn(frames_dir) as fl:
+            assert fl.native
+            assert all(g.is_pinned() and g.device.type == "cpu" for _, g in fl)
+    else:
+        with pytest.raises(RuntimeError), fn(frames_dir) as fl:
+            list(fl)
+    with fn(frames_dir, device="cpu") as fl:
+        assert all(not g.is_pinned() for _, g in fl)
+
+
+@pytest.mark.parametrize("cls", [matcher.ImageTemplCornersMatcher,
+                                 matcher.KltCornersMatcher])
+def test_torch_matchers_take_the_trackers_device(cls):
+    """The image matchers have no device argument: they run where the
+    tracker's params live, and hand their outputs over there."""
+    assert "device" not in inspect.signature(cls.__init__).parameters
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    params = state.make_params(_cam(dev), device=dev)
+    tr = filter_mod.MonoSlamFilter(params, capacity=4)
+    m = cls(tr, templ_width=9, search_radius=4, detector_max_corners=8)
+    assert m.device == tr.device == params.dt.device
+    img = np.random.default_rng(0).uniform(0, 255, (60, 80)).astype(np.float32)
+    for _ in range(2):
+        m.analyze_frame(img)
+    st = tr.init_state()
+    outs = (*m.match_salient_points(st, 0),
+            *m.recruit_new_salient_points(st, 0, None))
+    assert all(t.device.type == dev for t in outs)
+    assert m._image.device.type == dev and m._image.dtype == torch.float32

@@ -235,6 +235,44 @@ def test_torch_ncc_search_matches_jax(rng, noise_frame, subpixel):
                                rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("stats", ["own", "scaled"])
+def test_torch_make_ncc_search_with_templ_stats_matches_jax(rng, noise_frame,
+                                                            stats):
+    """make_ncc_search's closure with ``templ_stats`` against JAX's
+    (use_pallas=False, float32 frame as the matcher passes it): the
+    templates' own stats, and stats whose norms are scaled by 1.5 (every
+    corr shrinks by 1/1.5, so the port's CPU surface must take the given
+    stats, not its own). Centres, matches and gate telemetry equal; corr
+    within rtol 1e-4 / atol 1e-5."""
+    img, pix, *_ = noise_frame
+    img = img.astype(np.float32)
+    K = pix.shape[0]
+    templates = np.array(jdr._gather_templates(jnp.asarray(img),
+                                                 jnp.asarray(pix), 15))
+    centers = (pix + rng.normal(scale=2.0, size=pix.shape)).astype(np.float32)
+    inside = ((pix[:, 0] > 12) & (pix[:, 0] < 308) & (pix[:, 1] > 12)
+              & (pix[:, 1] < 228))
+    st_j = jtm.template_stats(jnp.asarray(templates))
+    if stats == "scaled":
+        st_j = st_j._replace(sqrt_sum_sqr_diff=1.5 * st_j.sqrt_sum_sqr_diff)
+    st_t = ttm.TemplateStats(*(torch.as_tensor(np.array(a)) for a in st_j))
+    kw = dict(search_radius=7, min_corr_coeff=0.4, chi2_gate=5.99146)
+    rj = jncc.make_ncc_search(**kw)(
+        jnp.asarray(img), jnp.asarray(centers), jnp.asarray(templates),
+        jnp.asarray(inside), templ_stats=st_j)
+    rt = tncc.make_ncc_search(**kw)(
+        torch.as_tensor(img), torch.as_tensor(centers),
+        torch.as_tensor(templates), torch.as_tensor(inside), templ_stats=st_t)
+    for f in ("matched", "n_gated", "in_ellipse", "best_center"):
+        np.testing.assert_array_equal(getattr(rt, f).numpy(),
+                                      np.asarray(getattr(rj, f)), err_msg=f)
+    assert int(rt.matched.sum()) >= 10
+    np.testing.assert_allclose(rt.best_corr.numpy(), np.asarray(rj.best_corr),
+                               rtol=1e-4, atol=1e-5)
+    if stats == "scaled":
+        assert float(rt.best_corr[torch.as_tensor(inside)].max()) < 0.7
+
+
 def test_torch_detect_corners_and_filter(frame):
     """Valid corners (positions and order) equal on a rendered frame; the
     suppression near tracked points agrees."""

@@ -21,7 +21,10 @@ from surikatoko_tpu_torch.ops import ncc_cuda
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import chip_smoke  # noqa: E402
 
-SHAPES = [(8, 9, 7), (5, 17, 25), (3, 9, 11), (768, 15, 15)]   # (K, T, S)
+# (K, T, S): the CPU tests', the flagship's, the image loop's (bench.py's
+# matcher) and the demo defaults' (T = 17, R = 12)
+SHAPES = [(8, 9, 7), (5, 17, 25), (3, 9, 11), (768, 15, 15), (48, 15, 21),
+          (32, 17, 25)]
 
 
 def _check(p, t, g, with_neigh, exact_idx):

@@ -143,7 +143,12 @@ def test_torch_package_never_imports_jax():
             "surikatoko_tpu_torch.world.runner, "
             "surikatoko_tpu_torch.world.scene_gen, "
             "surikatoko_tpu_torch.geom.align, surikatoko_tpu_torch.geom.so3, "
-            "surikatoko_tpu_torch.geom.quat, surikatoko_tpu_torch.geom.se3; "
+            "surikatoko_tpu_torch.geom.quat, surikatoko_tpu_torch.geom.se3, "
+            "surikatoko_tpu_torch.geom.ellipse, surikatoko_tpu_torch.vision.klt, "
+            "surikatoko_tpu_torch.vision.matcher, "
+            "surikatoko_tpu_torch.vision.picture, "
+            "surikatoko_tpu_torch.io.frame_loader, "
+            "surikatoko_tpu_torch.io.tracker_log; "
             "bad = sorted(m for m in sys.modules "
             "if m in ('jax', 'surikatoko_tpu') "
             "or m.startswith(('jax.', 'surikatoko_tpu.'))); "
