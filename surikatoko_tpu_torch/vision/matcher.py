@@ -33,7 +33,7 @@ from surikatoko_tpu_torch.geom import ellipse as ell_mod
 from surikatoko_tpu_torch.models.monoslam.filter import MonoSlamFilter
 from surikatoko_tpu_torch.models.monoslam.state import MonoSlamState
 from surikatoko_tpu_torch.ops import ncc as ncc_mod
-from surikatoko_tpu_torch.vision import features
+from surikatoko_tpu_torch.vision import features, klt
 
 
 def _host_f32(image) -> np.ndarray:
@@ -317,8 +317,6 @@ class KltCornersMatcher(ImageTemplCornersMatcher):
 
     def match_salient_points(self, state: MonoSlamState, frame_ind: int
                              ) -> tuple[torch.Tensor, torch.Tensor]:
-        from surikatoko_tpu_torch.vision import klt
-
         K = self.tracker.capacity
         dev = self.device
         if (self.suppress_observations or self._image is None
