@@ -123,7 +123,31 @@ Phases, one JSON line each:
            Schur FLOP rate against a 4096^2 matmul chain, the device-loop LM
            (8 iterations warm, 8 timed) and one profiled LM iteration.
            Asserts finite outputs, both solves ok and a decreased error.
-  Neither BA phase may launch kernel B1 or B2.
+  mvf_demo the multi-view factorization demo (demos.multi_view_factorization:
+           the grid world, the rectangular path, K = 520, 320x240, frames 0-1
+           known), 12 frames at noise 0 and 0.5 px, each without and with
+           the SE(3) pose-graph closure, in float64 on the card and on the
+           CPU and in float32 on the card. Asserts the float64 card run
+           within 1e-9 of the CPU's (poses and map), equal point counts,
+           ba_runs and each BA's kind, ok, stop reason and iterations; f32 point and camera ATE
+           <= 2 x f64 + 0.01; the closure lowers the last camera's position
+           error where the run drifted (noise 0: it stays below 1e-4).
+  mvf_at_scale  demos.mvf_at_scale.run_at_scale at the JAX demo's defaults:
+           10k points, 500 frames + a 12-frame revisit, tracks of 12, 0.5
+           px, windowed BA (25 frames) every 5 frames, global sparse BA
+           every 25 (10 iterations, point bucket 2048, frame bucket 100),
+           oracle pairs and the Sim(3) closure, float32; the final BA of 5
+           iterations timed as the best of two warm runs, then 40 more.
+           Frame 474's integration, windowed BA and global BA run under the
+           profiler. Then the same pipeline at bench.py's MVF size (2048
+           points, 128 frames + 12). Asserts finite outputs, no
+           localization failure, the loop closed, map ATE <= 0.1 and the
+           final BA lowering the error; and the closure lowering the
+           trajectory ATE at bench.py's size. At full size that is
+           reported: there the closure lands at ~0.17-0.23 whatever the
+           drift before it, which varies from run to run (0.19-0.35 over
+           four card runs on an H100; PERF.md).
+  Neither the BA nor the MVF phases may launch kernel B1 or B2.
 Then a line with every kernel's launches, error and times (B2's float64
 entry point's too: its tile edge, its launches in precision_k768's float64
 run, and whether it beat its one-call yardstick; each kernel's launches on
@@ -226,6 +250,30 @@ AS_POINTS, AS_FRAMES, AS_TRACK_LEN, AS_CHUNK = 10_000, 500, 12, 2048
 # banded and full-width corrections agree when |banded - full| <=
 # BAND_RTOL * |full| in the 2-norm, for du and for dX (float32)
 BAND_RTOL = 1e-3
+
+# the multi-view factorization demo's world (demo_multi_view_factorization:
+# the grid, the rectangular path, K = 520, 320x240, frames 0-1 known), 12
+# frames, each (noise_pix, loop_closure) case in float64 on the card and
+# on the CPU and in float32 on the card
+MVF_DEMO_FRAMES = 12
+MVF_DEMO_CASES = ((0.0, False), (0.0, True), (0.5, False), (0.5, True))
+# the last camera's position error, float32 or float64, on a run without
+# drift (noise 0): below this the closure has nothing to lower
+MVF_NO_DRIFT = 1e-4
+# the at-scale MVF pipeline at the JAX demo's defaults (demo_mvf_at_scale:
+# 10k points, 500 frames + a 12-frame revisit, tracks of 12, 0.5 px,
+# windowed BA of 25 frames every 5, global BA every 25, oracle pairs), in
+# float32; the frame whose integration, windowed and global BA run under
+# the profiler (both BA run after it); its map ATE bound
+# (test_mvf_sparse.py:154)
+MVF_SCALE = dict(points=10_000, frames=500, revisit_frames=12)
+MVF_PROFILE_FRAME = 474
+MVF_MAP_ATE_BOUND = 0.1
+# bench.py's MVF size (bench.py:629-636: 2048 points, 128 frames + 12), at
+# which the closure's effect on the trajectory ATE exceeds the run-to-run
+# spread of the drift (PERF.md): the closure is held to lowering the
+# trajectory ATE there; at MVF_SCALE it is reported
+MVF_CLOSURE_CHECK = dict(points=2048, frames=128, revisit_frames=12)
 
 
 def emit(obj) -> None:
@@ -1194,6 +1242,121 @@ def run_at_scale(device, dtype, n_points=AS_POINTS, n_frames=AS_FRAMES,
             "finite": finite}
 
 
+def mvf_state(m) -> dict:
+    """A factorizer's poses and map as float64 host arrays."""
+    return {"R": np.stack(m.cam_cfw_R).astype(np.float64),
+            "t": np.stack(m.cam_cfw_t).astype(np.float64),
+            "points": {int(k): np.asarray(v, np.float64)
+                       for k, v in m.point_coords.items()}}
+
+
+def mvf_state_diff(a: dict, b: dict) -> float:
+    """Max |difference| of two factorizer states (inf if their maps hold
+    other tracks)."""
+    if sorted(a["points"]) != sorted(b["points"]):
+        return float("inf")
+    return float(max(np.abs(a["R"] - b["R"]).max(),
+                     np.abs(a["t"] - b["t"]).max(),
+                     max((np.abs(a["points"][k] - b["points"][k]).max()
+                          for k in a["points"]), default=0.0)))
+
+
+def mvf_demo_case(device, noise: float, closure: bool) -> dict:
+    """One case of the MVF demo: float64 on the card against float64 on the
+    CPU (state difference, counts, each BA's kind, ok, stop reason and
+    iterations) and float32 on the card; its metrics and checks."""
+    import torch
+    from surikatoko_tpu_torch.demos import multi_view_factorization as demo
+    runs = {}
+    for name, dev, dtype in (("card_f64", device, torch.float64),
+                             ("cpu_f64", "cpu", torch.float64),
+                             ("card_f32", device, torch.float32)):
+        m, res = demo.run_factorizer(MVF_DEMO_FRAMES, noise, closure, seed=0,
+                                     device=dev, dtype=dtype)
+        runs[name] = (mvf_state(m), res)
+    (s64, r64), (scpu, rcpu), (_, r32) = (runs["card_f64"], runs["cpu_f64"],
+                                          runs["card_f32"])
+    bas = lambda r: [b[:4] for b in r["ba_log"]]
+    diff = mvf_state_diff(s64, scpu)
+    checks = {
+        "f64_card_vs_cpu_within_tol": diff <= F64_CAM_TOL,
+        "f64_counts_equal": (r64["points"] == rcpu["points"]
+                             and r64["ba_runs"] == rcpu["ba_runs"]
+                             and r64["integrated"] == rcpu["integrated"]),
+        "f64_ba_iters_and_stops_equal": bas(r64) == bas(rcpu),
+        "finite": all(np.isfinite(r[k]) for r in (r64, r32, rcpu)
+                      for k in ("point_ate", "camera_ate")),
+        "f32_point_ate_within": r32["point_ate"] <= 2 * r64["point_ate"] + 0.01,
+        "f32_camera_ate_within": r32["camera_ate"]
+        <= 2 * r64["camera_ate"] + 0.01}
+    if closure:
+        # where the run drifted, the closure lowers the last camera's
+        # error; without noise there is no drift, and the error stays at
+        # the type's rounding
+        checks["closure_lowers_end_err"] = all(
+            r["end_err_after_closure"] < r["end_err_before_closure"]
+            or max(r["end_err_after_closure"],
+                   r["end_err_before_closure"]) < MVF_NO_DRIFT
+            for r in (r64, r32, rcpu))
+    keep = ("points", "point_ate", "camera_ate", "ba_runs",
+            "end_err_before_closure", "end_err_after_closure", "seconds")
+    return {"noise_pix": noise, "loop_closure": closure,
+            "f64_card_vs_cpu_max_abs": diff, "tol": F64_CAM_TOL,
+            **{name: {k: r[k] for k in keep} for name, (_, r) in runs.items()},
+            "ba_log_f64_card": r64["ba_log"], "ba_log_f32_card": r32["ba_log"],
+            "checks": checks}
+
+
+def run_mvf_at_scale(device, dtype, **overrides) -> dict:
+    """demos.mvf_at_scale.run_at_scale at the JAX demo's defaults
+    (MVF_SCALE), with frame MVF_PROFILE_FRAME's integration, windowed BA and
+    global BA each under the profiler (device only) and torch's sync
+    debug mode: device busy us, launches, the host syncs it reports, and
+    the idle share against the median wall of that stage's uninstrumented
+    runs within 25 frames of it (the instruments slow the profiled run
+    itself several-fold)."""
+    import torch
+    from surikatoko_tpu_torch.demos import mvf_at_scale as mas
+    profiles = {}
+
+    def profiler(name, fn):
+        out, syncs = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        busy, launches, top, _ = device_profile(
+            lambda: syncs.append(host_syncs(lambda: out.append(fn()))),
+            host_ops=False)
+        profiles[name] = {"instrumented_wall_us":
+                          1e6 * (time.perf_counter() - t0),
+                          "device_busy_us": busy,
+                          "device_launches": launches,
+                          "host_syncs": syncs[0],
+                          "top_kernels_us_count": top}
+        return out[0]
+
+    args = mas.make_args(**{**MVF_SCALE, **overrides}, device=device,
+                         dtype=dtype)
+    res = mas.run_at_scale(args, profile_frame=MVF_PROFILE_FRAME,
+                           profiler=profiler)
+    for name, prof in profiles.items():
+        near = [s for f, s in res["stage_s"][name]
+                if f != MVF_PROFILE_FRAME and abs(f - MVF_PROFILE_FRAME) <= 25]
+        wall_us = 1e6 * float(np.median(near))
+        prof.update(wall_us_nearby_median=wall_us,
+                    idle_share=1.0 - prof["device_busy_us"] / wall_us)
+    stage_s = res.pop("stage_s")
+    res["stage_ms_median"] = {k: 1e3 * float(np.median([s for _, s in v]))
+                              for k, v in stage_s.items() if v}
+    prof = res.pop("ba_profile")
+    res["ba_phases_s"] = {k: {n: v[n] for n in ("build", "compute",
+                                                 "readback", "runs")}
+                          for k, v in prof.items()}
+    res["ba_log_tail"] = res.pop("ba_log")[-3:]
+    res["profiled_frame"] = MVF_PROFILE_FRAME
+    res["profiles"] = profiles
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1813,6 +1976,65 @@ def main() -> int:
         raise AssertionError(f"ba_at_scale: LM error {scale['err_before']} -> "
                              f"{scale['err_after']} did not decrease")
 
+    # ---- multi-view factorization: the demo's world, then the 10k x 512
+    # pipeline ----
+    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    t0 = time.perf_counter()
+    mvf_cases = [mvf_demo_case(device, noise, closure)
+                 for noise, closure in MVF_DEMO_CASES]
+    mvf_demo_launches = {"ncc_search": ncc_cuda.LAUNCHES,
+                         "symmetric_downdate": covariance.LAUNCHES}
+    emit({"phase": "mvf_demo", "phase_s": time.perf_counter() - t0,
+          "frames": MVF_DEMO_FRAMES, "cases": mvf_cases,
+          "launches": mvf_demo_launches})
+    for c in mvf_cases:
+        bad = [k for k, v in c["checks"].items() if not v]
+        if bad:
+            raise AssertionError(f"mvf_demo noise {c['noise_pix']} closure "
+                                 f"{c['loop_closure']}: {bad}")
+    if any(mvf_demo_launches.values()):
+        raise AssertionError(f"mvf_demo: launches {mvf_demo_launches}")
+
+    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mvf = run_mvf_at_scale(device, torch.float32)
+    mvf_keys = ("map_ate_rmse", "traj_ate_rmse", "traj_ate_pre_closure",
+                "traj_ate_post_closure", "frames_per_s_integration",
+                "frames_per_s_end_to_end")
+    from surikatoko_tpu_torch.demos import mvf_at_scale as mas
+    t1 = time.perf_counter()
+    small = mas.run_at_scale(mas.make_args(**MVF_CLOSURE_CHECK, device=device,
+                                           dtype=torch.float32))
+    mvf_scale_launches = {"ncc_search": ncc_cuda.LAUNCHES,     # both runs
+                          "symmetric_downdate": covariance.LAUNCHES}
+    closure_check = {**MVF_CLOSURE_CHECK, "s": time.perf_counter() - t1,
+                     **{k: small[k] for k in (
+                         "traj_ate_pre_closure", "traj_ate_post_closure",
+                         "traj_ate_rmse", "map_ate_rmse", "closure_inliers",
+                         "loop_closed", "localization_failures")}}
+    mvf_checks = {
+        "finite": all(np.isfinite(mvf[k]) for k in mvf_keys),
+        "no_localization_failure": mvf["localization_failures"] == 0
+        and small["localization_failures"] == 0,
+        "loop_closed": mvf["loop_closed"] and small["loop_closed"],
+        "closure_lowers_traj_ate_at_bench_size":
+        small["traj_ate_post_closure"] < small["traj_ate_pre_closure"],
+        "map_ate_within": mvf["map_ate_rmse"] <= MVF_MAP_ATE_BOUND,
+        "final_ba_lowers_err": mvf["final_ba"]["err_after"]
+        < mvf["final_ba"]["err_before"],
+        "no_kernel_launch": not any(mvf_scale_launches.values())}
+    emit({"phase": "mvf_at_scale", "phase_s": time.perf_counter() - t0,
+          "world": {**MVF_SCALE, "track_len": 12, "noise_pix": 0.5},
+          "map_ate_bound": MVF_MAP_ATE_BOUND, **mvf,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "closure_at_bench_size": closure_check,
+          "launches": mvf_scale_launches, "checks": mvf_checks})
+    bad = [k for k, v in mvf_checks.items() if not v]
+    if bad:
+        raise AssertionError(f"mvf_at_scale: {bad}")
+
     dd_main = dd_times["4621x1536"]
     dd64_main = dd64_times["4621x1536"]
     dd_ms = float(np.mean(dd_main["kernel"]))
@@ -1825,7 +2047,9 @@ def main() -> int:
             "flagship": launches["ncc_search"],
             "imageseq_hostloop_f32": imseq["float32"]["launches"]["ncc_search"],
             "imageseq_hostloop_f64": imseq["float64"]["launches"]["ncc_search"],
-            "imageseq_klt": klt["launches"]["ncc_search"]},
+            "imageseq_klt": klt["launches"]["ncc_search"],
+            "mvf_demo": mvf_demo_launches["ncc_search"],
+            "mvf_at_scale": mvf_scale_launches["ncc_search"]},
         "imageseq_shapes": {k: {n: v[n] for n in (
             "kernel_ms", "plain_ms", "graph_ms", "kernel_device_us", "bound_ms",
             "bound_by", "pct_of_bound")} for k, v in ncc_imseq.items()},
@@ -1844,7 +2068,9 @@ def main() -> int:
                 imseq["float32"]["launches"]["symmetric_downdate"],
             "imageseq_hostloop_f64":
                 imseq["float64"]["launches"]["symmetric_downdate"],
-            "imageseq_klt": klt["launches"]["symmetric_downdate"]},
+            "imageseq_klt": klt["launches"]["symmetric_downdate"],
+            "mvf_demo": mvf_demo_launches["symmetric_downdate"],
+            "mvf_at_scale": mvf_scale_launches["symmetric_downdate"]},
         "ms": dd_ms, "plain_ms": float(np.mean(dd_main["plain"])),
         "graph_ms": dd_main["graph_ms"]["kernel"],
         "device_us": dd_main["kernel_device_us"],

@@ -16,9 +16,12 @@ Layer map (mirrors ``surikatoko_tpu``; the on-device loops are ported):
              GT matcher's scenario loop, the image-sequence loops)
   models/    the MonoSlam EKF: state, measurement, predict, the four update
              strategies, fused congruence, health, the host-driven filter;
-             bundle adjustment
+             bundle adjustment; multi-view factorization (mvf/) and the
+             SE(3) / Sim(3) pose graphs (posegraph)
   ops/       batched NCC search and the covariance downdate, with their
              hand-written CUDA kernels (csrc/)
+  demos/     the multi-view factorization demo and the at-scale MVF
+             pipeline as runners that return their metrics
 
 Nothing here touches a GPU or a compiler at import time: each CUDA kernel
 is built on its first launch (ops/cuda_build.py).

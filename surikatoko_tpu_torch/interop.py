@@ -17,6 +17,7 @@ from surikatoko_tpu_torch.geom.se3 import SE3
 from surikatoko_tpu_torch.models.ba.problem import BAProblem
 from surikatoko_tpu_torch.models.ba.sparse import BAProblemSparse
 from surikatoko_tpu_torch.models.monoslam.state import MonoSlamParams, MonoSlamState
+from surikatoko_tpu_torch.models.mvf.factorizer import MultiViewFactorizer, TrackStore
 from surikatoko_tpu_torch.world.device_runner import (
     DeviceScenario,
     ImageSeqDeviceScenario,
@@ -93,6 +94,46 @@ def matcher_store_from_numpy(m, matcher):
     matcher.templ_valid = np.array(m.templ_valid, bool)
     matcher.last_center = np.array(m.last_center, np.float32)
     return matcher
+
+
+# the factorizer's settings that both packages have (all but K, which is
+# copied, and the JAX package's ba_mesh)
+_MVF_SETTINGS = (
+    "ba_trigger_reproj_err", "ba_term_rel_change", "ba_max_iters",
+    "refine_localization", "refine_mapping", "min_parallax_ratio",
+    "fake_localization", "fake_mapping", "gt_cfw_fun", "gt_point_fun",
+    "use_sparse_ba", "sparse_ba_threshold", "ba_point_chunk",
+    "ba_point_bucket", "ba_frame_bucket", "ba_device_loop")
+
+
+def mvf_from_numpy(m, device: torch.device | str = "cuda",
+                   dtype: torch.dtype | None = None) -> MultiViewFactorizer:
+    """MultiViewFactorizer carrying the state of ``m``, an object with the
+    JAX factorizer's field names (e.g. a JAX ``MultiViewFactorizer`` mid-run):
+    its settings, camera poses, map, BA-refined set and counters, and a copy
+    of its ``TrackStore`` arrays. Both factorizers then go on from one
+    state. The port's factorizer does its device work on ``device`` (the
+    card unless the caller says otherwise) in ``dtype`` (default
+    ``config.default_dtype(device)``); its state stays on the host, as in
+    the JAX package. The JAX package's ``ba_mesh`` is not carried."""
+    ts_in = m.track_store
+    ts = TrackStore(ts_in.coords.shape[0], ts_in.max_frames, ts_in.L)
+    for name in ("coords", "pixels", "fidx", "count"):
+        setattr(ts, name, np.array(getattr(ts_in, name)))
+    ts.n_tracks = int(ts_in.n_tracks)
+    ts._frame_tracks = {int(f): [int(t) for t in tids]
+                        for f, tids in ts_in._frame_tracks.items()}
+    out = MultiViewFactorizer(
+        track_store=ts, K=np.array(m.K, float), device=device, dtype=dtype,
+        **{k: getattr(m, k) for k in _MVF_SETTINGS})
+    out.cam_cfw_R = [np.array(R) for R in m.cam_cfw_R]
+    out.cam_cfw_t = [np.array(t) for t in m.cam_cfw_t]
+    out.point_coords = {int(k): np.array(v) for k, v in m.point_coords.items()}
+    out._ba_points = {int(t) for t in m._ba_points}
+    out.ba_runs = int(m.ba_runs)
+    out.last_ba_sparse = bool(m.last_ba_sparse)
+    out.last_closure_inliers = int(m.last_closure_inliers)
+    return out
 
 
 def ba_problem_from_numpy(p, device: torch.device | str = "cuda") -> BAProblem:

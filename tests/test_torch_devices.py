@@ -14,7 +14,11 @@ import torch
 from surikatoko_tpu_torch import interop
 from surikatoko_tpu_torch.geom import camera, se3
 from surikatoko_tpu_torch.io import dino, frame_loader
+from surikatoko_tpu_torch.demos import multi_view_factorization as mvf_demo
+from surikatoko_tpu_torch.demos import mvf_at_scale
+from surikatoko_tpu_torch.models import posegraph
 from surikatoko_tpu_torch.models.ba import derivs
+from surikatoko_tpu_torch.models.mvf import MultiViewFactorizer, TrackStore
 from surikatoko_tpu_torch.models.monoslam import filter as filter_mod
 from surikatoko_tpu_torch.models.monoslam import state
 from surikatoko_tpu_torch.vision import matcher
@@ -80,6 +84,12 @@ ENTRY_POINTS = {
     "build_at_scale_problem": (ba_scene.build_at_scale_problem,
                                lambda f, **d: f(40, 8, 3, **d)),
     "frame_var_mask": (derivs.frame_var_mask, lambda f, **d: f(4, **d)),
+    "make_pose_graph": (posegraph.make_pose_graph, lambda f, **d: f(
+        np.stack([np.eye(3)] * 2), np.zeros((2, 3)),
+        [(0, 1, np.eye(3), np.ones(3), 1.0)], **d)),
+    "make_sim3_graph": (posegraph.make_sim3_graph, lambda f, **d: f(
+        np.stack([np.eye(3)] * 2), np.zeros((2, 3)),
+        [(0, 1, np.eye(3), np.ones(3), 1.0, 1.0)], **d)),
 }
 
 
@@ -149,3 +159,53 @@ def test_torch_matchers_take_the_trackers_device(cls):
             *m.recruit_new_salient_points(st, 0, None))
     assert all(t.device.type == dev for t in outs)
     assert m._image.device.type == dev and m._image.dtype == torch.float32
+
+
+def _two_frame_factorizer(**kw):
+    """A factorizer holding the two known frames of a 27-point grid seen
+    from two cameras, and a third frame's corners."""
+    pts = np.stack(np.meshgrid(*[np.linspace(-1, 1, 3)] * 3),
+                   -1).reshape(-1, 3)
+    K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]])
+    m = MultiViewFactorizer(track_store=TrackStore(len(pts), 3), K=K, **kw)
+    for f, x in enumerate((0.0, 0.3, 0.6)):
+        t = np.array([-x, 0.0, 6.0])
+        ph = (pts + t) @ K.T
+        for tid, p in enumerate(ph[:, :2] / ph[:, 2:3]):
+            m.track_store.add_corner(tid, f, p, np.linalg.inv(K))
+        if f < 2:
+            m.add_known_frame(se3.SE3(np.eye(3), t))
+            for tid, p in enumerate(pts):
+                m.set_known_point(tid, p)
+    return m
+
+
+def test_torch_mvf_entry_points_default_to_the_card():
+    """The factorizer, its carrier from a JAX factorizer's state and the two
+    demo runners do their device work on the card unless the caller asks
+    for the CPU, in config.default_dtype(device); without a card the first
+    device call raises."""
+    for fn in (MultiViewFactorizer, interop.mvf_from_numpy, mvf_demo.run,
+               mvf_demo.run_factorizer):
+        params = inspect.signature(fn).parameters
+        assert params["device"].default == "cuda", fn
+        assert params["dtype"].default is None, fn
+    args = mvf_at_scale.make_args()
+    assert args.device == "cuda" and args.dtype is None
+    m = _two_frame_factorizer()
+    assert m.device == torch.device("cuda") and m.dtype == torch.float32
+    assert interop.mvf_from_numpy(m).device == torch.device("cuda")
+    if torch.cuda.is_available():
+        assert m.integrate_new_frame_corners()
+        assert mvf_demo.run(frames=4)["device"].startswith("cuda")
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            m.integrate_new_frame_corners()
+        with pytest.raises((AssertionError, RuntimeError)):
+            mvf_demo.run(frames=4)
+        with pytest.raises((AssertionError, RuntimeError)):
+            mvf_at_scale.run_at_scale(mvf_at_scale.make_args(
+                points=60, frames=12, revisit_frames=0))
+    m = _two_frame_factorizer(device="cpu")
+    assert m.dtype == torch.float64 and m.integrate_new_frame_corners()
+    assert m.frames_count() == 3

@@ -148,7 +148,14 @@ def test_torch_package_never_imports_jax():
             "surikatoko_tpu_torch.vision.matcher, "
             "surikatoko_tpu_torch.vision.picture, "
             "surikatoko_tpu_torch.io.frame_loader, "
-            "surikatoko_tpu_torch.io.tracker_log; "
+            "surikatoko_tpu_torch.io.tracker_log, "
+            "surikatoko_tpu_torch.models.mvf, "
+            "surikatoko_tpu_torch.models.mvf.relative_motion, "
+            "surikatoko_tpu_torch.models.mvf.factorizer, "
+            "surikatoko_tpu_torch.models.posegraph, "
+            "surikatoko_tpu_torch.ops.transfer, "
+            "surikatoko_tpu_torch.demos.multi_view_factorization, "
+            "surikatoko_tpu_torch.demos.mvf_at_scale; "
             "bad = sorted(m for m in sys.modules "
             "if m in ('jax', 'surikatoko_tpu') "
             "or m.startswith(('jax.', 'surikatoko_tpu.'))); "
