@@ -136,18 +136,36 @@ Phases, one JSON line each:
            10k points, 500 frames + a 12-frame revisit, tracks of 12, 0.5
            px, windowed BA (25 frames) every 5 frames, global sparse BA
            every 25 (10 iterations, point bucket 2048, frame bucket 100),
-           oracle pairs and the Sim(3) closure, float32; the final BA of 5
+           the closure's pairs by place recognition (the 12 head frames and
+           the revisit rendered, steered BRIEF on the card, mutual-NN
+           Hamming matching, a 256-hypothesis similarity RANSAC, threshold
+           0.25) and the Sim(3) closure, float32; the final BA of 5
            iterations timed as the best of two warm runs, then 40 more.
-           Frame 474's integration, windowed BA and global BA run under the
-           profiler. Then the same pipeline at bench.py's MVF size (2048
-           points, 128 frames + 12). Asserts finite outputs, no
-           localization failure, the loop closed, map ATE <= 0.1 and the
-           final BA lowering the error; and the closure lowering the
-           trajectory ATE at bench.py's size. At full size that is
+           Frame 474's integration, windowed BA and global BA and a second
+           run of place recognition run under the profiler. Then the same
+           pipeline at bench.py's MVF size (2048 points, 128 frames + 12),
+           with the oracle pairs and without. Asserts finite outputs, no
+           localization failure, the loop closed in all three runs, map
+           ATE <= 0.1, the final BA lowering the error and a measured
+           count of correct closure pairs; at bench.py's size the oracle
+           closure lowering the trajectory ATE, and place recognition's
+           205 x 205 tracks, 100 +- 2 candidates and >= 3 verified pairs,
+           >= 90% of them correct. At full size the trajectory ATE is
            reported: there the closure lands at ~0.17-0.23 whatever the
-           drift before it, which varies from run to run (0.19-0.35 over
-           four card runs on an H100; PERF.md).
-  Neither the BA nor the MVF phases may launch kernel B1 or B2.
+           drift before it, which varies from run to run (PERF.md).
+  two_view the two-view toolbox on a synthetic 640x480 pair (2000
+           correspondences, 30% outliers, 0.5 px): F by 7-point RANSAC with
+           its candidates (512 hypotheses) and an 8-point refit on its
+           inliers, E by 5-point RANSAC (512), the relative pose on E's
+           inliers, their optimal correction, and Zhang's and the rotating
+           camera's calibrations from 10 homographies each; float64 and
+           float32 on the card, each step timed by CUDA events, and float64
+           on the CPU on the same samples. Asserts the float64 card run
+           within 1e-9 of the CPU's (F and E up to sign, K relative, equal
+           inlier masks) and finite outputs; reports the f32 rotation error
+           and inlier counts.
+  Neither the BA, the MVF nor the two-view phases may launch kernel B1 or
+  B2.
 Then a line with every kernel's launches, error and times (B2's float64
 entry point's too: its tile edge, its launches in precision_k768's float64
 run, and whether it beat its one-call yardstick; each kernel's launches on
@@ -271,9 +289,27 @@ MVF_PROFILE_FRAME = 474
 MVF_MAP_ATE_BOUND = 0.1
 # bench.py's MVF size (bench.py:629-636: 2048 points, 128 frames + 12), at
 # which the closure's effect on the trajectory ATE exceeds the run-to-run
-# spread of the drift (PERF.md): the closure is held to lowering the
-# trajectory ATE there; at MVF_SCALE it is reported
+# spread of the drift (PERF.md): with the oracle pairs the closure is held
+# to lowering the trajectory ATE there (at MVF_SCALE it is reported);
+# without them, place recognition to its tracks and candidates (the JAX
+# package's 205 x 205 tracks and 100 candidates on the CPU and the TPU) and
+# to enough verified pairs, nearly all correct
 MVF_CLOSURE_CHECK = dict(points=2048, frames=128, revisit_frames=12)
+PR_BENCH_TRACKS = (205, 205)
+PR_BENCH_CANDIDATES, PR_BENCH_CANDIDATES_SLACK = 100, 2
+PR_MIN_VERIFIED, PR_MIN_CORRECT_SHARE = 3, 0.9
+
+# the two-view phase: a synthetic 640x480 pair (K = 500 px, the camera
+# moved as in test_mvg.py), 2000 correspondences with 0.5 px noise, 30% of
+# them outliers; 512 RANSAC hypotheses each for F (7-point, its candidates,
+# 8-point refit on the inliers) and E (5-point), inliers within 2 px
+# (Sampson); 10 homographies for each calibration; float64 on the card
+# against the CPU on the same samples within TWO_VIEW_F64_TOL (K relative
+# to its largest entry, F and E up to sign)
+TWO_VIEW = dict(n=2000, outlier_share=0.3, noise_px=0.5, hypotheses=512,
+                thresh_px=2.0, homographies=10, seed=0)
+TWO_VIEW_F64_TOL = 1e-9
+TWO_VIEW_REPS = 5
 
 
 def emit(obj) -> None:
@@ -1309,12 +1345,14 @@ def mvf_demo_case(device, noise: float, closure: bool) -> dict:
 
 def run_mvf_at_scale(device, dtype, **overrides) -> dict:
     """demos.mvf_at_scale.run_at_scale at the JAX demo's defaults
-    (MVF_SCALE), with frame MVF_PROFILE_FRAME's integration, windowed BA and
-    global BA each under the profiler (device only) and torch's sync
-    debug mode: device busy us, launches, the host syncs it reports, and
-    the idle share against the median wall of that stage's uninstrumented
-    runs within 25 frames of it (the instruments slow the profiled run
-    itself several-fold)."""
+    (MVF_SCALE, pairs by place recognition), with frame MVF_PROFILE_FRAME's
+    integration, windowed BA and global BA and a second run of the
+    closure's place recognition each under the profiler (device only) and
+    torch's sync debug mode: device busy us, launches, the host syncs it
+    reports, and the idle share against the median wall of that stage's
+    uninstrumented runs within 25 frames of it (place recognition: its
+    uninstrumented run; the instruments slow the profiled run itself
+    several-fold)."""
     import torch
     from surikatoko_tpu_torch.demos import mvf_at_scale as mas
     profiles = {}
@@ -1339,6 +1377,14 @@ def run_mvf_at_scale(device, dtype, **overrides) -> dict:
     res = mas.run_at_scale(args, profile_frame=MVF_PROFILE_FRAME,
                            profiler=profiler)
     for name, prof in profiles.items():
+        if name == "place_recognition":
+            # its one uninstrumented run, each stage synchronized
+            st = res["place_recognition"]["stage_ms"]
+            wall_us = 1e3 * (st["describe_ms"] + st["match_ms"]
+                             + st["ransac_ms"])
+            prof.update(wall_us_uninstrumented=wall_us,
+                        idle_share=1.0 - prof["device_busy_us"] / wall_us)
+            continue
         near = [s for f, s in res["stage_s"][name]
                 if f != MVF_PROFILE_FRAME and abs(f - MVF_PROFILE_FRAME) <= 25]
         wall_us = 1e6 * float(np.median(near))
@@ -1355,6 +1401,162 @@ def run_mvf_at_scale(device, dtype, **overrides) -> dict:
     res["profiled_frame"] = MVF_PROFILE_FRAME
     res["profiles"] = profiles
     return res
+
+
+def two_view_inputs(seed=TWO_VIEW["seed"]) -> dict:
+    """The two-view phase's host float64 inputs: the pair's pixels (inliers
+    projected with noise, outliers uniform in the second image), the GT
+    motion, each image's Hartley normalization of its points, the RANSAC
+    samples (from CPU generators, so the card and the CPU fit the same
+    hypotheses), and the plane and rotation homographies."""
+    import torch
+    from surikatoko_tpu_torch.geom import so3
+    from surikatoko_tpu_torch.models.sfm.ransac import draw_samples
+    rng = np.random.default_rng(seed)
+    n, W, H = TWO_VIEW["n"], 640, 480
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    R = so3.exp(torch.tensor([0.05, -0.12, 0.03], dtype=torch.float64)).numpy()
+    t = np.array([0.4, -0.1, 0.15])
+    uv = np.stack([rng.uniform(0, W, 4 * n), rng.uniform(0, H, 4 * n),
+                   np.ones(4 * n)], 1)
+    X = (uv @ np.linalg.inv(K).T) * rng.uniform(3.0, 8.0, (4 * n, 1))
+    p2 = (X @ R.T + t) @ K.T
+    p2 = p2[:, :2] / p2[:, 2:]
+    inside = (p2[:, 0] >= 0) & (p2[:, 0] < W) & (p2[:, 1] >= 0) & (p2[:, 1] < H)
+    x1 = uv[inside][:n, :2] + rng.normal(scale=TWO_VIEW["noise_px"], size=(n, 2))
+    x2 = p2[inside][:n] + rng.normal(scale=TWO_VIEW["noise_px"], size=(n, 2))
+    out = rng.choice(n, int(TWO_VIEW["outlier_share"] * n), replace=False)
+    x2[out] = np.stack([rng.uniform(0, W, out.size),
+                        rng.uniform(0, H, out.size)], 1)
+
+    def hartley(x):
+        mean = x.mean(0)
+        s = np.sqrt(2.0) / np.mean(np.linalg.norm(x - mean, axis=1))
+        return (x - mean) * s, s
+
+    u1, s1 = hartley(x1)
+    u2, s2 = hartley(x2)
+    K_inv = np.linalg.inv(K)
+    k1 = x1 @ K_inv[:2, :2].T + K_inv[:2, 2]
+    k2 = x2 @ K_inv[:2, :2].T + K_inv[:2, 2]
+    Hz, Hr = [], []
+    for _ in range(TWO_VIEW["homographies"]):
+        Rz = so3.exp(torch.as_tensor(rng.normal(scale=0.35, size=3))).numpy()
+        tz = np.array([rng.normal(scale=0.3), rng.normal(scale=0.3),
+                       3.0 + rng.normal(scale=0.3)])
+        Hp = K @ np.stack([Rz[:, 0], Rz[:, 1], tz], axis=1)
+        Hz.append(Hp / Hp[2, 2])
+        Rr = so3.exp(torch.as_tensor(rng.normal(scale=0.4, size=3))).numpy()
+        Hr.append(K @ Rr @ K_inv)
+    gen = lambda k: torch.Generator().manual_seed(seed + k)
+    M = TWO_VIEW["hypotheses"]
+    return {"K": K, "R": R, "t": t / np.linalg.norm(t), "outliers": out,
+            "u1": u1, "u2": u2, "thr_F": (TWO_VIEW["thresh_px"] * s1) ** 2,
+            "k1": k1, "k2": k2, "thr_E": (TWO_VIEW["thresh_px"] / 500.0) ** 2,
+            "Hz": np.stack(Hz), "Hr": np.stack(Hr),
+            "samples_F": draw_samples(gen(1), n, 7, M),
+            "samples_E": draw_samples(gen(2), n, 5, M)}
+
+
+def two_view_steps(inp: dict, device, dtype) -> dict:
+    """The two-view toolbox's steps on ``device`` in ``dtype``, each a
+    function of the earlier steps' outputs (in order): F by 7-point RANSAC
+    with its candidates, the 8-point refit on its inliers, E by 5-point
+    RANSAC, the relative pose on E's inliers (8-point, cheirality, Sampson
+    polish), the optimal correction of E's inliers, Zhang's and the
+    rotating camera's calibrations."""
+    import torch
+    from surikatoko_tpu_torch.models.sfm import (
+        autocalib, five_point, mvg, optimal_triangulation, ransac)
+    T = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    u1, u2, k1, k2 = (T(inp[k]) for k in ("u1", "u2", "k1", "k2"))
+    Hz, Hr = T(inp["Hz"]), T(inp["Hr"])
+    n = u1.shape[0]
+    every = torch.ones(n, dtype=torch.bool, device=device)
+    sF, sE = inp["samples_F"].to(device), inp["samples_E"].to(device)
+    return {
+        "F7_ransac": lambda o: ransac.ransac(
+            n, 7, lambda i: mvg.fundamental_7point(u1[i], u2[i]),
+            lambda F: mvg.sampson_distance_sq(F, u1, u2), inp["thr_F"],
+            samples=sF, candidates_axis=True),
+        "F8_refit": lambda o: mvg.fundamental_8point(
+            u1, u2, o["F7_ransac"].inliers),
+        "E5_ransac": lambda o: ransac.ransac(
+            n, 5, lambda i: five_point.five_point_best(k1[i], k2[i], k1, k2,
+                                                       every),
+            lambda E: mvg.sampson_distance_sq(E, k1, k2), inp["thr_E"],
+            samples=sE),
+        "relative_pose": lambda o: mvg.relative_pose_from_correspondences(
+            k1, k2, o["E5_ransac"].inliers),
+        "optimal_correction": lambda o: optimal_triangulation
+        .correct_correspondences_batch(o["E5_ransac"].model,
+                                       k1[o["E5_ransac"].inliers],
+                                       k2[o["E5_ransac"].inliers]),
+        "calib_zhang": lambda o: autocalib.calibrate_from_homographies(Hz),
+        "calib_rotation": lambda o: autocalib
+        .calibrate_from_rotation_homographies(Hr)}
+
+
+def two_view_run(inp: dict, device, dtype, reps: int = 0):
+    """Every step once in order ({step: output}); with ``reps``, each also
+    timed by CUDA events over ``reps`` calls ({step: ms})."""
+    outs, ms = {}, {}
+    for name, fn in two_view_steps(inp, device, dtype).items():
+        outs[name] = fn(outs)
+        if reps:
+            ms[name] = cuda_ms(lambda: fn(outs), reps)
+    return outs, ms
+
+
+def two_view_host(outs: dict) -> dict:
+    """The outputs as float64 host arrays."""
+    h = lambda x: x.detach().cpu().numpy().astype(np.float64)
+    return {"F": h(outs["F8_refit"]),
+            "F_inliers": h(outs["F7_ransac"].inliers),
+            "E": h(outs["E5_ransac"].model),
+            "E_inliers": h(outs["E5_ransac"].inliers),
+            "R": h(outs["relative_pose"].R), "t": h(outs["relative_pose"].t),
+            "x1c": h(outs["optimal_correction"][0]),
+            "x2c": h(outs["optimal_correction"][1]),
+            "K_zhang": h(outs["calib_zhang"]),
+            "K_rotation": h(outs["calib_rotation"])}
+
+
+def two_view_diff(a: dict, b: dict) -> dict:
+    """Max |difference| per output of two runs on the same samples: F and E
+    up to sign, K relative to its largest entry, inlier masks as the count
+    that differ."""
+    d = {}
+    for k in a:
+        x, y = a[k], b[k]
+        if k.endswith("inliers"):
+            d[k] = float(np.sum(x != y))
+        elif x.shape != y.shape:
+            d[k] = float("inf")
+        elif k in ("F", "E"):
+            d[k] = float(min(np.abs(x - y).max(), np.abs(x + y).max()))
+        else:
+            d[k] = float(np.abs(x - y).max() / (np.abs(y).max()
+                                                 if k.startswith("K") else 1.0))
+    return d
+
+
+def two_view_quality(inp: dict, host: dict) -> dict:
+    """Rotation error (deg) and translation direction error of the relative
+    pose, the inlier counts against the true inliers, the calibrations'
+    relative error."""
+    true_in = np.ones(TWO_VIEW["n"], bool)
+    true_in[inp["outliers"]] = False
+    cosang = (np.trace(host["R"] @ inp["R"].T) - 1) / 2
+    K = inp["K"]
+    return {"rotation_err_deg": float(np.degrees(np.arccos(np.clip(cosang, -1, 1)))),
+            "t_dir_err": float(np.linalg.norm(host["t"] - inp["t"])),
+            "true_inliers": int(true_in.sum()),
+            **{f"{m}_inliers": int(host[f"{m}_inliers"].sum()) for m in "FE"},
+            **{f"{m}_outliers_admitted": int(host[f"{m}_inliers"][~true_in].sum())
+               for m in "FE"},
+            **{k: float(np.abs(host[k] - K).max() / K.max())
+               for k in ("K_zhang", "K_rotation")}}
 
 
 def main() -> int:
@@ -2000,27 +2202,47 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mvf = run_mvf_at_scale(device, torch.float32)
+    mvf_free_launches = {"ncc_search": ncc_cuda.LAUNCHES,   # full size alone
+                         "symmetric_downdate": covariance.LAUNCHES}
     mvf_keys = ("map_ate_rmse", "traj_ate_rmse", "traj_ate_pre_closure",
                 "traj_ate_post_closure", "frames_per_s_integration",
                 "frames_per_s_end_to_end")
     from surikatoko_tpu_torch.demos import mvf_at_scale as mas
-    t1 = time.perf_counter()
-    small = mas.run_at_scale(mas.make_args(**MVF_CLOSURE_CHECK, device=device,
-                                           dtype=torch.float32))
-    mvf_scale_launches = {"ncc_search": ncc_cuda.LAUNCHES,     # both runs
+    bench = {}
+    for name, oracle in (("oracle_pairs", True), ("oracle_free", False)):
+        t1 = time.perf_counter()
+        r = mas.run_at_scale(mas.make_args(**MVF_CLOSURE_CHECK, device=device,
+                                           dtype=torch.float32,
+                                           oracle_pairs=oracle))
+        bench[name] = {**MVF_CLOSURE_CHECK, "s": time.perf_counter() - t1,
+                       **{k: r[k] for k in (
+                           "traj_ate_pre_closure", "traj_ate_post_closure",
+                           "traj_ate_rmse", "map_ate_rmse", "closure_inliers",
+                           "closure_pairs_total", "closure_pairs_correct",
+                           "place_recognition", "loop_closed",
+                           "localization_failures")}}
+    mvf_scale_launches = {"ncc_search": ncc_cuda.LAUNCHES,     # all three runs
                           "symmetric_downdate": covariance.LAUNCHES}
-    closure_check = {**MVF_CLOSURE_CHECK, "s": time.perf_counter() - t1,
-                     **{k: small[k] for k in (
-                         "traj_ate_pre_closure", "traj_ate_post_closure",
-                         "traj_ate_rmse", "map_ate_rmse", "closure_inliers",
-                         "loop_closed", "localization_failures")}}
+    bo, bf = bench["oracle_pairs"], bench["oracle_free"]
+    bf_pr = bf["place_recognition"]
     mvf_checks = {
         "finite": all(np.isfinite(mvf[k]) for k in mvf_keys),
-        "no_localization_failure": mvf["localization_failures"] == 0
-        and small["localization_failures"] == 0,
-        "loop_closed": mvf["loop_closed"] and small["loop_closed"],
-        "closure_lowers_traj_ate_at_bench_size":
-        small["traj_ate_post_closure"] < small["traj_ate_pre_closure"],
+        "no_localization_failure": all(
+            r["localization_failures"] == 0 for r in (mvf, bo, bf)),
+        "loop_closed": all(r["loop_closed"] for r in (mvf, bo, bf)),
+        "closure_oracle_free": mvf["closure_oracle_free"],
+        "closure_pairs_correct_measured": mvf["closure_pairs_correct"] >= 0,
+        "closure_lowers_traj_ate_at_bench_size_oracle":
+        bo["traj_ate_post_closure"] < bo["traj_ate_pre_closure"],
+        "pr_tracks_at_bench_size": (bf_pr["tracks_revisit"],
+                                    bf_pr["tracks_head"]) == PR_BENCH_TRACKS,
+        "pr_candidates_at_bench_size": abs(
+            bf_pr["candidates"] - PR_BENCH_CANDIDATES)
+        <= PR_BENCH_CANDIDATES_SLACK,
+        "pr_verified_at_bench_size":
+        bf["closure_pairs_total"] >= PR_MIN_VERIFIED
+        and bf["closure_pairs_correct"]
+        >= PR_MIN_CORRECT_SHARE * bf["closure_pairs_total"],
         "map_ate_within": mvf["map_ate_rmse"] <= MVF_MAP_ATE_BOUND,
         "final_ba_lowers_err": mvf["final_ba"]["err_after"]
         < mvf["final_ba"]["err_before"],
@@ -2029,11 +2251,41 @@ def main() -> int:
           "world": {**MVF_SCALE, "track_len": 12, "noise_pix": 0.5},
           "map_ate_bound": MVF_MAP_ATE_BOUND, **mvf,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "closure_at_bench_size": closure_check,
+          "closure_at_bench_size": bench,
           "launches": mvf_scale_launches, "checks": mvf_checks})
     bad = [k for k, v in mvf_checks.items() if not v]
     if bad:
         raise AssertionError(f"mvf_at_scale: {bad}")
+
+    # ---- the two-view toolbox: F, E, pose, correction, calibration ----
+    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    t0 = time.perf_counter()
+    tv_inp = two_view_inputs()
+    tv = {}
+    for dtype in (torch.float64, torch.float32):
+        outs, ms = two_view_run(tv_inp, device, dtype, reps=TWO_VIEW_REPS)
+        tv[str(dtype)] = {"host": two_view_host(outs), "ms": ms}
+    tv_cpu = two_view_host(two_view_run(tv_inp, "cpu", torch.float64)[0])
+    tv_diff = two_view_diff(tv["torch.float64"]["host"], tv_cpu)
+    tv_quality = {k: two_view_quality(tv_inp, v["host"]) for k, v in tv.items()}
+    two_view_launches = {"ncc_search": ncc_cuda.LAUNCHES,
+                         "symmetric_downdate": covariance.LAUNCHES}
+    tv_checks = {
+        "f64_card_vs_cpu_within_tol": all(
+            v == 0 if k.endswith("inliers") else v <= TWO_VIEW_F64_TOL
+            for k, v in tv_diff.items()),
+        "finite": all(np.isfinite(v).all() for r in tv.values()
+                      for v in r["host"].values()),
+        "no_kernel_launch": not any(two_view_launches.values())}
+    emit({"phase": "two_view", "phase_s": time.perf_counter() - t0,
+          "world": TWO_VIEW, "f64_card_vs_cpu_max_abs": tv_diff,
+          "tol": TWO_VIEW_F64_TOL,
+          **{k: {"quality": tv_quality[k], "step_ms": v["ms"]}
+             for k, v in tv.items()},
+          "launches": two_view_launches, "checks": tv_checks})
+    bad = [k for k, v in tv_checks.items() if not v]
+    if bad:
+        raise AssertionError(f"two_view: {bad}")
 
     dd_main = dd_times["4621x1536"]
     dd64_main = dd64_times["4621x1536"]
@@ -2049,7 +2301,9 @@ def main() -> int:
             "imageseq_hostloop_f64": imseq["float64"]["launches"]["ncc_search"],
             "imageseq_klt": klt["launches"]["ncc_search"],
             "mvf_demo": mvf_demo_launches["ncc_search"],
-            "mvf_at_scale": mvf_scale_launches["ncc_search"]},
+            "mvf_at_scale": mvf_scale_launches["ncc_search"],
+            "mvf_at_scale_oracle_free": mvf_free_launches["ncc_search"],
+            "two_view": two_view_launches["ncc_search"]},
         "imageseq_shapes": {k: {n: v[n] for n in (
             "kernel_ms", "plain_ms", "graph_ms", "kernel_device_us", "bound_ms",
             "bound_by", "pct_of_bound")} for k, v in ncc_imseq.items()},
@@ -2070,7 +2324,10 @@ def main() -> int:
                 imseq["float64"]["launches"]["symmetric_downdate"],
             "imageseq_klt": klt["launches"]["symmetric_downdate"],
             "mvf_demo": mvf_demo_launches["symmetric_downdate"],
-            "mvf_at_scale": mvf_scale_launches["symmetric_downdate"]},
+            "mvf_at_scale": mvf_scale_launches["symmetric_downdate"],
+            "mvf_at_scale_oracle_free":
+                mvf_free_launches["symmetric_downdate"],
+            "two_view": two_view_launches["symmetric_downdate"]},
         "ms": dd_ms, "plain_ms": float(np.mean(dd_main["plain"])),
         "graph_ms": dd_main["graph_ms"]["kernel"],
         "device_us": dd_main["kernel_device_us"],

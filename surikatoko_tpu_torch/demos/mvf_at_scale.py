@@ -6,11 +6,14 @@ Port of ``demos/demo_mvf_at_scale.py``. The synthetic world is a ring of
 landmarks orbited once by the camera, tracks frame-local and NON-wrapping:
 the chain stays open and visual-odometry drift accumulates, like a real
 monocular run. A short REVISIT segment then re-enters the start region,
-re-detecting the head landmarks as new tracks; the GT oracle pairs them with
-the originals, and the accumulated Sim(3) loop error closes through the pose
-graph (MultiViewFactorizer.close_loop_sim3) before the final global BA.
-The JAX demo's appearance-based pairs (steered BRIEF, ``--oracle_pairs``
-off) wait for the port's place recognition (ROADMAP A.4).
+re-detecting the head landmarks as new tracks. Place recognition pairs them
+with the originals by appearance alone: the head frames and the revisit are
+rendered (a textured background and one splat per landmark), their tracks
+described by steered BRIEF, matched by mutual-NN Hamming distance and
+verified by a similarity RANSAC over the drifted map
+(vision/place_recognition.py); ``--oracle_pairs`` takes the GT pairs
+instead. The accumulated Sim(3) loop error closes through the pose graph
+(MultiViewFactorizer.close_loop_sim3) before the final global BA.
 
 Per frame: matcher writes corners -> anchor selection -> SVD-12 relative
 motion + GN-PnP polish -> batched MASKS-8.44 triangulation of new tracks.
@@ -18,7 +21,8 @@ Sliding-window local BA runs every ``window_ba_every`` frames; bucket-padded
 global BA every ``global_ba_every`` frames.
 
     python -m surikatoko_tpu_torch.demos.mvf_at_scale [--points 10000]
-        [--frames 500] [--track_len 12] [--device cuda] [--dtype float32]
+        [--frames 500] [--track_len 12] [--oracle_pairs]
+        [--pr_ransac_thresh 0.25] [--device cuda] [--dtype float32]
 
 prints one JSON line of :func:`run_at_scale`'s metrics.
 """
@@ -40,6 +44,7 @@ from surikatoko_tpu_torch.models.ba import sparse as ba_sparse
 from surikatoko_tpu_torch.demos.multi_view_factorization import (
     ate, camera_positions)
 from surikatoko_tpu_torch.models.mvf import MultiViewFactorizer, TrackStore
+from surikatoko_tpu_torch.vision import place_recognition as pr
 
 K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]])
 
@@ -50,8 +55,9 @@ def make_args(**overrides) -> argparse.Namespace:
     base = dict(points=10_000, frames=500, track_len=12, noise_pix=0.5,
                 window_ba_every=5, window=25, global_ba_every=25,
                 global_ba_iters=10, final_polish_iters=40,
-                revisit_frames=12, oracle_pairs=True, ba_iters=5, seed=0,
-                device="cuda", dtype=None)
+                revisit_frames=12, oracle_pairs=False,
+                pr_ransac_thresh=0.25, ba_iters=5, seed=0, device="cuda",
+                dtype=None)
     base.update(overrides)
     return argparse.Namespace(**base)
 
@@ -59,9 +65,15 @@ def make_args(**overrides) -> argparse.Namespace:
 class World:
     """The at-scale world, drawn from ``default_rng(seed)`` in the JAX
     demo's order (points, then the landmarks' splat appearance and the
-    background, which only its place recognition reads, then each frame's
-    detection noise as the frame is written), so both packages see the same
-    points and noise. Host float64."""
+    background of the rendered frames, then each frame's detection noise as
+    the frame is written), so both packages see the same points, noise and
+    pixels. Host float64.
+
+    Without the oracle pairs, writing a head frame (the first
+    ``n_head_frames``) or a revisit frame also renders it and keeps (image,
+    keypoints, track ids) in ``head_obs`` / ``tail_obs`` for place
+    recognition (the revisit's re-detections only); ``render_s`` sums the
+    rendering's host seconds."""
 
     def __init__(self, args):
         self.rng = rng = np.random.default_rng(args.seed)
@@ -97,28 +109,93 @@ class World:
             fm = f % n_base
             for i in np.nonzero((fm - facing) % n_base < L)[0]:
                 self.frame_pts[f].append(int(i))
-        # the landmarks' appearance and the background of the JAX demo's
-        # rendered frames: drawn to keep the noise stream in its order
-        rng.uniform(80.0, 200.0, n_pts)
-        rng.uniform(1.6, 2.6, n_pts)
-        rng.uniform(20.0, 60.0, size=(480, 640))
+        # world appearance: every landmark's splat brightness and width,
+        # and a smoothed textured background
+        self.amps = rng.uniform(80.0, 200.0, n_pts)
+        self.sigmas = rng.uniform(1.6, 2.6, n_pts)
+        bg = rng.uniform(20.0, 60.0, size=(480, 640))
+        self.bg_img = (bg + np.roll(bg, 1, 0) + np.roll(bg, 1, 1)
+                       + np.roll(bg, -1, 0) + np.roll(bg, -1, 1)) / 5.0
+        self.collect_pr = bool(args.revisit_frames) and not args.oracle_pairs
+        self.n_head_frames = min(12, max(6, args.revisit_frames))
+        self.head_obs, self.tail_obs = [], []
+        self.render_s = 0.0
+
+    def render_frame_np(self, ids, pix_true, ok) -> np.ndarray:
+        """640x480 frame: the textured background + one splat per landmark
+        at its TRUE projection (detection noise perturbs keypoints, not
+        photons), as the separable contraction Ey^T diag(a) Ex: one [H,K] @
+        [K,W] product over all splats (JAX demo_mvf_at_scale.py:175-194)."""
+        H, W = self.bg_img.shape
+        ids = np.asarray(ids, int)
+        vis = (np.asarray(ok, bool)
+               & (pix_true[:, 0] >= 0) & (pix_true[:, 0] < W)
+               & (pix_true[:, 1] >= 0) & (pix_true[:, 1] < H))
+        s2 = 2.0 * self.sigmas[ids % self.n_pts] ** 2                # [K]
+        xs = np.arange(W)[None, :]
+        ys = np.arange(H)[None, :]
+        ex = np.exp(-(xs - pix_true[:, 0:1]) ** 2 / s2[:, None])     # [K,W]
+        ey = np.exp(-(ys - pix_true[:, 1:2]) ** 2 / s2[:, None])     # [K,H]
+        a = self.amps[ids % self.n_pts] * vis
+        img = self.bg_img + (ey * a[:, None]).T @ ex
+        return np.clip(img, 0, 255)
 
     def write_corners(self, ts: TrackStore, f: int) -> None:
         """Frame ``f``'s noisy corners into the track store (the revisit's
-        head-region landmarks as new track ids)."""
+        head-region landmarks as new track ids), and a head or revisit
+        frame's observations for place recognition (JAX :196-225)."""
         n_pts, n_base = self.n_pts, self.n_base
         ids = np.asarray(self.frame_pts[f], int)
         xc = self.pts_gt[ids] @ self.Rs[f].T + self.ts_gt[f]
         ok = xc[:, 2] > 0.5
         ph = xc @ K.T
-        pix = ph[:, :2] / ph[:, 2:3] + self.rng.normal(
-            scale=self.noise_pix, size=(len(ids), 2))
+        pix_true = ph[:, :2] / ph[:, 2:3]
+        pix = pix_true + self.rng.normal(scale=self.noise_pix,
+                                         size=(len(ids), 2))
         head = self.facing[ids] < n_base // 2
         K_inv = np.linalg.inv(K)
+        kept = []           # (tid_w, noisy pixel) of every written corner
         for tid, p, o, hd in zip(ids, pix, ok, head):
             if o:
                 tid_w = int(tid) + n_pts if (f >= n_base and hd) else int(tid)
                 ts.add_corner(tid_w, f, p, K_inv)
+                kept.append((tid_w, p))
+        if self.collect_pr and (f < self.n_head_frames or f >= n_base):
+            if f >= n_base:     # the revisit group: the re-detections only
+                kept = [(t, p) for t, p in kept if t >= n_pts]
+            if kept:
+                t0 = time.perf_counter()
+                img = self.render_frame_np(ids, pix_true, ok)
+                self.render_s += time.perf_counter() - t0
+                (self.tail_obs if f >= n_base else self.head_obs).append(
+                    (img, np.stack([p for _, p in kept]),
+                     [t for t, _ in kept]))
+
+
+def place_recognition(world: World, positions: dict, args, device, dtype,
+                      sync) -> tuple[list, dict]:
+    """The oracle-free closure pairs (JAX demo :272-298): the head and the
+    revisit groups described, matched, and the candidates verified by the
+    similarity RANSAC (``args.pr_ransac_thresh``) on ``positions``. Returns
+    (verified pairs, stats); ``sync(device)`` ends each stage, whose host ms
+    the stats hold."""
+    t0 = time.perf_counter()
+    head = pr.describe_tracks(world.head_obs, device=device)
+    tail = pr.describe_tracks(world.tail_obs, device=device)
+    sync(device)
+    t1 = time.perf_counter()
+    cand = pr.match_track_groups(tail, head)
+    sync(device)
+    t2 = time.perf_counter()
+    pairs = pr.verify_loop_pairs(cand, positions, args.pr_ransac_thresh,
+                                 device=device, dtype=dtype)
+    sync(device)
+    t3 = time.perf_counter()
+    ms = {"describe_ms": 1e3 * (t1 - t0), "match_ms": 1e3 * (t2 - t1),
+          "ransac_ms": 1e3 * (t3 - t2)}
+    return pairs, {"tracks_revisit": int(tail.tids.size),
+                   "tracks_head": int(head.tids.size),
+                   "candidates": len(cand), "stage_ms": ms}
 
 
 def _sync(device) -> None:
@@ -141,16 +218,16 @@ def run_at_scale(args: argparse.Namespace, *, profile_frame: int | None = None,
     medians, every BA's (kind, ok, stop reason, iterations, trials), the
     final BA's stop reasons and errors, and the band plan of the final BA
     (the port's ``_plan`` geometry in place of the JAX demo's band
-    signature). Raises NotImplementedError for ``oracle_pairs=False``.
+    signature). Without the oracle pairs it also returns the place
+    recognition's counts and stage times (``place_recognition``: render,
+    describe, match and RANSAC host ms, each stage synchronized).
 
     At frame ``profile_frame`` each stage that runs (``"integrate"``,
     ``"window_ba"``, ``"global_ba"``) runs as ``profiler(stage, fn)``,
     which must call ``fn()`` once and return its result: a caller's
-    profiler or counter sees that frame's work alone."""
-    if args.revisit_frames and not args.oracle_pairs:
-        raise NotImplementedError(
-            "appearance-based closure pairs need the port's place "
-            "recognition (ROADMAP A.4); pass oracle_pairs=True")
+    profiler or counter sees that frame's work alone. Place recognition
+    runs a second time, unsynchronized, as
+    ``profiler("place_recognition", fn)`` (outside ``closure_s``)."""
     device = torch.device(args.device)
     dtype = args.dtype or config.default_dtype(device)
     world = World(args)
@@ -207,11 +284,23 @@ def run_at_scale(args: argparse.Namespace, *, profile_frame: int | None = None,
         return ate(camera_positions(mvf.cam_cfw_R, mvf.cam_cfw_t), pos_gt)
 
     ate_pre_closure = traj_ate()
-    ate_post_closure = None
-    closed, n_pairs, closure_s = False, 0, 0.0
+    ate_post_closure = pr_stats = None
+    closed, n_pairs, n_correct, closure_s = False, 0, -1, 0.0
     if args.revisit_frames:
         tb = time.perf_counter()
-        pairs = [(n_pts + i, i) for i in range(n_pts)]
+        if args.oracle_pairs:
+            pairs = [(n_pts + i, i) for i in range(n_pts)]
+        else:
+            positions = dict(mvf.point_coords)
+            pairs, pr_stats = place_recognition(world, positions, args,
+                                                device, dtype, _sync)
+            pr_stats["stage_ms"]["render_ms"] = 1e3 * world.render_s
+            n_correct = sum(1 for a, b in pairs if a - n_pts == b)
+            if profiler is not None:
+                tp = time.perf_counter()
+                profiler("place_recognition", lambda: place_recognition(
+                    world, positions, args, device, dtype, lambda d: None))
+                tb += time.perf_counter() - tp
         n_pairs = len(pairs)
         closed, _ = mvf.close_loop_sim3(
             tail_frames=range(n_base, n_frames), head_frames=range(6),
@@ -307,9 +396,11 @@ def run_at_scale(args: argparse.Namespace, *, profile_frame: int | None = None,
         "traj_ate_post_closure": ate_post_closure,
         "loop_closed": bool(closed),
         "closure_pairs_total": int(n_pairs),
-        "closure_pairs_correct": -1,     # oracle pairs: not measured
+        "closure_pairs_correct": int(n_correct),  # -1: oracle pairs
         "closure_inliers": int(mvf.last_closure_inliers),
-        "closure_oracle_free": False,
+        "closure_oracle_free": bool(args.revisit_frames
+                                    and not args.oracle_pairs),
+        "place_recognition": pr_stats,
         "closure_s": closure_s,
         "localization_failures": int(n_fail),
         "points": len(tids_m), "frames": n_frames,
@@ -345,13 +436,18 @@ def main() -> int:
     ap.add_argument("--global_ba_iters", type=int, default=10)
     ap.add_argument("--final_polish_iters", type=int, default=40)
     ap.add_argument("--revisit_frames", type=int, default=12)
+    ap.add_argument("--oracle_pairs", action="store_true",
+                    help="close the loop on the GT pairs instead of place "
+                         "recognition's")
+    ap.add_argument("--pr_ransac_thresh", type=float, default=0.25,
+                    help="similarity-RANSAC inlier threshold (map units) "
+                         "of place recognition's pairs")
     ap.add_argument("--ba_iters", type=int, default=5,
                     help="LM iterations of the timed final global BA")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=("float32", "float64"), default=None)
     args = ap.parse_args()
-    args.oracle_pairs = True
     args.dtype = getattr(torch, args.dtype) if args.dtype else None
     config.set_full_precision()
     res = run_at_scale(args)

@@ -18,6 +18,7 @@ from surikatoko_tpu_torch.models.ba.problem import BAProblem
 from surikatoko_tpu_torch.models.ba.sparse import BAProblemSparse
 from surikatoko_tpu_torch.models.monoslam.state import MonoSlamParams, MonoSlamState
 from surikatoko_tpu_torch.models.mvf.factorizer import MultiViewFactorizer, TrackStore
+from surikatoko_tpu_torch.vision.place_recognition import TrackDescriptors
 from surikatoko_tpu_torch.world.device_runner import (
     DeviceScenario,
     ImageSeqDeviceScenario,
@@ -134,6 +135,23 @@ def mvf_from_numpy(m, device: torch.device | str = "cuda",
     out.last_ba_sparse = bool(m.last_ba_sparse)
     out.last_closure_inliers = int(m.last_closure_inliers)
     return out
+
+
+def descriptor_words(words, device: torch.device | str = "cuda"
+                     ) -> torch.Tensor:
+    """The port's int32 descriptor words from the JAX package's uint32
+    words (the same bit patterns)."""
+    return torch.as_tensor(np.array(words, np.uint32).view(np.int32),
+                           device=device)
+
+
+def track_descriptors_from_numpy(td, device: torch.device | str = "cuda"
+                                 ) -> TrackDescriptors:
+    """TrackDescriptors from an object with the JAX ``TrackDescriptors``'
+    fields (uint32 words in, int32 words out)."""
+    return TrackDescriptors(np.array(td.tids, np.int64),
+                            descriptor_words(td.desc, device),
+                            np.array(td.count, np.int64))
 
 
 def ba_problem_from_numpy(p, device: torch.device | str = "cuda") -> BAProblem:

@@ -16,12 +16,15 @@ from surikatoko_tpu_torch.geom import camera, se3
 from surikatoko_tpu_torch.io import dino, frame_loader
 from surikatoko_tpu_torch.demos import multi_view_factorization as mvf_demo
 from surikatoko_tpu_torch.demos import mvf_at_scale
+from surikatoko_tpu_torch.geom import rect
 from surikatoko_tpu_torch.models import posegraph
 from surikatoko_tpu_torch.models.ba import derivs
 from surikatoko_tpu_torch.models.mvf import MultiViewFactorizer, TrackStore
 from surikatoko_tpu_torch.models.monoslam import filter as filter_mod
 from surikatoko_tpu_torch.models.monoslam import state
-from surikatoko_tpu_torch.vision import matcher
+from surikatoko_tpu_torch.utils import stats
+from surikatoko_tpu_torch.vision import matcher, multiscale
+from surikatoko_tpu_torch.vision import place_recognition as pr
 from surikatoko_tpu_torch.world import ba_scene, device_runner
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
@@ -90,6 +93,8 @@ ENTRY_POINTS = {
     "make_sim3_graph": (posegraph.make_sim3_graph, lambda f, **d: f(
         np.stack([np.eye(3)] * 2), np.zeros((2, 3)),
         [(0, 1, np.eye(3), np.ones(3), 1.0, 1.0)], **d)),
+    "rect_make": (rect.make, lambda f, **d: f(0, 1, 4, 3, **d)),
+    "mean_std_init": (stats.mean_std_init, lambda f, **d: f(**d)),
 }
 
 
@@ -209,3 +214,35 @@ def test_torch_mvf_entry_points_default_to_the_card():
     m = _two_frame_factorizer(device="cpu")
     assert m.dtype == torch.float64 and m.integrate_new_frame_corners()
     assert m.frames_count() == 3
+
+
+def test_torch_place_recognition_entry_points_default_to_the_card():
+    """describe_tracks, ransac_similarity_pairs and detect_and_describe do
+    their device work on the card unless the caller asks for the CPU (the
+    RANSAC in config.default_dtype(device)); the at-scale demo closes its
+    loop without the GT oracle by default, on the card."""
+    for fn in (pr.describe_tracks, pr.ransac_similarity_pairs,
+               multiscale.detect_and_describe):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert inspect.signature(pr.ransac_similarity_pairs).parameters[
+        "dtype"].default is None
+    args = mvf_at_scale.make_args()
+    assert (args.device, args.dtype, args.oracle_pairs) == ("cuda", None, False)
+    rng = np.random.default_rng(0)
+    img = rng.uniform(0, 255, (120, 160))
+    frames = [(img, rng.uniform(40, 110, (6, 2)), list(range(6)))]
+    A = rng.normal(size=(8, 3))
+    calls = (lambda **d: pr.describe_tracks(frames, **d).desc,
+             lambda **d: multiscale.detect_and_describe(img, levels=2,
+                                                        **d).descriptors)
+    if torch.cuda.is_available():
+        assert all(c().device.type == "cuda" for c in calls)
+        assert pr.ransac_similarity_pairs(A, A + 1.0, 0.1).all()
+    else:
+        for c in calls:
+            with pytest.raises((AssertionError, RuntimeError)):
+                c()
+        with pytest.raises((AssertionError, RuntimeError)):
+            pr.ransac_similarity_pairs(A, A + 1.0, 0.1)
+    assert all(c(device="cpu").device.type == "cpu" for c in calls)
+    assert pr.ransac_similarity_pairs(A, A + 1.0, 0.1, device="cpu").all()

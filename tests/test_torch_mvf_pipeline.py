@@ -17,13 +17,22 @@ the rest of the pipeline to the JAX package, the at-scale comparison hands
 the port the JAX package's robust fit (the same inputs give the same
 inliers); the port's own fit is run too, and held to the JAX run's
 trajectory ATE within 5%.
+
+- The oracle-free closure (the JAX demo's default: place recognition over
+  the rendered head and revisit frames) at the same size, with the JAX
+  robust fit and the JAX place-recognition RANSAC's samples handed in
+  (its key, PRNGKey(0), drawn as its ``ransac`` draws): the tracks, the
+  appearance candidates (24), the verified and correct pairs and the
+  closure inliers equal the JAX demo's, the ATEs within 5e-6.
 """
 
 import contextlib
 import io
 import os
+import re
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +41,7 @@ import torch
 from surikatoko_tpu.geom.align import umeyama_similarity_robust as j_robust
 from surikatoko_tpu_torch.demos import mvf_at_scale as tscale
 from surikatoko_tpu_torch.geom import align as talign
+from surikatoko_tpu_torch.models.sfm import ransac as transac
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "demos"))
 torch.set_num_threads(2)
@@ -154,7 +164,49 @@ def test_torch_mvf_at_scale_own_robust_fit(jax_at_scale):
     np.testing.assert_allclose(res["traj_ate_rmse"],
                                jax_at_scale["traj_ate_rmse"], rtol=0.05)
     assert res["map_ate_rmse"] < 0.05
-    with pytest.raises(NotImplementedError, match="A.4"):
-        tscale.run_at_scale(tscale.make_args(**{**SMOKE,
-                                                "oracle_pairs": False},
-                                             device="cpu"))
+    assert res["closure_pairs_correct"] == -1 and not res["closure_oracle_free"]
+    assert res["place_recognition"] is None
+    # without the oracle is the default, as in the JAX demo
+    assert tscale.make_args().oracle_pairs is False
+
+
+@pytest.fixture(scope="module")
+def jax_oracle_free():
+    """The JAX demo's oracle-free run and the place-recognition counts it
+    prints."""
+    from demo_mvf_at_scale import make_args, run_at_scale
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = run_at_scale(make_args(**{**SMOKE, "oracle_pairs": False}))
+    m = re.search(r"place recognition: (\d+) revisit x (\d+) head tracks -> "
+                  r"(\d+) appearance candidates", out.getvalue())
+    return res, tuple(int(x) for x in m.groups())
+
+
+def _jax_pr_samples(generator, data_size, sample_size, iterations):
+    """The JAX demo's place-recognition RANSAC samples (its default key)."""
+    return torch.as_tensor(np.array(jax.vmap(
+        lambda k: jax.random.choice(k, data_size, (sample_size,),
+                                    replace=False))(
+            jax.random.split(jax.random.PRNGKey(0), iterations))))
+
+
+def test_torch_mvf_at_scale_oracle_free_matches_jax_demo(jax_oracle_free,
+                                                         monkeypatch):
+    ref, (n_rev, n_head, n_cand) = jax_oracle_free
+    monkeypatch.setattr(talign, "umeyama_similarity_robust", _robust_from_jax)
+    monkeypatch.setattr(transac, "draw_samples", _jax_pr_samples)
+    res = tscale.run_at_scale(tscale.make_args(
+        **{**SMOKE, "oracle_pairs": False}, device="cpu"))
+    prs = res["place_recognition"]
+    assert (prs["tracks_revisit"], prs["tracks_head"]) == (n_rev, n_head)
+    assert prs["candidates"] == n_cand == 24
+    for k in ("loop_closed", "closure_pairs_total", "closure_pairs_correct",
+              "closure_inliers", "closure_oracle_free",
+              "localization_failures", "points", "frames"):
+        assert res[k] == ref[k], k
+    assert res["closure_oracle_free"] and res["closure_pairs_correct"] >= 3
+    for k in ("traj_ate_pre_closure", "traj_ate_rmse", "map_ate_rmse"):
+        np.testing.assert_allclose(res[k], ref[k], rtol=0, atol=5e-6)
+    assert set(prs["stage_ms"]) == {"render_ms", "describe_ms", "match_ms",
+                                    "ransac_ms"}

@@ -104,7 +104,7 @@ def probe_closure(device) -> list:
 
     factorizer.MultiViewFactorizer.close_loop_sim3 = keeping_close
     try:
-        res = mas.run_at_scale(mas.make_args(device=device,
+        res = mas.run_at_scale(mas.make_args(device=device, oracle_pairs=True,
                                              dtype=torch.float32))
     finally:
         factorizer.MultiViewFactorizer.close_loop_sim3 = close
