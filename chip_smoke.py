@@ -110,19 +110,21 @@ Phases, one JSON line each:
            finite, matched median > 500 in both, one downdate launch per
            frame, and f32 ATE <= 2 x f64 ATE + 0.02. One more float64 frame
            under the profiler: device busy time, B2's share, top kernels.
-  ba_dino  the JAX bench's dino BA (bench.py:587-623), float32: the 36 x
+  ba_dino  the JAX bench's dino BA (bench.py:587-623), float32
+           (demos.bundle_adj_dinosaur.run_dino): the 36 x
            4983 synthetic turntable written in the VGG file formats and read
            back through the loader; the device-loop sparse LM (full-width
            solve, point chunk 1024), 8 iterations warm, 8 timed, then
            converged from the warm result. Asserts finite outputs, a
            decreased error and map ATE <= 2 x the port's float64 CPU ATE.
   ba_at_scale  the 10k-point x 500-frame problem (bench.py:517-585),
-           float32: compute_blocks, the full-width and the banded Schur
-           solve (CUDA events), the parts of one LM trial, banded = full
-           (in the 2-norm, BAND_RTOL), whether each repeats bit for bit, the
-           Schur FLOP rate against a 4096^2 matmul chain, the device-loop LM
-           (8 iterations warm, 8 timed) and one profiled LM iteration.
-           Asserts finite outputs, both solves ok and a decreased error.
+           float32 (demos.ba_at_scale.run_at_scale): compute_blocks, the
+           full-width and the banded Schur solve (CUDA events), the parts
+           of one LM trial, banded = full (in the 2-norm, BAND_RTOL there),
+           whether each repeats bit for bit, the Schur FLOP rate against a
+           4096^2 matmul chain, the device-loop LM (8 iterations warm, 8
+           timed) and one profiled LM iteration. Asserts finite outputs,
+           both solves ok and a decreased error.
   mvf_demo the multi-view factorization demo (demos.multi_view_factorization:
            the grid world, the rectangular path, K = 520, 320x240, frames 0-1
            known), 12 frames at noise 0 and 0.5 px, each without and with
@@ -164,10 +166,37 @@ Phases, one JSON line each:
            within 1e-9 of the CPU's (F and E up to sign, K relative, equal
            inlier masks) and finite outputs; reports the f32 rotation error
            and inlier counts.
-  Neither the BA, the MVF nor the two-view phases may launch kernel B1 or
-  B2.
-Then a line with every kernel's launches, error and times (B2's float64
-entry point's too: its tile edge, its launches in precision_k768's float64
+  batch_eval  batched evaluation. Kernel B2's batched entry points (checked
+           and timed right after the kernel phase, where the profiler is
+           fresh) at (B,D,m) = (32,589,192), (6,109,32) and (3,130,7) with a
+           per-problem keep, float32 and float64: within the kernel phase's
+           tolerances of the plain version, bitwise symmetric, repeating,
+           each slice bit for bit its own unbatched kernel call, the
+           torch.func.vmap route equal to the direct batched call, and a
+           shared P and keep (vmap's unbatched arguments) equal to the
+           unbatched calls; at (32,589,192) the batched call, its 32
+           unbatched calls and a batched masked baddbmm (the one-call
+           yardstick) timed by events, graph replay and device time beside
+           the bound. Then make_batched_scan_runner(1) on scenario03's world
+           with 32 noise seeds (instance 0 scenario03's own), float32, frames
+           1-300, against the 32 seeds one after another over frames 1-30:
+           instance-frames/s both ways, one profiled frame of each (busy
+           share), one B2 launch a frame, per instance finite, P == P^T,
+           Cholesky info 0, ATE (median, max), the batched ATE over frames
+           1-30 within 0.02 of the unbatched one's, a batched frame free of
+           host syncs, and 4 instances in float64 on the card within 1e-9 of
+           their unbatched runs on the CPU. Then batch BA (demos.batch_ba:
+           the circle grids of default_rng(0..B-1), normalize -> LM ->
+           revert as one batch) at B = 32 and 256 in float64 and float32,
+           the first 32 also one after another: problems/s, converged
+           counts, and in float64 each problem's stop code, iterations and
+           trials in both batches equal to its own run; one profiled LM
+           iteration at B = 256 (busy share).
+  Neither the BA, the MVF, the two-view phases nor batch BA may launch
+  kernel B1 or B2.
+Then a line with every kernel's launches, error and times (B2's batched
+entry points' at (32,589,192) in both types too, and its float64 entry
+point's: its tile edge, its launches in precision_k768's float64
 run, and whether it beat its one-call yardstick; each kernel's launches on
 each path that launches it; B1's times at the image loop's shapes), the
 card's name
@@ -189,6 +218,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from surikatoko_tpu_torch.demos.ba_at_scale import run_at_scale
+from surikatoko_tpu_torch.demos.bundle_adj_dinosaur import run_dino
+from surikatoko_tpu_torch.utils.profiling import cuda_ms, device_profile
 
 K_FLAGSHIP = 768
 # (K, T, S): the CPU tests' shapes and the main path's, then the image
@@ -259,15 +292,11 @@ IMSEQ_KLT_KW = dict(klt_levels=3, klt_win=7, klt_iters=10)
 PK_K, PK_FRAMES, PK_SEED = 768, range(1, 121), 7
 PK_MITIGATIONS = dict(max_undetected_frames=60, covar_diag_inflation=1e-6)
 
-# the dino shape (bench.py:591-623) and the at-scale problem (bench.py:531-585)
-DINO_FRAMES, DINO_POINTS = 36, 4983
-# The port's float64 map ATE of the dino phase, on the CPU:
-#   python3 -c "import chip_smoke as c; print(c.dino_ate('cpu'))"
+# The port's float64 map ATE of the dino phase (its runner, run_dino, and
+# the at-scale BA's, run_at_scale, live in demos/bundle_adj_dinosaur.py and
+# demos/ba_at_scale.py), on the CPU:
+#   python3 -c "from surikatoko_tpu_torch.demos.bundle_adj_dinosaur import dino_ate; print(dino_ate('cpu'))"
 DINO_ATE_F64 = 0.00255877485559129
-AS_POINTS, AS_FRAMES, AS_TRACK_LEN, AS_CHUNK = 10_000, 500, 12, 2048
-# banded and full-width corrections agree when |banded - full| <=
-# BAND_RTOL * |full| in the 2-norm, for du and for dX (float32)
-BAND_RTOL = 1e-3
 
 # the multi-view factorization demo's world (demo_multi_view_factorization:
 # the grid, the rectangular path, K = 520, 320x240, frames 0-1 known), 12
@@ -311,6 +340,24 @@ TWO_VIEW = dict(n=2000, outlier_share=0.3, noise_px=0.5, hypotheses=512,
 TWO_VIEW_F64_TOL = 1e-9
 TWO_VIEW_REPS = 5
 
+# batched evaluation. Kernel B2 with a batch axis at (B, D, m): 32 scan
+# runner instances at scenario03's K = 96, a test shape, and a ragged one;
+# each with a per-problem keep, in float32 and float64; the first is timed
+BATCH_DOWNDATE_SHAPES = ((32, 589, 192), (6, 109, 32), (3, 130, 7))
+# the scan runner over noise seeds: B instances of scenario03 (impl 1,
+# float32; instance 0 takes scenario03's own noise, the others draws of
+# default_rng(BATCH_SEED)) over frames 1-300, against the B instances one
+# after another over frames 1-30; float64 at BATCH_F64 instances on the
+# card against the CPU over frames 1-30 (F64_CAM_TOL); per instance the
+# float32 batched ATE over frames 1-30 within BATCH_F32_ATE_TOL of its
+# unbatched run's
+BATCH_SCAN_B, BATCH_SEED, BATCH_F64 = 32, 11, 4
+BATCH_SCAN_FRAMES, BATCH_SEQ_FRAMES = range(1, 301), range(1, 31)
+BATCH_F32_ATE_TOL = 0.02
+# batch BA: the batch demo's circle grids (demos.batch_ba at its defaults),
+# B = 32 and 256 in float64 and float32, the first 32 also one after another
+BATCH_BA_SIZES, BATCH_BA_SEQ = (32, 256), 32
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -322,20 +369,6 @@ def nvidia_smi(query: str, units: bool = True) -> str:
     return subprocess.run(["nvidia-smi", f"--query-gpu={query}", fmt],
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int) -> float:
-    import torch
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def cuda_graph_ms(fn, reps: int, replays: int = 3) -> float:
@@ -367,16 +400,21 @@ def timed_build(mod):
     return os.path.relpath(path), time.perf_counter() - t0
 
 
+def profiled(fn, host_ops: bool = True):
+    """device_profile of one call of ``fn``. A profile that recorded no
+    device event at all is taken again, PROFILE_TRIES times in all; then it
+    raises, so no time is reported that was not measured."""
+    for _ in range(PROFILE_TRIES):
+        prof = device_profile(fn, host_ops)
+        if prof[0] > 0:
+            return prof
+    raise RuntimeError(f"{PROFILE_TRIES} profiles recorded no device event")
+
+
 def device_us_per_call(fn, calls: int = 5) -> float:
     """Mean device time of one call of ``fn`` over ``calls`` calls under the
-    profiler (one profiled call alone varies by tens of percent). A profile
-    that recorded no device event at all is taken again, PROFILE_TRIES times
-    in all; then it raises, so no time is reported that was not measured."""
-    for _ in range(PROFILE_TRIES):
-        busy = device_profile(lambda: [fn() for _ in range(calls)])[0]
-        if busy > 0:
-            return busy / calls
-    raise RuntimeError(f"{PROFILE_TRIES} profiles recorded no device event")
+    profiler (one profiled call alone varies by tens of percent)."""
+    return profiled(lambda: [fn() for _ in range(calls)])[0] / calls
 
 
 def ptxas_summary(lib) -> list:
@@ -650,31 +688,6 @@ def frame_without_host_sync(run, *args) -> None:
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-
-
-def device_profile(fn, host_ops: bool = True):
-    """(device busy us, device launches, top kernels, {kernel: [us,
-    launches]} of all) of one call of ``fn`` under torch.profiler. The
-    device-side events are the kernels and copies themselves; the aten rows
-    of key_averages() repeat their time, so only these are summed. Without
-    ``host_ops`` the profiler records the device alone, which costs the
-    host far less over runs of many small launches."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
-    with profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name, [0.0, 0])
-            k[0] += e.time_range.elapsed_us()
-            k[1] += 1
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    return (sum(v[0] for v in kernels.values()),
-            sum(v[1] for v in kernels.values()),
-            [[k[:100], v[0], v[1]] for k, v in top], kernels)
 
 
 def kernel_share(kernels, names) -> list:
@@ -1049,235 +1062,6 @@ def precision_run(device, dtype, mitigations: bool, profile: bool = False) -> di
     return out
 
 
-def dino_problem(device, dtype, n_points=DINO_POINTS):
-    """The JAX bench's dino scene (bench.py:591-607): synthetic_dino_raw(36,
-    n_points, vary_track_len=True) with the tracks of >= 2 views, written in
-    the VGG file formats to a temporary directory and read back through the
-    loader. Returns (sparse problem, frame_idx, track_mask, GT points)."""
-    import tempfile
-    from surikatoko_tpu_torch.io import dino
-    Ps, obs, mask, gt = dino.synthetic_dino_raw(DINO_FRAMES, n_points,
-                                                vary_track_len=True)
-    keep = mask.sum(axis=1) >= 2
-    with tempfile.TemporaryDirectory() as td:
-        dino.write_dino_files(td, Ps, obs[keep], mask[keep], gt_points=gt[keep])
-        p, fidx, tmask = dino.load_dino_problem_sparse(
-            td, f0=600.0, dtype=dtype, device=device)
-        gt_pts = dino.load_gt_points(td)
-    return p, fidx, tmask, gt_pts
-
-
-def run_dino(device, dtype, n_points=DINO_POINTS):
-    """bench.py:608-623: the device-loop sparse LM, full-width solve, 8
-    iterations warm, 8 timed on points·(1+1e-6), then converged from the
-    warm result with the reference's criterion; its map ATE against GT."""
-    import torch
-    from surikatoko_tpu_torch.geom.align import aligned_rmse
-    from surikatoko_tpu_torch.models.ba import (SparseBundleAdjustment,
-                                                TermCriteria, sparse)
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (
-        lambda: None)
-    p, fidx, tmask, gt = dino_problem(device, dtype, n_points)
-    ba = SparseBundleAdjustment(device_loop=True, band=False, point_chunk=1024)
-    ba.set_plan_inputs(fidx, tmask)
-    term = TermCriteria(allowed_reproj_err_rel_change=None, max_iters=8)
-    t0 = time.perf_counter()
-    ok_w, p_w = ba.compute_inplace(p, term)
-    sync()
-    t_warm = time.perf_counter() - t0
-    warm = (ok_w, ba.stop_reason, ba.iterations, ba.trials)
-    p_in = p._replace(points=p.points * (1.0 + 1e-6))
-    sync()
-    t0 = time.perf_counter()
-    ok_t, p_t = ba.compute_inplace(p_in, term)
-    sync()
-    dt = time.perf_counter() - t0
-    timed = (ok_t, ba.stop_reason, ba.iterations, ba.trials)
-    t0 = time.perf_counter()
-    ok_c, p_c = ba.compute_inplace(p_w, TermCriteria(
-        allowed_reproj_err_rel_change=4.56e-8, max_iters=40))
-    sync()
-    t_conv = time.perf_counter() - t0
-    err0, err1 = float(sparse.reproj_error(p)), float(sparse.reproj_error(p_c))
-    finite = all(bool(torch.isfinite(x).all()) for x in
-                 (p_t.points, p_t.cfw_t, p_c.points, p_c.cfw_R, p_c.cfw_t, p_c.K))
-    ate = float(aligned_rmse(p_c.points.double(),
-                             torch.as_tensor(gt, device=p_c.points.device)))
-    return {"frames": p.n_frames, "points": p.n_points,
-            "obs": int(tmask.sum()), "track_len": p.track_len,
-            "warm": {"ok": warm[0], "stop": warm[1], "iters": warm[2],
-                     "trials": warm[3], "s": t_warm},
-            "timed": {"ok": timed[0], "stop": timed[1], "iters": timed[2],
-                      "trials": timed[3], "s": dt},
-            "iters_per_s": timed[2] / dt, "trials_per_s": timed[3] / dt,
-            "converge": {"ok": ok_c, "stop": ba.stop_reason,
-                         "iters": ba.iterations, "trials": ba.trials,
-                         "s": t_conv},
-            "err_initial": err0, "err_final": err1,
-            "pix_rms_final": 600.0 * (err1 / max(int(tmask.sum()), 1)) ** 0.5,
-            "map_ate": ate, "finite": finite}
-
-
-def dino_ate(device="cpu"):
-    """Map ATE of the dino phase, in float64."""
-    import torch
-    return run_dino(device, torch.float64)["map_ate"]
-
-
-def matmul_ceiling(device, n=4096, k=8, reps=3):
-    """bench.py:516-529: a chain of k [n,n] @ [n,n] float32 products, timed
-    with CUDA events: (ms, FLOP/s)."""
-    import torch
-    g = torch.Generator(device=device).manual_seed(0)
-    a = torch.randn(n, n, generator=g, device=device)
-    b = torch.randn(n, n, generator=g, device=device)
-
-    def chain():
-        c = a
-        for _ in range(k):
-            c = b @ c * 1e-3
-        return c
-    ms = cuda_ms(chain, reps)
-    return ms, 2.0 * k * n ** 3 / (ms * 1e-3)
-
-
-def banded_parts(ps, blocks, hf, plan, ext, reps):
-    """The banded solve's parts in ms (CUDA events): the batched 3x3 point
-    Cholesky with its triangular solves, the Gram-strip reduction (the
-    whole reduction less the point part), and the reduced Cholesky solve
-    with the point back-substitution (it works on a copy of S, as it
-    factors in place)."""
-    import torch
-    from surikatoko_tpu_torch.models.ba import sparse as sp
-    from surikatoko_tpu_torch.models.ba.derivs import frame_var_mask
-    from surikatoko_tpu_torch.models.ba.schur import _damp, _fixed_var_identity
-    F = ps.n_frames
-    E_d = _damp(blocks.E, hf)
-    G = _fixed_var_identity(_damp(blocks.G, hf),
-                            frame_var_mask(F, device=E_d.device))
-    Sg, red, Lch, _, Fpf_s, gp_s, fidx_s = sp._banded_reduction(
-        E_d, blocks.Fpf, blocks.gp, ps.frame_idx, plan, F, ext)
-    E1 = torch.cat([E_d, torch.eye(3, dtype=E_d.dtype, device=E_d.device)[None]])[ext]
-    t_point = cuda_ms(lambda: sp._point_factor(E1, Fpf_s, gp_s), reps)
-    t_red = cuda_ms(lambda: sp._banded_reduction(
-        E_d, blocks.Fpf, blocks.gp, ps.frame_idx, plan, F, ext), reps)
-    t_finish = cuda_ms(lambda: sp._finish(blocks.gf, G, Sg.clone(), red, Lch,
-                                          Fpf_s, gp_s, fidx_s, F), reps)
-    return {"point_cholesky": t_point, "gram_strips": t_red - t_point,
-            "reduced_cholesky_and_backsub": t_finish}
-
-
-def run_at_scale(device, dtype, n_points=AS_POINTS, n_frames=AS_FRAMES,
-                 track_len=AS_TRACK_LEN, pc=AS_CHUNK, reps=3):
-    """bench.py:531-585 on the 10k x 500 problem: compute_blocks, the
-    full-width and the banded Schur solve (CUDA events), banded = full,
-    and the full device-loop LM."""
-    import torch
-    from surikatoko_tpu_torch.models.ba import (SparseBundleAdjustment,
-                                                TermCriteria, sparse as sp)
-    from surikatoko_tpu_torch.world.ba_scene import build_at_scale_problem
-    ps, fidx, mask = build_at_scale_problem(n_points, n_frames, track_len,
-                                            noise_pix=0.5, seed=0, dtype=dtype,
-                                            device=device)
-    hf = 1e-4
-    blocks = sp.compute_blocks(ps)
-    plan = sp.plan_bands(fidx, mask, pc, n_frames)
-    if plan is None:
-        raise AssertionError("plan_bands refused the at-scale problem")
-    ext = torch.as_tensor(plan.ext_idx, device=device)
-    full = lambda: sp.solve_corrections_schur_sparse(ps, blocks, hf, point_chunk=pc)
-    band = lambda: sp.solve_corrections_schur_banded(ps, blocks, hf, plan,
-                                                     ext_idx=ext)
-    dX_f, du_f, ok_f = full()
-    dX_b, du_b, ok_b = band()
-    dX_f2, du_f2, _ = full()
-    repeat_bitwise = bool(torch.equal(du_f, du_f2) and torch.equal(dX_f, dX_f2))
-    du_scale, dX_scale = float(du_f.abs().max()), float(dX_f.abs().max())
-    du_err = float((du_b - du_f).abs().max())
-    dX_err = float((dX_b - dX_f).abs().max())
-    rel_l2 = lambda a, b: float((a - b).norm() / b.norm())
-    du_rel, dX_rel = rel_l2(du_b, du_f), rel_l2(dX_b, dX_f)
-    # norm-wise in the 2-norm: f32 sums S in another order in the two
-    # solvers, and the reduced system's conditioning amplifies that to
-    # ~1e-3 of the largest entry, so one entry's difference alone moves
-    # across that bound from run to run
-    agree = du_rel <= BAND_RTOL and dX_rel <= BAND_RTOL
-    blocks_repeat_bitwise = all(torch.equal(a, b) for a, b in
-                                zip(blocks, sp.compute_blocks(ps)))
-    t_blocks = cuda_ms(lambda: sp.compute_blocks(ps), reps)
-    t_full = cuda_ms(full, reps)
-    t_band = cuda_ms(band, reps)
-    parts = {"compute_blocks": t_blocks,
-             **banded_parts(ps, blocks, hf, plan, ext, reps),
-             "apply_and_error": cuda_ms(lambda: sp.reproj_error(
-                 sp.apply_corrections(ps, dX_b, du_b)), reps)}
-    nF = 10 * n_frames
-    n_chunks = -(-n_points // pc)
-    f_solve = n_chunks * 2.0 * (3 * pc) * nF ** 2 + nF ** 3 / 3.0 + 2.0 * nF ** 2
-    mm_ms, ceiling = matmul_ceiling(device)
-
-    ba = SparseBundleAdjustment(optimize_intrinsics=False, point_chunk=pc,
-                                device_loop=True)
-    ba.set_plan_inputs(fidx, mask)
-    term = TermCriteria(allowed_reproj_err_rel_change=None, max_iters=8)
-    ok_w, _ = ba.compute(ps, term)
-    ps_t = ps._replace(points=ps.points * (1.0 + 1e-6))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ok_t, p_t = ba.compute(ps_t, term)
-    torch.cuda.synchronize()
-    t_lm = time.perf_counter() - t0
-    lm = {"ok": ok_t, "stop": ba.stop_reason, "iters": ba.iterations,
-          "trials": ba.trials, "s": t_lm}
-    err0, err1 = float(sp.reproj_error(ps_t)), float(sp.reproj_error(p_t))
-    lm_repeat_bitwise = bool(torch.equal(ba.compute(ps_t, term)[1].points,
-                                         p_t.points))
-    one = TermCriteria(allowed_reproj_err_rel_change=None, max_iters=1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ba.compute(ps_t, one)
-    torch.cuda.synchronize()
-    wall_one = time.perf_counter() - t0
-    busy, nlaunch, top, _ = device_profile(lambda: ba.compute(ps_t, one))
-    trials_one = ba.trials
-    finite = all(bool(torch.isfinite(x).all()) for x in
-                 (du_f, dX_f, du_b, dX_b, p_t.points, p_t.cfw_R, p_t.cfw_t))
-    return {"points": n_points, "frames": n_frames, "track_len": track_len,
-            "obs": int(mask.sum()), "point_chunk": pc,
-            "plan": {"band_width": plan.band_width,
-                     "banded_chunks": plan.n_banded_chunks,
-                     "point_chunk": plan.point_chunk,
-                     "overflow_chunk": plan.overflow_chunk,
-                     "overflow_chunks": (len(plan.ext_idx) - plan.n_banded_chunks
-                                         * plan.point_chunk) // plan.overflow_chunk},
-            "ms": {"compute_blocks": t_blocks, "schur_full": t_full,
-                   "schur_banded": t_band, "matmul_chain_4096x8": mm_ms},
-            "lm_trial_parts_ms": parts,
-            "solve_ok": {"full": bool(ok_f), "banded": bool(ok_b)},
-            "banded_vs_full": {"du_max_abs_diff": du_err, "du_max_abs": du_scale,
-                               "dX_max_abs_diff": dX_err, "dX_max_abs": dX_scale,
-                               "du_rel_l2": du_rel, "dX_rel_l2": dX_rel,
-                               "full_repeat_du_rel_l2": rel_l2(du_f2, du_f),
-                               "rtol_l2": BAND_RTOL, "agree": agree},
-            "repeats_bitwise": {"compute_blocks": blocks_repeat_bitwise,
-                                "schur_full": repeat_bitwise,
-                                "lm_8_iters": lm_repeat_bitwise},
-            "ba_solve_blocks_per_s": 1e3 / (t_band + t_blocks),
-            "schur_full_flop": f_solve,
-            "schur_full_flop_per_s": f_solve / (t_full * 1e-3),
-            "matmul_ceiling_flop_per_s": ceiling,
-            "schur_pct_of_ceiling": 100.0 * f_solve / (t_full * 1e-3) / ceiling,
-            "lm": lm, "ba_iters_per_s": lm["iters"] / t_lm,
-            "ba_trials_per_s": lm["trials"] / t_lm,
-            "err_before": err0, "err_after": err1, "warm_ok": ok_w,
-            "profile_one_iter": {"trials": trials_one,
-                                 "wall_us": 1e6 * wall_one,
-                                 "device_busy_us": busy,
-                                 "device_launches": nlaunch,
-                                 "top_kernels_us_count": top},
-            "finite": finite}
-
-
 def mvf_state(m) -> dict:
     """A factorizer's poses and map as float64 host arrays."""
     return {"R": np.stack(m.cam_cfw_R).astype(np.float64),
@@ -1559,6 +1343,269 @@ def two_view_quality(inp: dict, host: dict) -> dict:
                for k in ("K_zhang", "K_rotation")}}
 
 
+def batch_downdate_case(B, D, m, device, dtype):
+    """B random problems of downdate_case's kind: symmetric PSD P [B,D,D],
+    M [B,m,D] and a 0/1 keep [B,D] of ~5% zeros."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(B * 1000 + D * 7 + m)
+    A = torch.randn(B, D, D, generator=g, device=device, dtype=dtype)
+    P = A @ A.mT / D
+    P = torch.tril(P) + torch.tril(P, -1).mT
+    M = 0.05 * torch.randn(B, m, D, generator=g, device=device, dtype=dtype)
+    keep = (torch.rand(B, D, generator=g, device=device, dtype=dtype)
+            > 0.05).to(dtype)
+    return P, M, keep
+
+
+def compare_downdate_batched(cov, P, M, keep):
+    """The batched kernel at P [B,D,D], M [B,m,D], keep [B,D] against the
+    plain version (each slice held as in compare_downdate, or in float64 as
+    in compare_downdate_f64) and against B unbatched kernel calls. Returns
+    (max |diff| or max relative Frobenius difference, checks)."""
+    import torch
+    got = cov.symmetric_downdate(P, M, keep)
+    again = cov.symmetric_downdate(P, M, keep)
+    vmapped = torch.func.vmap(cov.symmetric_downdate)(P, M, keep)
+    shared = torch.func.vmap(cov.symmetric_downdate, in_dims=(None, 0, None))(
+        P[0], M, keep[0])
+    want = cov.symmetric_downdate_ref(P, M, keep)
+    ones = [cov.symmetric_downdate(P[b], M[b], keep[b]) for b in range(len(P))]
+    shared_ones = [cov.symmetric_downdate(P[0], M[b], keep[0])
+                   for b in range(len(P))]
+    if P.dtype == torch.float64:
+        err = max(float(torch.linalg.norm(got[b] - want[b])
+                        / torch.linalg.norm(want[b])) for b in range(len(P)))
+        within = err <= F64_REL_FRO
+    else:
+        Mk = (M * keep[:, None, :]).abs()
+        bound = 1e-5 * (P.abs() * (keep[:, :, None] * keep[:, None, :])
+                        + Mk.mT @ Mk) + 1e-30
+        diff = (got - want).abs()
+        err, within = float(diff.max()), bool((diff <= bound).all())
+    checks = {"within_tolerance_of_plain": within,
+              "finite": bool(torch.isfinite(got).all()),
+              "bitwise_symmetric": torch.equal(got, got.mT),
+              "repeats_bitwise": torch.equal(got, again),
+              "slices_equal_unbatched_calls": all(
+                  torch.equal(got[b], o) for b, o in enumerate(ones)),
+              "vmap_equals_batched_call": torch.equal(vmapped, got),
+              "shared_P_keep_equal_unbatched_calls": all(
+                  torch.equal(shared[b], o) for b, o in enumerate(shared_ones))}
+    return err, checks
+
+
+def batch_downdate_phase(cov, device, fma_per_s, f64_fma_per_s) -> dict:
+    """Kernel B2's batched entry points: every BATCH_DOWNDATE_SHAPES case
+    in both types checked (compare_downdate_batched), and at the first
+    shape the batched call, its B unbatched calls and a batched masked
+    baddbmm (the one-call yardstick) timed by CUDA events, graph replay and
+    device time, beside the bound."""
+    import torch
+    out = {"cases": [], "timed": {}}
+    for dtype in (torch.float32, torch.float64):
+        for B, D, m in BATCH_DOWNDATE_SHAPES:
+            P, M, keep = batch_downdate_case(B, D, m, device, dtype)
+            err, checks = compare_downdate_batched(cov, P, M, keep)
+            case = {"dtype": str(dtype).replace("torch.", ""), "B": B, "D": D,
+                    "m": m, "err": err, "checks": checks}
+            out["cases"].append(case)
+            if not all(checks.values()):
+                raise AssertionError(f"batched downdate: {case}")
+            if (B, D, m) != BATCH_DOWNDATE_SHAPES[0]:
+                continue
+            Mk = M * keep[:, None, :]
+            fns = {"batched": lambda: cov.symmetric_downdate(P, M, keep),
+                   "unbatched_calls": lambda: [
+                       cov.symmetric_downdate(P[b], M[b], keep[b])
+                       for b in range(B)],
+                   "baddbmm": lambda: torch.baddbmm(
+                       P * (keep[:, :, None] * keep[:, None, :]), Mk.mT, Mk,
+                       alpha=-1),
+                   "plain": lambda: cov.symmetric_downdate_ref(P, M, keep)}
+            tm = {k: [] for k in fns}
+            for name in ("plain", "batched", "unbatched_calls", "baddbmm",
+                         "baddbmm", "unbatched_calls", "batched", "plain"):
+                tm[name].append(cuda_ms(fns[name], 100))
+            f64 = dtype == torch.float64
+            fma, nbytes = downdate_work(D, m, True)
+            b_ms, b_by = bound_ms(B * fma, B * nbytes * (2 if f64 else 1),
+                                  f64_fma_per_s if f64 else fma_per_s)
+            graph = {k: cuda_graph_ms(fns[k], 20) for k in fns}
+            dev_us = {k: device_us_per_call(fns[k]) for k in fns}
+            out["timed"][case["dtype"]] = {
+                "B": B, "D": D, "m": m, "ms": tm, "graph_ms": graph,
+                "device_us": dev_us, "fma": B * fma,
+                "bytes": B * nbytes * (2 if f64 else 1), "bound_ms": b_ms,
+                "bound_by": b_by,
+                "pct_of_bound_device": 100.0 * b_ms / (1e-3 * dev_us["batched"]),
+                "batched_vs_unbatched_device": dev_us["unbatched_calls"]
+                / dev_us["batched"]}
+    return out
+
+
+def batch_scan_noise(device, dtype, ate_noise):
+    """[BATCH_SCAN_B, 300, K, 2] standard-normal detection noise: instance
+    0 takes scenario03's own (``ate_noise``), the others default_rng(
+    BATCH_SEED)'s."""
+    import torch
+    rng = np.random.default_rng(BATCH_SEED)
+    rest = rng.standard_normal((BATCH_SCAN_B - 1, *ate_noise.shape))
+    return torch.cat([ate_noise[None].to(dtype),
+                      torch.as_tensor(rest, dtype=dtype, device=device)])
+
+
+def batch_scan_phase(ncc, cov, device) -> dict:
+    """The scan runner over noise seeds (scenario03's world, impl 1):
+    BATCH_SCAN_B instances in float32 over frames 1-300 as one batch, the
+    same instances one after another over frames 1-30, one profiled frame
+    of each kind, the per-instance health and ATE, and float64 at
+    BATCH_F64 instances on the card against the CPU."""
+    import torch
+    from surikatoko_tpu_torch.geom.align import aligned_rmse
+    from surikatoko_tpu_torch.world.device_runner import (
+        make_batched_scan_runner, make_scan_runner)
+    params, sc, state, ate_noise, _ = scenario03_setup(device, torch.float32)
+    noise = batch_scan_noise(device, torch.float32, ate_noise)
+    B, T = BATCH_SCAN_B, len(BATCH_SCAN_FRAMES)
+    run_b = make_batched_scan_runner(params, 1)
+    run_1 = make_scan_runner(params, 1)
+    run_b(state, sc, range(1, 4), noise[:, :3])        # warm-up
+    torch.cuda.synchronize()
+    ncc.LAUNCHES = cov.LAUNCHES = 0
+    t0 = time.perf_counter()
+    st_b, errs_b, n_b, pos_b, info_b = run_b(state, sc, BATCH_SCAN_FRAMES, noise)
+    torch.cuda.synchronize()
+    t_batched = time.perf_counter() - t0
+    launches = {"ncc_search": ncc.LAUNCHES, "symmetric_downdate": cov.LAUNCHES}
+    n_seq = len(BATCH_SEQ_FRAMES)
+    run_1(state, sc, range(1, 4), noise[0, :3])          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = [run_1(state, sc, BATCH_SEQ_FRAMES, noise[b, :n_seq]) for b in range(B)]
+    torch.cuda.synchronize()
+    t_seq = time.perf_counter() - t0
+    frame = BATCH_SCAN_FRAMES[-1] + 1
+    busy_b, nl_b, top_b, by_b = profiled(
+        lambda: run_b(st_b, sc, [frame], noise[:, :1]))
+    busy_1, nl_1, _, by_1 = profiled(
+        lambda: run_1(seq[0][0], sc, [n_seq + 1], noise[0, :1]))
+    wall_b, wall_1 = 1e6 * t_batched / T, 1e6 * t_seq / (B * n_seq)
+    frame_without_host_sync(run_b, st_b, sc, [frame], noise[:, :1])
+    gt = gt_positions(sc, BATCH_SCAN_FRAMES).double()
+    gt_seq = gt[:n_seq]
+    ate_b = [float(aligned_rmse(pos_b[b].double(), gt)) for b in range(B)]
+    ate_b30 = [float(aligned_rmse(pos_b[b, :n_seq].double(), gt_seq))
+               for b in range(B)]
+    ate_s30 = [float(aligned_rmse(o[3].double(), gt_seq)) for o in seq]
+    # float64: BATCH_F64 instances on the card against their unbatched runs
+    # on the CPU
+    p64, sc64, st64, ate64, _ = scenario03_setup(device, torch.float64)
+    out64 = make_batched_scan_runner(p64, 1)(
+        st64, sc64, BATCH_SEQ_FRAMES,
+        batch_scan_noise(device, torch.float64, ate64)[:BATCH_F64, :n_seq])
+    f64_sym = torch.equal(out64[0].P, out64[0].P.mT)
+    cpu = torch.device("cpu")
+    p64, sc64, st64, ate64, _ = scenario03_setup(cpu, torch.float64)
+    nz = batch_scan_noise(cpu, torch.float64, ate64)[:BATCH_F64, :n_seq]
+    run64 = make_scan_runner(p64, 1)
+    pos64 = {"card": out64[3].cpu(),
+             "cpu": torch.stack([run64(st64, sc64, BATCH_SEQ_FRAMES, nz[b])[3]
+                                 for b in range(BATCH_F64)])}
+    diff64 = float((pos64["card"] - pos64["cpu"]).abs().max())
+    out = {
+        "B": B, "K": SC03_K, "D": int(state.x.shape[0]), "update_impl": 1,
+        "frames": T, "batched_s": t_batched,
+        "instance_frames_per_s_batched": B * T / t_batched,
+        "sequential_frames": n_seq, "sequential_s": t_seq,
+        "instance_frames_per_s_sequential": B * n_seq / t_seq,
+        "speedup": (B * T / t_batched) / (B * n_seq / t_seq),
+        "launches": launches,
+        "profile_frame": {
+            "batched": {"device_busy_us": busy_b, "device_launches": nl_b,
+                        "wall_us": wall_b, "busy_share": busy_b / wall_b,
+                        "symmetric_downdate_us_launches": kernel_share(
+                            by_b, DOWNDATE_DEVICE_KERNELS),
+                        "top_kernels_us_count": top_b},
+            "unbatched": {"device_busy_us": busy_1, "device_launches": nl_1,
+                          "wall_us": wall_1, "busy_share": busy_1 / wall_1,
+                          "symmetric_downdate_us_launches": kernel_share(
+                              by_1, DOWNDATE_DEVICE_KERNELS)}},
+        "ate_median": float(np.median(ate_b)), "ate_max": float(np.max(ate_b)),
+        "ate_instance0": ate_b[0],
+        "ate30_batched_vs_unbatched_max_abs_diff": float(np.max(np.abs(
+            np.array(ate_b30) - np.array(ate_s30)))),
+        "cam_pos30_batched_vs_unbatched_max_abs_diff": max(
+            float((pos_b[b, :n_seq] - o[3]).abs().max()) for b, o in enumerate(seq)),
+        "f64": {"B": BATCH_F64, "frames": n_seq,
+                "cam_pos_card_vs_cpu_max_abs_diff": diff64,
+                "tol": F64_CAM_TOL}}
+    out["checks"] = {
+        "finite": bool(torch.isfinite(st_b.x).all() and torch.isfinite(st_b.P).all()
+                       and torch.isfinite(errs_b).all()),
+        "P_exactly_symmetric": torch.equal(st_b.P, st_b.P.mT),
+        "chol_info_zero_every_frame": int(torch.count_nonzero(info_b)) == 0,
+        "one_downdate_launch_a_frame": launches == {"ncc_search": 0,
+                                                    "symmetric_downdate": T},
+        "ate30_within": out["ate30_batched_vs_unbatched_max_abs_diff"]
+        <= BATCH_F32_ATE_TOL,
+        "f64_card_vs_cpu_within": diff64 <= F64_CAM_TOL and f64_sym,
+        "instances_differ": float(pos_b[:, -1].std(dim=0).max()) > 0,
+        # frame_without_host_sync above raised on any sync
+        "batched_frame_free_of_host_syncs": True}
+    return out
+
+
+def batch_ba_phase(device) -> dict:
+    """Batch BA (demos.batch_ba's problems and flow) at BATCH_BA_SIZES in
+    float64 and float32: problems/s batched, and for the first BATCH_BA_SEQ
+    problems one after another (BundleAdjustment(device_loop=True), the
+    same program for one problem); converged counts; in float64 each of
+    those problems' stop code, iterations and trials against its own run;
+    one profiled LM iteration of the batch."""
+    import torch
+    from surikatoko_tpu_torch.demos import batch_ba
+    from surikatoko_tpu_torch.models.ba import (TermCriteria,
+                                                bundle_adjust_batched)
+    from surikatoko_tpu_torch.interop import stack
+    out = {}
+    for f32 in (False, True):
+        name = "float32" if f32 else "float64"
+        res = {}
+        for B in BATCH_BA_SIZES:
+            r = batch_ba.run(batch_ba.make_args(
+                batch=B, f32=f32, device=device,
+                compare_sequential=B == BATCH_BA_SEQ), log=lambda *_: None)
+            r["path"] = [list(x) for x in zip(r.pop("codes"), r.pop("iters"),
+                                              r.pop("trials"))]
+            if "sequential_path" in r:
+                res["sequential_path"] = r.pop("sequential_path")
+            res[B] = r
+        # each problem's decisions in every batch against its own run
+        res["same_decisions_as_alone"] = {
+            B: res[B]["path"][:BATCH_BA_SEQ] == res["sequential_path"]
+            for B in BATCH_BA_SIZES}
+        out[name] = res
+    # one LM iteration of the largest batch under the profiler, beside the
+    # same call's wall time
+    args = batch_ba.make_args(batch=BATCH_BA_SIZES[-1], f32=True, device=device)
+    batch = stack(batch_ba.problems(args))
+    one = TermCriteria(allowed_reproj_err_rel_change=args.allowed_repr_err,
+                       max_iters=1)
+    bundle_adjust_batched(batch, one)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trials = bundle_adjust_batched(batch, one)[4]
+    torch.cuda.synchronize()
+    wall = 1e6 * (time.perf_counter() - t0)
+    busy, nl, top, _ = profiled(lambda: bundle_adjust_batched(batch, one))
+    out["profile_iteration"] = {
+        "B": BATCH_BA_SIZES[-1], "dtype": "float32",
+        "trial_rounds": int(trials.max()), "wall_us": wall,
+        "device_busy_us": busy, "device_launches": nl,
+        "busy_share": busy / wall, "top_kernels_us_count": top}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1738,6 +1785,10 @@ def main() -> int:
                                      "ms_with_keep": dd64_times,
                                      "rel_fro_bound": F64_REL_FRO}})
     del st0, tm0
+    # kernel B2's batched entry points (checked and timed here, where the
+    # profiler is fresh: late in the run its device events went missing;
+    # reported in the batch_eval phase)
+    bdd = batch_downdate_phase(covariance, device, fma_per_s, f64_fma_per_s)
 
     # ---- flagship slice: the main path ----
     ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
@@ -2287,6 +2338,30 @@ def main() -> int:
     if bad:
         raise AssertionError(f"two_view: {bad}")
 
+    # ---- batched evaluation: B2's batch axis, the scan runner over noise
+    # seeds, batch BA ----
+    t0 = time.perf_counter()
+    bscan = batch_scan_phase(ncc_cuda, covariance, device)
+    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    bba = batch_ba_phase(device)
+    bba_launches = {"ncc_search": ncc_cuda.LAUNCHES,
+                    "symmetric_downdate": covariance.LAUNCHES}
+    batch_checks = {
+        **{f"scan_{k}": v for k, v in bscan["checks"].items()},
+        **{f"ba_f64_same_decisions_as_alone_B{B}": v for B, v in
+           bba["float64"]["same_decisions_as_alone"].items()},
+        "ba_finite": all(bba[t][B]["finite"] for t in ("float64", "float32")
+                         for B in BATCH_BA_SIZES),
+        "ba_no_kernel_launch": not any(bba_launches.values())}
+    emit({"phase": "batch_eval", "phase_s": time.perf_counter() - t0,
+          "downdate": bdd, "scan": bscan, "ba": bba,
+          "ba_launches": bba_launches, "checks": batch_checks})
+    bad = [k for k, v in batch_checks.items() if not v]
+    if bad:
+        raise AssertionError(f"batch_eval: {bad}")
+    bdd_main = bdd["timed"]["float32"]
+    bdd64_main = bdd["timed"]["float64"]
+
     dd_main = dd_times["4621x1536"]
     dd64_main = dd64_times["4621x1536"]
     dd_ms = float(np.mean(dd_main["kernel"]))
@@ -2303,7 +2378,9 @@ def main() -> int:
             "mvf_demo": mvf_demo_launches["ncc_search"],
             "mvf_at_scale": mvf_scale_launches["ncc_search"],
             "mvf_at_scale_oracle_free": mvf_free_launches["ncc_search"],
-            "two_view": two_view_launches["ncc_search"]},
+            "two_view": two_view_launches["ncc_search"],
+            "batch_eval_scan": bscan["launches"]["ncc_search"],
+            "batch_eval_ba": bba_launches["ncc_search"]},
         "imageseq_shapes": {k: {n: v[n] for n in (
             "kernel_ms", "plain_ms", "graph_ms", "kernel_device_us", "bound_ms",
             "bound_by", "pct_of_bound")} for k, v in ncc_imseq.items()},
@@ -2327,7 +2404,9 @@ def main() -> int:
             "mvf_at_scale": mvf_scale_launches["symmetric_downdate"],
             "mvf_at_scale_oracle_free":
                 mvf_free_launches["symmetric_downdate"],
-            "two_view": two_view_launches["symmetric_downdate"]},
+            "two_view": two_view_launches["symmetric_downdate"],
+            "batch_eval_scan": bscan["launches"]["symmetric_downdate"],
+            "batch_eval_ba": bba_launches["symmetric_downdate"]},
         "ms": dd_ms, "plain_ms": float(np.mean(dd_main["plain"])),
         "graph_ms": dd_main["graph_ms"]["kernel"],
         "device_us": dd_main["kernel_device_us"],
@@ -2347,7 +2426,28 @@ def main() -> int:
         "f64_faster_than_library": bool(
             max(dd64_main["kernel"]) < min(dd64_main["addmm"])
             and dd64_main["graph_ms"]["kernel"] < dd64_main["graph_ms"]["addmm"]),
-        "f64_max_rel_fro": max(c["rel_fro"] for c in dd64_cases)}]})
+        "f64_max_rel_fro": max(c["rel_fro"] for c in dd64_cases),
+        "batched": {
+            "entry_points": ["symmetric_downdate_f32_batched",
+                             "symmetric_downdate_f64_batched"],
+            "launches": bscan["launches"]["symmetric_downdate"],
+            "max_err": {t: max(c["err"] for c in bdd["cases"]
+                               if c["dtype"] == t)
+                        for t in ("float32", "float64")},
+            **{t: {"B": v["B"], "D": v["D"], "m": v["m"],
+                   "ms": float(np.mean(v["ms"]["batched"])),
+                   "graph_ms": v["graph_ms"]["batched"],
+                   "device_us": v["device_us"]["batched"],
+                   "unbatched_calls_ms": float(np.mean(
+                       v["ms"]["unbatched_calls"])),
+                   "unbatched_calls_device_us": v["device_us"][
+                       "unbatched_calls"],
+                   "plain_ms": float(np.mean(v["ms"]["plain"])),
+                   "library_ms": float(np.mean(v["ms"]["baddbmm"])),
+                   "library_device_us": v["device_us"]["baddbmm"],
+                   "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+                   "pct_of_bound_device": v["pct_of_bound_device"]}
+               for t, v in (("float32", bdd_main), ("float64", bdd64_main))}}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,11 @@
 // * the keep mask k (0/1 entries: the fused step's) is applied in the
 //   epilogue, not on M: for k in {0, 1}, k_i k_j (P_ij - sum_a M_ai M_aj)
 //   equals P_ij k_i k_j - sum_a (M_ai k_i)(M_aj k_j) exactly.
+// * a batch of B problems of one shape is one launch: blockIdx.y picks the
+//   problem, each block computes exactly what it would alone (the same
+//   tile, loads, summation order and epilogue), so every problem's output
+//   equals its unbatched call's bit for bit. torch.func.vmap of the port's
+//   filter step reaches the batched entry points (ops/covariance.py).
 // The kernel allocates nothing and never synchronises; the entry points
 // return a cudaError_t (0 = launched).
 //
@@ -150,10 +155,13 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Mp [m, Dp] = M [m, D] with zero columns D .. Dp-1; one block per row.
+// Mp [m, Dp] = M [m, D] with zero columns D .. Dp-1; one block per row,
+// blockIdx.y the problem of a batch (M and Mp offset by sM and sMp floats).
 __global__ void pad_rows(const float* __restrict__ M, float* __restrict__ Mp,
-                         int D, int Dp) {
+                         int D, int Dp, long long sM, long long sMp) {
   const size_t k = blockIdx.x;
+  M += blockIdx.y * sM;
+  Mp += blockIdx.y * sMp;
   for (int c = threadIdx.x; c < Dp; c += blockDim.x)
     Mp[k * Dp + c] = c < D ? M[k * D + c] : 0.f;
 }
@@ -211,14 +219,28 @@ __device__ __forceinline__ void write_tile(T* tile, const T* __restrict__ P,
   }
 }
 
-template <int TILE, bool HAS_KEEP>
+// blockIdx.x: the output tile. BATCHED: blockIdx.y is the problem of a
+// batch, whose P, M (rows ld floats apart) and keep start sP, sM and sK
+// floats on (0 for one shared by every problem) and whose output starts
+// b D^2 floats on; a single problem takes the kernel without that
+// addressing (on an H100 it cost the flagship shape's call 4% of its
+// device time)
+template <int TILE, bool HAS_KEEP, bool BATCHED>
 __global__ void __launch_bounds__(Cfg<TILE>::THREADS, Cfg<TILE>::MIN_BLOCKS)
 downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
                 const float* __restrict__ keep, float* __restrict__ out,
-                int D, int ld, int m) {
+                int D, int ld, int m, long long sP, long long sM,
+                long long sK) {
   using C = Cfg<TILE>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
+  if constexpr (BATCHED) {
+    const long long b = blockIdx.y;
+    P += b * sP;
+    Ms += b * sM;
+    if (HAS_KEEP) keep += b * sK;
+    out += b * (long long)D * D;
+  }
 
   long long bi, bj;
   tile_of_block(blockIdx.x, bi, bj);
@@ -349,15 +371,23 @@ __device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[8],
 
 // A = M's column strip i0.., B = its strip j0..; C = A^T B accumulates in
 // registers
-template <bool HAS_KEEP>
+// the batch axis (BATCHED) as in downdate_kernel
+template <bool HAS_KEEP, bool BATCHED>
 __global__ void __launch_bounds__(Cfg64::THREADS, Cfg64::MIN_BLOCKS)
 downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ M,
                      const double* __restrict__ keep, double* __restrict__ out,
-                     int D, int m) {
+                     int D, int m, long long sP, long long sM, long long sK) {
   using C = Cfg64;
   constexpr int TILE = C::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* smem = reinterpret_cast<double*>(smem_raw);
+  if constexpr (BATCHED) {
+    const long long b = blockIdx.y;
+    P += b * sP;
+    M += b * sM;
+    if (HAS_KEEP) keep += b * sK;
+    out += b * (long long)D * D;
+  }
 
   long long bi, bj;
   tile_of_block(blockIdx.x, bi, bj);
@@ -466,76 +496,151 @@ cudaError_t set_smem(Kernel kernel, int smem, unsigned long long& ready) {
   return err;
 }
 
-template <int TILE, bool HAS_KEEP>
+template <int TILE, bool HAS_KEEP, bool BATCHED>
 cudaError_t prepare() {
   static unsigned long long ready = 0;
-  return set_smem(downdate_kernel<TILE, HAS_KEEP>, Cfg<TILE>::SMEM, ready);
+  return set_smem(downdate_kernel<TILE, HAS_KEEP, BATCHED>, Cfg<TILE>::SMEM,
+                  ready);
 }
 
-template <bool HAS_KEEP>
+template <bool HAS_KEEP, bool BATCHED>
 cudaError_t prepare_dmma() {
   static unsigned long long ready = 0;
-  return set_smem(downdate_kernel_dmma<HAS_KEEP>, Cfg64::SMEM, ready);
+  return set_smem(downdate_kernel_dmma<HAS_KEEP, BATCHED>, Cfg64::SMEM, ready);
+}
+
+// the kernel of a launch: with or without the keep mask, and with the
+// batch addressing when there is more than one problem
+template <int TILE>
+decltype(&downdate_kernel<TILE, false, false>) pick(bool has_keep,
+                                                    bool batched,
+                                                    cudaError_t& err) {
+  if (has_keep) {
+    if (batched) {
+      err = prepare<TILE, true, true>();
+      return downdate_kernel<TILE, true, true>;
+    }
+    err = prepare<TILE, true, false>();
+    return downdate_kernel<TILE, true, false>;
+  }
+  if (batched) {
+    err = prepare<TILE, false, true>();
+    return downdate_kernel<TILE, false, true>;
+  }
+  err = prepare<TILE, false, false>();
+  return downdate_kernel<TILE, false, false>;
+}
+
+decltype(&downdate_kernel_dmma<false, false>) pick_dmma(bool has_keep,
+                                                        bool batched,
+                                                        cudaError_t& err) {
+  if (has_keep) {
+    if (batched) {
+      err = prepare_dmma<true, true>();
+      return downdate_kernel_dmma<true, true>;
+    }
+    err = prepare_dmma<true, false>();
+    return downdate_kernel_dmma<true, false>;
+  }
+  if (batched) {
+    err = prepare_dmma<false, true>();
+    return downdate_kernel_dmma<false, true>;
+  }
+  err = prepare_dmma<false, false>();
+  return downdate_kernel_dmma<false, false>;
+}
+
+// B problems (1 <= B <= 65535, the grid's y extent); a problem's P, M and
+// keep start sP, sM and sK values after the previous one's (0: shared)
+bool bad_batch(int B, long long sP, long long sM, long long sK) {
+  return B < 1 || B > 65535 || sP < 0 || sM < 0 || sK < 0;
 }
 
 template <int TILE>
 int launch(const float* P, const float* M, const float* keep, float* Mp,
-           float* out, int D, int m, cudaStream_t stream) {
+           float* out, int B, int D, int m, long long sP, long long sM,
+           long long sK, cudaStream_t stream) {
   using C = Cfg<TILE>;
   if (C::PADDED && Mp == nullptr) return (int)cudaErrorInvalidValue;
-  const bool has_keep = keep != nullptr;
-  cudaError_t err = has_keep ? prepare<TILE, true>() : prepare<TILE, false>();
+  if (bad_batch(B, sP, sM, sK)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  auto kernel = pick<TILE>(keep != nullptr, B > 1, err);
   if (err != cudaSuccess) return (int)err;
   int ld = D;
   if (C::PADDED) {
+    // a shared M is padded once
     ld = (D + 3) / 4 * 4;
-    pad_rows<<<m, 256, 0, stream>>>(M, Mp, D, ld);
+    const long long sMp = sM == 0 ? 0 : (long long)m * ld;
+    pad_rows<<<dim3(m, sM == 0 ? 1 : B), 256, 0, stream>>>(M, Mp, D, ld, sM,
+                                                           sMp);
     M = Mp;
+    sM = sMp;
   }
   const unsigned int nt = (D + TILE - 1) / TILE;
-  auto kernel = has_keep ? downdate_kernel<TILE, true>
-                         : downdate_kernel<TILE, false>;
-  kernel<<<nt * (nt + 1) / 2, C::THREADS, C::SMEM, stream>>>(P, M, keep, out,
-                                                            D, ld, m);
+  kernel<<<dim3(nt * (nt + 1) / 2, B), C::THREADS, C::SMEM, stream>>>(
+      P, M, keep, out, D, ld, m, sP, sM, sK);
   return (int)cudaGetLastError();
 }
 
 int launch_dmma(const double* P, const double* M, const double* keep,
-                double* out, int D, int m, cudaStream_t stream) {
+                double* out, int B, int D, int m, long long sP, long long sM,
+                long long sK, cudaStream_t stream) {
   using C = Cfg64;
-  const bool has_keep = keep != nullptr;
-  cudaError_t err = has_keep ? prepare_dmma<true>() : prepare_dmma<false>();
+  if (bad_batch(B, sP, sM, sK)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  auto kernel = pick_dmma(keep != nullptr, B > 1, err);
   if (err != cudaSuccess) return (int)err;
   const unsigned int nt = (D + C::TILE - 1) / C::TILE;
-  auto kernel = has_keep ? downdate_kernel_dmma<true> : downdate_kernel_dmma<false>;
-  kernel<<<nt * (nt + 1) / 2, C::THREADS, C::SMEM, stream>>>(P, M, keep, out,
-                                                            D, m);
+  kernel<<<dim3(nt * (nt + 1) / 2, B), C::THREADS, C::SMEM, stream>>>(
+      P, M, keep, out, D, m, sP, sM, sK);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// out = k k^T o (P - M^T M) for P [D,D] (lower triangle read), M [m,D] and
-// keep [D] (0/1, or NULL for all ones), all f32 row-major on the device;
-// Mp is scratch of m x Dp floats (Dp = D rounded up to 4) for TILE = 128
-// (else unused, may be NULL). TILE x TILE output tiles (32 or 128), one
-// thread block per lower-triangle tile. Launches on `stream`; returns a
-// cudaError_t (0 = launched).
-extern "C" int symmetric_downdate_f32(const float* P, const float* M,
-                                      const float* keep, float* Mp, float* out,
-                                      int D, int m, int tile,
-                                      cudaStream_t stream) {
+// out[b] = k_b k_b^T o (P_b - M_b^T M_b) for B problems: P_b [D,D] (lower
+// triangle read) at P + b sP, M_b [m,D] at M + b sM and keep_b [D] (0/1, or
+// NULL for all ones) at keep + b sK (a stride of 0 shares one tensor between
+// the problems), out [B,D,D]; all f32 row-major on the device. Mp is scratch
+// of Bp x m x Dp floats (Dp = D rounded up to 4; Bp = 1 if sM = 0, else B)
+// for TILE = 128 (else unused, may be NULL). TILE x TILE output tiles (32 or
+// 128), one thread block per lower-triangle tile and problem; each problem's
+// output is bit for bit that of its own unbatched call. Launches on
+// `stream`; returns a cudaError_t (0 = launched).
+extern "C" int symmetric_downdate_f32_batched(
+    const float* P, const float* M, const float* keep, float* Mp, float* out,
+    int B, int D, int m, int tile, long long sP, long long sM, long long sK,
+    cudaStream_t stream) {
   switch (tile) {
-    case 32: return launch<32>(P, M, keep, Mp, out, D, m, stream);
-    case 128: return launch<128>(P, M, keep, Mp, out, D, m, stream);
+    case 32:
+      return launch<32>(P, M, keep, Mp, out, B, D, m, sP, sM, sK, stream);
+    case 128:
+      return launch<128>(P, M, keep, Mp, out, B, D, m, sP, sM, sK, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// One problem: P [D,D], M [m,D], keep [D] or NULL, out [D,D]; Mp m x Dp.
+extern "C" int symmetric_downdate_f32(const float* P, const float* M,
+                                      const float* keep, float* Mp, float* out,
+                                      int D, int m, int tile,
+                                      cudaStream_t stream) {
+  return symmetric_downdate_f32_batched(P, M, keep, Mp, out, 1, D, m, tile, 0,
+                                        0, 0, stream);
+}
+
 // The same for float64 P, M, keep and out, with no scratch: the DMMA
 // kernel's 64 x 64 tiles at every D.
+extern "C" int symmetric_downdate_f64_batched(
+    const double* P, const double* M, const double* keep, double* out, int B,
+    int D, int m, long long sP, long long sM, long long sK,
+    cudaStream_t stream) {
+  return launch_dmma(P, M, keep, out, B, D, m, sP, sM, sK, stream);
+}
+
+// One float64 problem.
 extern "C" int symmetric_downdate_f64(const double* P, const double* M,
                                       const double* keep, double* out, int D,
                                       int m, cudaStream_t stream) {
-  return launch_dmma(P, M, keep, out, D, m, stream);
+  return launch_dmma(P, M, keep, out, 1, D, m, 0, 0, 0, stream);
 }

@@ -2,7 +2,9 @@
 
 The tests fill both packages from the same numbers: they convert a JAX
 object's leaves with ``np.asarray`` and hand it here. Matching is by field
-name, so this module imports nothing of JAX or ``surikatoko_tpu``. Each
+name, so this module imports nothing of JAX or ``surikatoko_tpu``. The
+carriers keep whatever leading batch axis the arrays have; :func:`stack`
+makes a batch of the port's objects. Each
 carrier puts its tensors on the card unless ``device`` says otherwise, and
 keeps the arrays' dtypes (float64 from JAX's x64 mode).
 """
@@ -23,6 +25,14 @@ from surikatoko_tpu_torch.world.device_runner import (
     DeviceScenario,
     ImageSeqDeviceScenario,
 )
+
+
+def stack(objs):
+    """Objects of one NamedTuple type (problems, states, scenarios) as one
+    whose every tensor field has a leading batch axis, the form that the
+    batched entry points take (``run_lm_on_device_batched``,
+    ``bundle_adjust_batched``, ``make_batched_scan_runner``'s state)."""
+    return type(objs[0])(*(torch.stack(fs) for fs in zip(*objs)))
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:

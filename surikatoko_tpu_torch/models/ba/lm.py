@@ -165,6 +165,51 @@ class BundleAdjustment:
         return loop(self, p, term_crit, *self._fns())
 
 
+def bundle_adjust_batched(p: BAProblem, term_crit: TermCriteria | None = None,
+                          *, unity_comp_ind: int = 1, t1y: float = 1.0,
+                          optimize_intrinsics: bool = True, atol: float = 1e-5):
+    """B dense problems at once (every field of ``p`` with a leading batch
+    axis, as ``interop.stack`` makes them) through the program of
+    ``BundleAdjustment(device_loop=True).compute_inplace``: the gauge
+    check, normalize, the device-loop LM
+    (:func:`lm_device.run_lm_on_device_batched`, one packed fetch a trial
+    for all B) and the revert, each mapped over the batch with
+    ``torch.func.vmap``. A problem with a degenerate gauge (zero cam0-cam1
+    shift) comes back untouched with STOP_CANNOT_NORMALIZE; the others
+    take the path they take alone. The gauge's unity component is the
+    Python int ``unity_comp_ind``, outside the vmap. Returns (problems,
+    stop codes [B], iterations [B], final errors [B], trials [B]), the
+    errors those of the normalized problems, as the single-problem loop
+    reports them."""
+    term_crit = term_crit or TermCriteria()
+    vmap = torch.func.vmap
+    ba = BundleAdjustment(unity_comp_ind=unity_comp_ind, t1y=t1y,
+                          optimize_intrinsics=optimize_intrinsics)
+    valid = vmap(lambda q: torch.abs(
+        normalize._t01(q.cfw_R, q.cfw_t)[unity_comp_ind]) > atol)(p)
+
+    def norm(q):
+        q_n, ns = normalize.normalize_scene(q, t1y=t1y,
+                                            unity_comp_ind=unity_comp_ind,
+                                            min_shift=atol)
+        return q_n, ns.R0, ns.T0, ns.world_scale
+
+    def revert(q, R0, T0, scale):
+        return normalize.revert_normalization(
+            q, normalize.NormState(R0, T0, scale, unity_comp_ind))
+
+    p_n, R0, T0, scale = vmap(norm)(p)
+    blocks_fn, solve_fn, apply_fn, err_fn = ba._fns()
+    p_out, code, iters, err, trials = lm_device.run_lm_on_device_batched(
+        p_n, blocks_fn=blocks_fn, solve_fn=solve_fn, apply_fn=apply_fn,
+        err_fn=err_fn, err_thresh=term_crit.allowed_reproj_err_rel_change,
+        max_factor=term_crit.max_hessian_factor,
+        max_iters=term_crit.max_iters, valid=valid)
+    p_out = lm_device.select(
+        valid, vmap(revert)(p_out, R0, T0, scale), p)
+    return p_out, code, iters, err, trials
+
+
 @dataclass
 class SparseBundleAdjustment:
     """LM over the padded-track sparse problem (models/ba/sparse.py)

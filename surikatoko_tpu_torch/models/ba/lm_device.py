@@ -58,7 +58,8 @@ _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 def _fetch(a: torch.Tensor, b: torch.Tensor, np_dtype):
-    """Two device scalars in one device->host copy, as np_dtype scalars."""
+    """Two device scalars (or two [B] vectors) in one device->host copy, as
+    np_dtype values."""
     v = torch.stack([a.to(b.dtype), b]).cpu().numpy()
     return np_dtype(v[0]), np_dtype(v[1])
 
@@ -136,3 +137,117 @@ def run_lm_on_device(
         elif iters >= max_iters:
             code = STOP_MAX_ITERS
     return p, code, iters, float(err), trials
+
+
+def select(take: torch.Tensor, a: Any, b: Any) -> Any:
+    """Field by field: problem i of ``a`` where ``take[i]``, else of ``b``
+    (both problems with a leading batch axis)."""
+    def pick(x, y):
+        return torch.where(take.view(-1, *([1] * (x.dim() - 1))), x, y)
+    return type(a)(*(pick(x, y) for x, y in zip(a, b)))
+
+
+# a failed trial's error may be inf or nan: ``ok`` masks it out of every
+# decision, so numpy's warnings about it say nothing
+@np.errstate(invalid="ignore", over="ignore")
+def run_lm_on_device_batched(
+    p0: Any,
+    *,
+    blocks_fn: Callable[[Any], Any],
+    solve_fn: Callable[[Any, Any, torch.Tensor], tuple],
+    apply_fn: Callable[[Any, torch.Tensor, torch.Tensor], Any],
+    err_fn: Callable[[Any], torch.Tensor],
+    err_thresh: float | None,
+    max_factor: float | None,
+    max_iters: int,
+    initial_factor: float = 1e-4,
+    eps_floor_mult: float = 32.0,
+    valid: torch.Tensor | None = None,
+) -> tuple[Any, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`run_lm_on_device` over B problems at once: ``p0`` carries a
+    leading batch axis on every field, and the per-problem functions
+    (``blocks_fn`` and the rest, as for one problem; ``solve_fn`` takes a
+    0-d tensor factor) are mapped over it with ``torch.func.vmap``, so a
+    trial is one set of launches for all B. The schedule stays on the host
+    as numpy arrays, one entry a problem (factor, err, err_prev, has_prev,
+    stop code, iterations, trials), and a trial makes one packed fetch of
+    (ok [B], err [B]). The inner loop runs while any problem still damps,
+    the outer while any runs; a problem that stopped, or accepted its step
+    in this iteration, keeps its state (``torch.where``) while the others
+    try on. Each problem takes the decisions its own
+    :func:`run_lm_on_device` takes, in the same order, as JAX's vmapped
+    ``while_loop`` does.
+
+    ``valid`` [B] (device bool) gates each problem: where False it never
+    runs, keeps ``p0`` and stops with STOP_CANNOT_NORMALIZE. Returns
+    (p_final, stop codes [B], iterations [B], final errors [B] in the
+    problem's dtype, trials [B])."""
+    vmap = torch.func.vmap
+    v_blocks, v_solve = vmap(blocks_fn), vmap(solve_fn)
+    v_apply, v_err = vmap(apply_fn), vmap(err_fn)
+    err0 = v_err(p0)
+    B, dev = err0.shape[0], err0.device
+    npd = _NP_DTYPE[err0.dtype]
+    if valid is None:
+        valid = torch.ones(B, dtype=torch.bool, device=dev)
+    ok0, err = _fetch(valid, err0, lambda v: np.asarray(v, npd))
+    code = np.where(ok0 != 0, STOP_RUNNING, STOP_CANNOT_NORMALIZE)
+    eps_floor = npd(eps_floor_mult * float(np.finfo(npd).eps))
+    # no |change| is below -inf and no factor above +inf: a criterion given
+    # as None never fires
+    thresh = -np.inf if err_thresh is None else err_thresh
+    cap = np.inf if max_factor is None else max_factor
+    factor = np.full(B, initial_factor, npd)
+    iters = np.zeros(B, np.int64)
+    trials = np.zeros(B, np.int64)
+    p = p0
+
+    while np.any(code == STOP_RUNNING):
+        blocks = v_blocks(p)
+        damping = code == STOP_RUNNING
+        has_prev = np.zeros(B, bool)
+        err_prev = np.zeros(B, npd)
+        accepted = np.zeros(B, bool)
+        err_acc = err.copy()
+        p_acc = p
+        while np.any(damping):
+            dX, du, ok = v_solve(p, blocks, torch.as_tensor(
+                factor, dtype=err0.dtype, device=dev))
+            p_try = v_apply(p, dX, du)
+            ok, err_new = _fetch(ok, v_err(p_try), lambda v: np.asarray(v, npd))
+            ok = (ok != 0) & np.isfinite(err_new)
+            trials += damping
+            # the single-problem loop's decisions, for the damping problems
+            decreased = damping & ok & (err_new < err)
+            diff = err_new - err
+            dtype_conv = (damping & ok & ~decreased & (diff >= 0)
+                          & (diff <= eps_floor * err))
+            limit = (damping & ok & ~decreased & ~dtype_conv & has_prev
+                     & (np.abs(err_new - err_prev) < thresh))
+            next_factor = factor * npd(10.0)
+            stop_damping = decreased | dtype_conv | limit
+            overflow = damping & ~stop_damping & (next_factor > cap)
+            seen = damping & ok
+            err_prev = np.where(seen, err_new, err_prev)
+            has_prev |= seen
+            if np.any(decreased):
+                p_acc = select(torch.as_tensor(decreased, device=dev), p_try,
+                               p_acc)
+                err_acc = np.where(decreased, err_new, err_acc)
+                accepted |= decreased
+            failed = damping & ~decreased
+            factor = np.where(failed, next_factor, factor)
+            code = np.where(failed & dtype_conv, STOP_DTYPE_PRECISION,
+                            np.where(failed & limit, STOP_ERR_LIMIT,
+                                     np.where(failed & overflow,
+                                              STOP_HESSIAN_OVERFLOW, code)))
+            damping = failed & ~(dtype_conv | limit | overflow)
+        p = p_acc
+        iters += accepted
+        small_rel = accepted & (np.abs(err_acc - err) < thresh)
+        err = np.where(accepted, err_acc, err)
+        factor = np.where(accepted, factor / npd(10.0), factor)
+        code = np.where(small_rel, STOP_SMALL_REL_CHANGE,
+                        np.where(accepted & (iters >= max_iters),
+                                 STOP_MAX_ITERS, code))
+    return p, code, iters, err, trials

@@ -69,16 +69,21 @@ def camera_transition_jacobians(params: MonoSlamParams, cam13: torch.Tensor
     w = cam13[10:13]
     dq = quat.from_axis_angle(w * dt)
     dq_dw = (_quat_left_mat(q) @ _dquat_daxis_angle(w * dt)) * dt
+    # assembled from blocks, not written into a fresh eye/zeros: under
+    # torch.func.vmap the blocks are batched and a write into an unbatched
+    # tensor is refused
     eye3 = torch.eye(3, dtype=dtype, device=dev)
-    F = torch.eye(13, dtype=dtype, device=dev)
-    F[0:3, 7:10] = dt * eye3
-    F[3:7, 3:7] = _quat_right_mat(dq)
-    F[3:7, 10:13] = dq_dw
-    G = torch.zeros((13, 6), dtype=dtype, device=dev)
-    G[0:3, 0:3] = dt * eye3
-    G[3:7, 3:6] = dq_dw
-    G[7:10, 0:3] = eye3
-    G[10:13, 3:6] = eye3
+    z = lambda r, c: torch.zeros((r, c), dtype=dtype, device=dev)  # noqa: E731
+    F = torch.cat([
+        torch.cat([eye3, z(3, 4), dt * eye3, z(3, 3)], dim=1),
+        torch.cat([z(4, 3), _quat_right_mat(dq), z(4, 3), dq_dw], dim=1),
+        torch.cat([z(3, 7), eye3, z(3, 3)], dim=1),
+        torch.cat([z(3, 10), eye3], dim=1)])
+    G = torch.cat([
+        torch.cat([dt * eye3, z(3, 3)], dim=1),
+        torch.cat([z(4, 3), dq_dw], dim=1),
+        torch.cat([eye3, z(3, 3)], dim=1),
+        torch.cat([z(3, 3), eye3], dim=1)])
     return F, G
 
 

@@ -14,12 +14,17 @@ type (:func:`downdate_config`). float32 runs on the FP32 lanes; for its
 kernel copies M with padded rows, so such a call is two device launches.
 float64 runs on the FP64 tensor cores (``mma.sync`` m16n8k16 in 64-wide
 tiles, DMMA: the rate its bound assumes, 0.49 ms at the flagship's D =
-4621, m = 1536), loading M directly, one launch a call.
+4621, m = 1536), loading M directly, one launch a call. A batch of B
+problems of one shape is one launch too (the grid's y axis picks the
+problem), each problem's output bit for bit its own call's;
+``torch.func.vmap`` reaches it through the dispatcher operator
+``surikatoko::symmetric_downdate`` and its vmap rule.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -28,18 +33,30 @@ from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
 # Wrapper calls in this process that launched a CUDA kernel, float32 or
 # float64 (the plain version never counts). A float32 call with 128-wide
 # tiles is two device launches, the row padding copy and the downdate; it
-# counts once.
+# counts once. A batch of problems is one call and counts once.
 LAUNCHES = 0
+# problems a launch: the grid's y extent
+MAX_BATCH = 65535
 
-# (P, M, keep, Mp, out, D, m, tile, stream)
+# The library's entry points, float32 and float64: for one problem (P, M,
+# keep, Mp, out, D, m, tile, stream) and (P, M, keep, out, D, m, stream);
+# for a batch (P, M, keep, Mp, out, B, D, m, tile, sP, sM, sK, stream) and
+# (P, M, keep, out, B, D, m, sP, sM, sK, stream), a problem's tensors s*
+# values after the previous one's.
 _LIB = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_f32",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-# the float64 entry point of the same source, the same library file: (P, M,
-# keep, out, D, m, stream)
 _LIB64 = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_f64",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_LIBB = KernelLibrary(
+    "symmetric_downdate.cu", "symmetric_downdate_f32_batched",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
+    + [ctypes.c_void_p])
+_LIB64B = KernelLibrary(
+    "symmetric_downdate.cu", "symmetric_downdate_f64_batched",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3
+    + [ctypes.c_void_p])
 
 # Output tile edge by D: D <= TILE_32_MAX_D takes 32, larger D 128. Wider
 # tiles reuse each loaded value more but give fewer blocks. In a sweep of
@@ -68,23 +85,68 @@ def downdate_config(D: int, dtype: torch.dtype = torch.float32) -> tuple[int, in
 def symmetric_downdate_ref(P: torch.Tensor, M: torch.Tensor,
                            keep: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version: X = P o kk^T - (M o k)^T (M o k) (with ``keep=None``,
-    P - M^T M), then its lower triangle mirrored up."""
+    P - M^T M), then its lower triangle mirrored up. P [..., D, D], M [...,
+    m, D], keep [..., D]: a leading batch dimension is one problem a slice."""
+    if P.dim() == 2:
+        if keep is None:
+            X = torch.addmm(P, M.T, M, alpha=-1)
+        else:
+            Mk = M * keep[None, :]
+            X = torch.addmm(P * (keep[:, None] * keep[None, :]), Mk.T, Mk,
+                            alpha=-1)
+        return torch.tril(X) + torch.tril(X, -1).T
+    lead = P.shape[:-2]
+    P, M, keep = _flat(P, M, keep)
     if keep is None:
-        X = torch.addmm(P, M.T, M, alpha=-1)
+        X = torch.baddbmm(P, M.mT, M, alpha=-1)
     else:
-        Mk = M * keep[None, :]
-        X = torch.addmm(P * (keep[:, None] * keep[None, :]), Mk.T, Mk, alpha=-1)
-    return torch.tril(X) + torch.tril(X, -1).T
+        Mk = M * keep[:, None, :]
+        X = torch.baddbmm(P * (keep[:, :, None] * keep[:, None, :]),
+                          Mk.mT, Mk, alpha=-1)
+    return (torch.tril(X) + torch.tril(X, -1).mT).reshape(*lead,
+                                                          *X.shape[1:])
 
 
-def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
-                       keep: torch.Tensor | None = None) -> torch.Tensor:
-    """Kernel wrapper, same contract as :func:`symmetric_downdate_ref`.
-    P [D,D] (symmetric; its lower triangle is read), M [m,D], keep [D] with
-    0/1 entries or None; contiguous, all float32 or all float64, on one CUDA
-    device, D, m >= 1. float64 runs the DMMA kernel (FP64 tensor cores),
-    one launch a call. The values of ``keep`` are not checked (that would
-    wait for the card)."""
+def _flat(P: torch.Tensor, M: torch.Tensor, keep: torch.Tensor | None):
+    """A batch P [*L,D,D] with M [*L,m,D] or [m,D] (shared) and keep [*L,D]
+    or [D] (or None), as (P [B,D,D], M [B,m,D], keep [B,D]), B = prod(L); a
+    shared argument is expanded without a copy."""
+    lead, D = P.shape[:-2], P.shape[-1]
+    if M.dim() == 2:
+        M = M.expand(*lead, *M.shape)
+    if keep is not None and keep.dim() == 1:
+        keep = keep.expand(*lead, keep.shape[0])
+    _check(P, M, keep)
+    return (P.reshape(-1, D, D), M.reshape(-1, M.shape[-2], D),
+            None if keep is None else keep.reshape(-1, D))
+
+
+def _check(P: torch.Tensor, M: torch.Tensor, keep: torch.Tensor | None
+           ) -> None:
+    """Raise unless P [*L,D,D], M [*L,m,D] and keep [*L,D] (or None) share
+    their leading dims L, one float type and one device, with D, m >= 1."""
+    lead = P.shape[:-2]
+    D = P.shape[-1] if P.dim() >= 2 else 0
+    if (P.dim() < 2 or P.shape[-2] != D or M.dim() != P.dim()
+            or M.shape[:-2] != lead or M.shape[-1] != D or D < 1
+            or M.shape[-2] < 1
+            or (keep is not None and tuple(keep.shape) != (*lead, D))):
+        raise ValueError(f"bad shapes: P {tuple(P.shape)}, M {tuple(M.shape)}, "
+                         f"keep {None if keep is None else tuple(keep.shape)}")
+    if P.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"no downdate kernel for {P.dtype}")
+    for name, t in (("M", M), ("keep", keep)):
+        if t is not None and (t.dtype != P.dtype or t.device != P.device):
+            raise ValueError(f"{name} must be a {P.dtype} tensor on {P.device}")
+
+
+def _one(P: torch.Tensor, M: torch.Tensor,
+         keep: torch.Tensor | None) -> torch.Tensor:
+    """One problem, P [D,D]: the plain version on the CPU, else the
+    single-problem entry points, which run the kernel without the batch
+    addressing. It keeps its own checks and launch (not a batch of one):
+    the batch's stride handling costs the host some 20 µs a call
+    (``tools/probe_batch.py tree`` on an H100)."""
     global LAUNCHES
     if P.device.type == "cpu":
         return symmetric_downdate_ref(P, M, keep)
@@ -126,7 +188,122 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
     return out
 
 
+def _slices(t: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """(t [B,...] with contiguous slices, the values from one slice to the
+    next): an axis of stride 0, one tensor shared by every problem (what
+    vmap's rule makes of an unbatched argument), is passed without a copy."""
+    if t.shape[0] > 1 and t.stride(0) == 0:
+        return t[:1].contiguous(), 0
+    t = t.contiguous()
+    return t, t[0].numel()
+
+
+def _launch(P: torch.Tensor, M: torch.Tensor, keep: torch.Tensor | None
+            ) -> torch.Tensor:
+    """One launch of the kernel over B problems: P [B,D,D], M [B,m,D], keep
+    [B,D] or None (checked); returns out [B,D,D]."""
+    global LAUNCHES
+    B, m, D = M.shape
+    if B > MAX_BATCH:
+        raise ValueError(f"batch of {B} problems: at most {MAX_BATCH} a launch")
+    out = torch.empty((B, D, D), dtype=P.dtype, device=P.device)
+    if B == 0:
+        return out
+    P, sP = _slices(P)
+    M, sM = _slices(M)
+    keep_ptr, sK = None, 0
+    if keep is not None:
+        keep, sK = _slices(keep)
+        keep_ptr = keep.data_ptr()
+    with torch.cuda.device(P.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if P.dtype == torch.float64:
+            rc = _LIB64B.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
+                              out.data_ptr(), B, D, m, sP, sM, sK, stream)
+        else:
+            tile = downdate_config(D)[0]
+            # 128-wide tiles load M from a copy whose rows are padded to a
+            # multiple of 4 floats (16-byte loads); a shared M is padded once
+            scratch = (torch.empty((1 if sM == 0 else B, m, -(-D // 4) * 4),
+                                   dtype=P.dtype, device=P.device)
+                       if tile == 128 else None)
+            rc = _LIBB.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
+                            None if scratch is None else scratch.data_ptr(),
+                            out.data_ptr(), B, D, m, tile, sP, sM, sK, stream)
+    if rc != 0:
+        raise RuntimeError(f"symmetric_downdate kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out
+
+
+def _downdate(P: torch.Tensor, M: torch.Tensor,
+              keep: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version for tensors on the CPU, the kernel for CUDA ones:
+    one launch for P [D,D] and for a batch P [*L,D,D] (its leading dims L
+    flattened into one). M and keep may leave out leading dims of P's (one
+    shared by every problem)."""
+    if P.dim() == 2:
+        return _one(P, M, keep)
+    if P.device.type == "cpu":
+        return symmetric_downdate_ref(P, M, keep)
+    if P.device.type != "cuda":
+        raise ValueError(f"no downdate kernel for device {P.device}")
+    lead = P.shape[:-2]
+    return _launch(*_flat(P, M, keep)).reshape(*lead, *P.shape[-2:])
+
+
+@torch.library.custom_op("surikatoko::symmetric_downdate", mutates_args=())
+def _downdate_op(P: torch.Tensor, M: torch.Tensor,
+                 keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """The downdate as an operator of torch's dispatcher, so that
+    ``torch.func.vmap`` batches it by :func:`_downdate_vmap`."""
+    return _downdate(P, M, keep)
+
+
+@_downdate_op.register_fake
+def _(P, M, keep):
+    return torch.empty_like(P)
+
+
+@_downdate_op.register_vmap
+def _downdate_vmap(info, in_dims, P, M, keep):
+    """vmap's rule: the batch axes move to the front, an unbatched argument
+    (a P, M or keep shared by every problem) is expanded without a copy, and
+    the batch is one call: on a card, one launch of the batched kernel."""
+    def front(t, d):
+        return t.movedim(d, 0) if d is not None else t.expand(
+            info.batch_size, *t.shape)
+    keep = None if keep is None else front(keep, in_dims[2])
+    return _downdate_op(front(P, in_dims[0]), front(M, in_dims[1]), keep), 0
+
+
+def _batched(*ts) -> bool:
+    return any(t is not None and torch._C._functorch.is_batchedtensor(t)
+               for t in ts)
+
+
+def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
+                       keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel wrapper, same contract as :func:`symmetric_downdate_ref`.
+    P [D,D] (symmetric; its lower triangle is read), M [m,D], keep [D] with
+    0/1 entries or None; contiguous, all float32 or all float64, on one CUDA
+    device, D, m >= 1. float64 runs the DMMA kernel (FP64 tensor cores),
+    one launch a call. The values of ``keep`` are not checked (that would
+    wait for the card).
+
+    A batch, P [B,D,D] with M [B,m,D] (or [m,D], shared) and keep [B,D] (or
+    [D]), is one launch of the batched entry points, as is a call under
+    ``torch.func.vmap``: then the dispatcher's operator
+    ``surikatoko::symmetric_downdate`` takes it and its vmap rule makes the
+    batch. A call with no batched argument goes straight to the kernel, with
+    no dispatcher in between. Each problem of a batch equals its own
+    unbatched call bit for bit."""
+    if _batched(P, M, keep):
+        return _downdate_op(P, M, keep)
+    return _downdate(P, M, keep)
+
+
 def build():
-    """Compile the kernel library (both entry points) if it is not built
+    """Compile the kernel library (all its entry points) if it is not built
     yet; returns its path."""
     return _LIB.build()

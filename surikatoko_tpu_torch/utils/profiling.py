@@ -67,3 +67,41 @@ def annotate(name: str):
     """Named region in device traces (``record_function``)."""
     with record_function(name):
         yield
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Milliseconds a call of ``fn`` takes on the card: CUDA events around
+    ``reps`` back-to-back calls after three warm-up calls."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_profile(fn, host_ops: bool = True):
+    """(device busy us, device launches, top kernels, {kernel: [us,
+    launches]} of all) of one call of ``fn`` under torch.profiler. The
+    device-side events are the kernels and copies themselves; the aten rows
+    of key_averages() repeat their time, so only these are summed. Without
+    ``host_ops`` the profiler records the device alone, which costs the
+    host far less over runs of many small launches."""
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += e.time_range.elapsed_us()
+            k[1] += 1
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
+    return (sum(v[0] for v in kernels.values()),
+            sum(v[1] for v in kernels.values()),
+            [[k[:100], v[0], v[1]] for k, v in top], kernels)

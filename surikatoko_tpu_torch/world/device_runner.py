@@ -248,6 +248,32 @@ def make_scan_runner(params: MonoSlamParams, update_impl: int = 1):
     return run
 
 
+def make_batched_scan_runner(params: MonoSlamParams, update_impl: int = 1):
+    """B instances of :func:`make_scan_runner`'s closed loop, one per noise
+    draw, run as one batch, as the JAX package vmaps its run over noise keys
+    (tests/test_batch_eval.py). Built with ``torch.func.vmap`` over the
+    unbatched run: every op of a frame runs once for the batch, and kernel
+    B2 (the fused step's downdate, impl 1; the stacked updates', impl 4)
+    launches once a frame for all instances.
+
+    Returns run(state, sc, frames, noise) -> (state, errs [B,T], n_matched
+    [B,T], cam_pos [B,T,3], chol_info [B,T]): ``noise`` [B,T,K,2] is each
+    instance's standard-normal draws; ``state`` is shared by every instance
+    (x [D]) or carries a leading B (x [B,D]); the returned state carries a
+    leading B. Each instance equals its own unbatched run up to the rounding
+    of batched matrix products."""
+    run_one = make_scan_runner(params, update_impl)
+
+    def run(state: MonoSlamState, sc: DeviceScenario, frames,
+            noise: torch.Tensor):
+        frames = [int(f) for f in frames]
+        return torch.func.vmap(
+            lambda st, nz: run_one(st, sc, frames, nz),
+            in_dims=(0 if state.x.dim() == 2 else None, 0))(state, noise)
+
+    return run
+
+
 def render_frame(params: MonoSlamParams, sc: ImageSeqDeviceScenario,
                  f: int) -> torch.Tensor:
     """One [H,W] frame: static background + a gaussian blob at every visible

@@ -25,7 +25,7 @@ from surikatoko_tpu_torch.models.monoslam import state
 from surikatoko_tpu_torch.utils import stats
 from surikatoko_tpu_torch.vision import matcher, multiscale
 from surikatoko_tpu_torch.vision import place_recognition as pr
-from surikatoko_tpu_torch.world import ba_scene, device_runner
+from surikatoko_tpu_torch.world import ba_scene, device_runner, test_data_builder
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
@@ -94,6 +94,12 @@ ENTRY_POINTS = {
         np.stack([np.eye(3)] * 2), np.zeros((2, 3)),
         [(0, 1, np.eye(3), np.ones(3), 1.0, 1.0)], **d)),
     "rect_make": (rect.make, lambda f, **d: f(0, 1, 4, 3, **d)),
+    "circle_grid_problem": (ba_scene.circle_grid_problem,
+                            lambda f, **d: f(noise_pnt=0.01, **d)),
+    "crystall_grid_dataset": (test_data_builder.crystall_grid_dataset,
+                              lambda f, **d: f(n_frames=3, **d)),
+    "circus_grid_dataset": (test_data_builder.circus_grid_dataset,
+                            lambda f, **d: f(n_frames=3, **d)),
     "mean_std_init": (stats.mean_std_init, lambda f, **d: f(**d)),
 }
 
@@ -246,3 +252,32 @@ def test_torch_place_recognition_entry_points_default_to_the_card():
             pr.ransac_similarity_pairs(A, A + 1.0, 0.1)
     assert all(c(device="cpu").device.type == "cpu" for c in calls)
     assert pr.ransac_similarity_pairs(A, A + 1.0, 0.1, device="cpu").all()
+
+
+def test_torch_batch_entry_points_default_to_the_card():
+    """Batched evaluation: the BA runners' argument sets name the card,
+    their problems and the batched LM's results land there, and the batched
+    scan runner runs where the scenario and state it is given lie."""
+    from surikatoko_tpu_torch.demos import (ba_at_scale, batch_ba,
+                                            bundle_adj_circle_grid,
+                                            bundle_adj_dinosaur)
+    from surikatoko_tpu_torch.models.ba import bundle_adjust_batched
+    for mod in (batch_ba, bundle_adj_circle_grid, bundle_adj_dinosaur,
+                ba_at_scale):
+        assert mod.make_args().device == "cuda"
+    if torch.cuda.is_available():
+        probs = batch_ba.problems(batch_ba.make_args(batch=2))
+        assert all(t.device.type == "cuda" for p in probs for t in p)
+        out = bundle_adjust_batched(interop.stack(probs))[0]
+        assert all(t.device.type == "cuda" for t in out)
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            batch_ba.problems(batch_ba.make_args(batch=2))
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    params = state.make_params(_cam(dev), device=dev)
+    sc = device_runner.build_oscillating_scenario(capacity=8, device=dev)
+    st = state.init_state(8, device=dev)
+    noise = torch.zeros((2, 2, 8, 2), dtype=sc.gt_points.dtype, device=dev)
+    out = device_runner.make_batched_scan_runner(params, 1)(st, sc, [1, 2], noise)
+    assert out[0].x.shape[0] == 2 and out[1].shape == (2, 2)
+    assert all(t.device.type == dev for t in _tensors(out))

@@ -1,7 +1,8 @@
 """The dino file-format path of the PyTorch port against the JAX package, in
 float64 on the CPU: the committed VGG-format fixture of
 tests/test_io_fixtures.py, the synthetic turntable written in the same
-formats, and chip_smoke.py's ba_dino phase at 300 points.
+formats, and chip_smoke.py's ba_dino phase (its runner,
+``demos.bundle_adj_dinosaur.run_dino``) at 300 points.
 
 Tolerances: parsed files equal; decomposed cameras to rtol 1e-12 and the
 assembled problems to rtol 1e-10 (triangulation solves 3x3 normal
@@ -11,7 +12,6 @@ JAX one bit for bit, and so do the files written from it.
 """
 
 import os
-import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +27,7 @@ from surikatoko_tpu.models.ba import SparseBundleAdjustment as JSBA
 from surikatoko_tpu.models.ba import TermCriteria as JTC
 from surikatoko_tpu.models.ba import problem as jp
 from surikatoko_tpu.models.ba import sparse as jsp
+from surikatoko_tpu_torch.demos.bundle_adj_dinosaur import run_dino
 from surikatoko_tpu_torch.geom import triangulate as ttri
 from surikatoko_tpu_torch.io import dino as tdino
 from surikatoko_tpu_torch.io import mat_io as tmat
@@ -235,13 +236,12 @@ def test_torch_synthetic_dino_problem_matches_jax():
 
 
 def test_torch_ba_dino_phase_matches_jax():
-    """chip_smoke.py's ba_dino phase at 300 points, in float64 on the CPU,
-    against the JAX bench's dino section (bench.py:587-623) on the same
-    files: the warm, the timed and the converging device-loop LM each take
-    JAX's path, and the map ATE against GT agrees."""
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-    import chip_smoke
-    got = chip_smoke.run_dino("cpu", torch.float64, n_points=300)
+    """chip_smoke.py's ba_dino phase (``demos.bundle_adj_dinosaur.run_dino``)
+    at 300 points, in float64 on the CPU, against the JAX bench's dino
+    section (bench.py:587-623) on the same files: the warm, the timed and
+    the converging device-loop LM each take JAX's path, and the map ATE
+    against GT agrees."""
+    got = run_dino("cpu", torch.float64, n_points=300)
     assert got["finite"] and got["err_final"] < got["err_initial"]
 
     import tempfile

@@ -342,6 +342,34 @@ def test_torch_reset_to_gt_recovers_tracking(impl):
     np.testing.assert_allclose(errs["t"], errs["j"], rtol=0, atol=1e-9)
 
 
+def test_torch_bad_mask_keeps_the_float32_hostloop_landmark_minors_drop():
+    """tools/chart_bad_ellipsoid.py --dtype float32 (chip_smoke's hostloop
+    world on the CPU): at frame 1 the JAX package's minors test, on slot
+    3's float32 position covariance (eigenvalues 6.2e-5, 7.9e-5, 3.46, so
+    positive definite), gets det3 = -7.2e-9 by cancellation and would
+    delete the landmark; the port's Cholesky pivots (0.253, 1.9e-4, 3.6e-4)
+    keep it. In float64 the two tests agree over all 300 frames."""
+    C = np.array([[0.2525896728038788, 0.30060261487960815, -0.8489705920219421],
+                  [0.30060264468193054, 0.357930988073349, -1.010672688484192],
+                  [-0.8489704728126526, -1.0106725692749023, 2.8543691635131836]],
+                 np.float32)
+    assert np.linalg.eigvalsh(C.astype(np.float64)).min() > 6e-5
+    K = 1
+    x = np.zeros(N + 6 * K, np.float32)
+    x[3] = 1.0
+    P = np.zeros((N + 6 * K, N + 6 * K), np.float32)
+    P[N:N + 3, N:N + 3] = C
+    t32 = lambda a: torch.as_tensor(a, dtype=torch.float32)  # noqa: E731
+    bad = thealth.bad_uncertainty_mask(t32(x), t32(P), K, t32(1e-4), 1)
+    assert not bool(bad[0])
+    a, b, c, d, e, f = C[0, 0], C[0, 1], C[0, 2], C[1, 1], C[1, 2], C[2, 2]
+    det3 = a * (d * f - e * e) - b * (b * f - e * c) + c * (b * e - d * c)
+    assert det3.dtype == np.float32 and det3 < 0
+    # the JAX function itself, on the same float32 inputs, drops it
+    assert bool(jhealth.bad_uncertainty_mask(
+        jnp.asarray(x), jnp.asarray(P), K, jnp.float32(1e-4), 1)[0])
+
+
 def test_torch_bad_mask_keeps_an_elongated_positive_definite_ellipsoid(rng):
     """A landmark position covariance L^2 m m^T + s^2 I (L = 1e6, s = 10: a
     substituted rho's ellipsoid, condition ~1e10) is positive definite. Its

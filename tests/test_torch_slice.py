@@ -155,7 +155,13 @@ def test_torch_package_never_imports_jax():
             "surikatoko_tpu_torch.models.posegraph, "
             "surikatoko_tpu_torch.ops.transfer, "
             "surikatoko_tpu_torch.demos.multi_view_factorization, "
-            "surikatoko_tpu_torch.demos.mvf_at_scale; "
+            "surikatoko_tpu_torch.demos.mvf_at_scale, "
+            "surikatoko_tpu_torch.demos.batch_ba, "
+            "surikatoko_tpu_torch.demos.bundle_adj_circle_grid, "
+            "surikatoko_tpu_torch.demos.bundle_adj_dinosaur, "
+            "surikatoko_tpu_torch.demos.ba_at_scale, "
+            "surikatoko_tpu_torch.world.test_data_builder, "
+            "surikatoko_tpu_torch.utils.profiling; "
             "bad = sorted(m for m in sys.modules "
             "if m in ('jax', 'surikatoko_tpu') "
             "or m.startswith(('jax.', 'surikatoko_tpu.'))); "
