@@ -183,15 +183,18 @@ Phases, one JSON line each:
            instance-frames/s both ways, one profiled frame of each (busy
            share), one B2 launch a frame, per instance finite, P == P^T,
            Cholesky info 0, ATE (median, max), the batched ATE over frames
-           1-30 within 0.02 of the unbatched one's, a batched frame free of
-           host syncs, and 4 instances in float64 on the card within 1e-9 of
-           their unbatched runs on the CPU. Then batch BA (demos.batch_ba:
-           the circle grids of default_rng(0..B-1), normalize -> LM ->
-           revert as one batch) at B = 32 and 256 in float64 and float32,
-           the first 32 also one after another: problems/s, converged
-           counts, and in float64 each problem's stop code, iterations and
-           trials in both batches equal to its own run; one profiled LM
-           iteration at B = 256 (busy share).
+           1-30 within 0.02 of the unbatched one's and each instance's
+           camera positions there within 1e-4 of its unbatched run's (and
+           further than that from every other instance's), a batched frame
+           free of host syncs, and 4 instances in float64 on the card within
+           1e-9 of their unbatched runs on the CPU. Then batch BA
+           (demos.batch_ba: the circle grids of default_rng(0..B-1),
+           normalize -> LM -> revert as one batch) at B = 32 and 256 in
+           float64 and float32, the first 32 also one after another:
+           problems/s, converged counts, the batch's outer and trial rounds,
+           and in float64 each problem's stop code, iterations and trials in
+           both batches equal to its own run; one profiled LM iteration at
+           B = 256 (busy share).
   Neither the BA, the MVF, the two-view phases nor batch BA may launch
   kernel B1 or B2.
 Then a line with every kernel's launches, error and times (B2's batched
@@ -350,10 +353,14 @@ BATCH_DOWNDATE_SHAPES = ((32, 589, 192), (6, 109, 32), (3, 130, 7))
 # after another over frames 1-30; float64 at BATCH_F64 instances on the
 # card against the CPU over frames 1-30 (F64_CAM_TOL); per instance the
 # float32 batched ATE over frames 1-30 within BATCH_F32_ATE_TOL of its
-# unbatched run's
+# unbatched run's, and its camera positions within BATCH_F32_CAM_TOL of
+# them (1.35e-5 read on an H100: the rounding of the batched products);
+# two instances' positions lie further apart than that, so a batch that
+# handed an instance another's noise fails
 BATCH_SCAN_B, BATCH_SEED, BATCH_F64 = 32, 11, 4
 BATCH_SCAN_FRAMES, BATCH_SEQ_FRAMES = range(1, 301), range(1, 31)
 BATCH_F32_ATE_TOL = 0.02
+BATCH_F32_CAM_TOL = 1e-4
 # batch BA: the batch demo's circle grids (demos.batch_ba at its defaults),
 # B = 32 and 256 in float64 and float32, the first 32 also one after another
 BATCH_BA_SIZES, BATCH_BA_SEQ = (32, 256), 32
@@ -1536,6 +1543,11 @@ def batch_scan_phase(ncc, cov, device) -> dict:
             np.array(ate_b30) - np.array(ate_s30)))),
         "cam_pos30_batched_vs_unbatched_max_abs_diff": max(
             float((pos_b[b, :n_seq] - o[3]).abs().max()) for b, o in enumerate(seq)),
+        # the closest that an instance's unbatched positions come to
+        # another instance's batched ones
+        "cam_pos30_other_instance_min_max_abs_diff": min(
+            float((pos_b[c, :n_seq] - o[3]).abs().max())
+            for b, o in enumerate(seq) for c in range(B) if c != b),
         "f64": {"B": BATCH_F64, "frames": n_seq,
                 "cam_pos_card_vs_cpu_max_abs_diff": diff64,
                 "tol": F64_CAM_TOL}}
@@ -1548,6 +1560,10 @@ def batch_scan_phase(ncc, cov, device) -> dict:
                                                     "symmetric_downdate": T},
         "ate30_within": out["ate30_batched_vs_unbatched_max_abs_diff"]
         <= BATCH_F32_ATE_TOL,
+        "cam_pos30_within": out["cam_pos30_batched_vs_unbatched_max_abs_diff"]
+        <= BATCH_F32_CAM_TOL,
+        "cam_pos30_instances_apart": out[
+            "cam_pos30_other_instance_min_max_abs_diff"] > BATCH_F32_CAM_TOL,
         "f64_card_vs_cpu_within": diff64 <= F64_CAM_TOL and f64_sym,
         "instances_differ": float(pos_b[:, -1].std(dim=0).max()) > 0,
         # frame_without_host_sync above raised on any sync
@@ -1559,13 +1575,13 @@ def batch_ba_phase(device) -> dict:
     """Batch BA (demos.batch_ba's problems and flow) at BATCH_BA_SIZES in
     float64 and float32: problems/s batched, and for the first BATCH_BA_SEQ
     problems one after another (BundleAdjustment(device_loop=True), the
-    same program for one problem); converged counts; in float64 each of
-    those problems' stop code, iterations and trials against its own run;
-    one profiled LM iteration of the batch."""
+    same program for one problem); converged counts; the batch's outer and
+    trial rounds (each one set of launches for all problems); in float64
+    each of those problems' stop code, iterations and trials against its
+    own run; one profiled LM iteration of the batch."""
     import torch
     from surikatoko_tpu_torch.demos import batch_ba
-    from surikatoko_tpu_torch.models.ba import (TermCriteria,
-                                                bundle_adjust_batched)
+    from surikatoko_tpu_torch.models.ba import BundleAdjustment, TermCriteria
     from surikatoko_tpu_torch.interop import stack
     out = {}
     for f32 in (False, True):
@@ -1591,16 +1607,17 @@ def batch_ba_phase(device) -> dict:
     batch = stack(batch_ba.problems(args))
     one = TermCriteria(allowed_reproj_err_rel_change=args.allowed_repr_err,
                        max_iters=1)
-    bundle_adjust_batched(batch, one)
+    ba = BundleAdjustment(device_loop=True)
+    ba.compute_batched(batch, one)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trials = bundle_adjust_batched(batch, one)[4]
+    rounds = ba.compute_batched(batch, one).trial_rounds
     torch.cuda.synchronize()
     wall = 1e6 * (time.perf_counter() - t0)
-    busy, nl, top, _ = profiled(lambda: bundle_adjust_batched(batch, one))
+    busy, nl, top, _ = profiled(lambda: ba.compute_batched(batch, one))
     out["profile_iteration"] = {
         "B": BATCH_BA_SIZES[-1], "dtype": "float32",
-        "trial_rounds": int(trials.max()), "wall_us": wall,
+        "trial_rounds": rounds, "wall_us": wall,
         "device_busy_us": busy, "device_launches": nl,
         "busy_share": busy / wall, "top_kernels_us_count": top}
     return out

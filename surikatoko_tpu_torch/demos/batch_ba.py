@@ -3,7 +3,7 @@ normalized, optimized and reverted as one batch.
 
 Port of ``demos/demo_batch_ba.py``. The JAX demo vmaps its compiled
 normalize -> LM -> revert program over the problems; here
-``lm.bundle_adjust_batched`` maps each step over the batch with
+``BundleAdjustment.compute_batched`` maps each step over the batch with
 ``torch.func.vmap`` and keeps the LM's schedule on the host, one packed
 fetch of every problem's (ok, err) a trial. The per-problem matrices are
 small, so batching is what gives the card work. With its flags:
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from surikatoko_tpu_torch.models.ba import (BundleAdjustment, TermCriteria,
-                                            bundle_adjust_batched, reproj_error)
+                                            reproj_error)
 from surikatoko_tpu_torch.models.ba.lm_device import STOP_REASON_STR
 from surikatoko_tpu_torch.interop import stack
 from surikatoko_tpu_torch.world.ba_scene import circle_grid_problem
@@ -69,18 +69,21 @@ def run(args: argparse.Namespace, log=print) -> dict:
     after another through ``BundleAdjustment(device_loop=True)``, the same
     program for one problem. Returns converged (err < 1e-4 e0), the median
     error reduction, the iterations' min / median / max, problems/s batched
-    (and sequential), each problem's stop code, iterations and trials (and,
-    sequential, each one's [code, iterations, trials] alone)."""
+    (and sequential), each problem's stop code, iterations and trials, the
+    batch's outer and trial rounds (and, sequential, each problem's [code,
+    iterations, trials] alone)."""
     probs = problems(args)
     batch = stack(probs)
     term = TermCriteria(allowed_reproj_err_rel_change=args.allowed_repr_err,
                         max_iters=args.max_iters)
     log(f"batch={args.batch} problems, each {probs[0].n_frames} frames x "
         f"{probs[0].n_points} points, dtype={batch.points.dtype}")
-    bundle_adjust_batched(batch, term)          # warm-up
+    ba = BundleAdjustment(device_loop=True)
+    ba.compute_batched(batch, term)             # warm-up
     _sync(args.device)
     t0 = time.perf_counter()
-    p_out, code, iters, err, trials = bundle_adjust_batched(batch, term)
+    r = ba.compute_batched(batch, term)
+    p_out, code, iters, err, trials = r[:5]
     _sync(args.device)
     dt_batch = time.perf_counter() - t0
     e0 = np.array([float(reproj_error(p)) for p in probs])
@@ -95,14 +98,17 @@ def run(args: argparse.Namespace, log=print) -> dict:
            "batched_s": dt_batch, "problems_per_s_batched": args.batch / dt_batch,
            "codes": code.tolist(), "iters": iters.tolist(),
            "trials": trials.tolist(),
+           # the batch's passes: each is one set of launches for all B
+           "outer_rounds": r.outer_rounds, "trial_rounds": r.trial_rounds,
+           "ms_per_trial_round": 1e3 * dt_batch / r.trial_rounds,
            "finite": bool(all(torch.isfinite(x).all() for x in
                               (p_out.points, p_out.cfw_R, p_out.cfw_t)))}
     log(f"batched: {args.batch} BAs in {dt_batch * 1e3:.1f} ms "
         f"({out['problems_per_s_batched']:.1f} problems/s); converged "
         f"{converged}/{args.batch}; median err reduction {reduction:.3g}x; "
-        f"iters min/med/max = {out['iters_min_med_max']}")
+        f"iters min/med/max = {out['iters_min_med_max']}; "
+        f"{r.outer_rounds} outer / {r.trial_rounds} trial rounds")
     if args.compare_sequential:
-        ba = BundleAdjustment(device_loop=True)
         ba.compute_inplace(probs[0], term)      # warm-up
         _sync(args.device)
         t0 = time.perf_counter()
@@ -113,6 +119,7 @@ def run(args: argparse.Namespace, log=print) -> dict:
         _sync(args.device)
         dt_seq = time.perf_counter() - t0
         out.update(sequential_s=dt_seq, sequential_path=seq,
+                   sequential_trials=int(sum(t for _, _, t in seq)),
                    problems_per_s_sequential=args.batch / dt_seq,
                    batch_speedup=dt_seq / dt_batch)
         log(f"sequential: {args.batch} BAs in {dt_seq * 1e3:.1f} ms "

@@ -31,7 +31,8 @@ def stack(objs):
     """Objects of one NamedTuple type (problems, states, scenarios) as one
     whose every tensor field has a leading batch axis, the form that the
     batched entry points take (``run_lm_on_device_batched``,
-    ``bundle_adjust_batched``, ``make_batched_scan_runner``'s state)."""
+    ``BundleAdjustment.compute_batched``, ``make_batched_scan_runner``'s
+    state)."""
     return type(objs[0])(*(torch.stack(fs) for fs in zip(*objs)))
 
 

@@ -24,7 +24,6 @@ from surikatoko_tpu_torch.models.ba.normalize import (
 )
 from surikatoko_tpu_torch.models.ba.lm import (
     BundleAdjustment as BundleAdjustment,
-    bundle_adjust_batched as bundle_adjust_batched,
     SparseBundleAdjustment as SparseBundleAdjustment,
     TermCriteria as TermCriteria,
 )

@@ -39,30 +39,56 @@ class TermCriteria:
     max_iters: int = 300
 
 
+# a cam0-cam1 shift at most this long in the gauge's unity component
+# cannot be normalized
+GAUGE_MIN_SHIFT = 1e-5
+
+
+def _lm_limits(term_crit: TermCriteria) -> dict:
+    return dict(err_thresh=term_crit.allowed_reproj_err_rel_change,
+                max_factor=term_crit.max_hessian_factor,
+                max_iters=term_crit.max_iters)
+
+
+def _in_gauge(p, lm, t1y: float, uci: int, batched: bool = False):
+    """validity check -> normalize -> ``lm(p_normalized, valid)`` ->
+    revert, on the device; with ``batched`` each step is mapped over the
+    problems' leading axis with ``torch.func.vmap`` (the gauge's unity
+    component, a Python int, stays outside it). A problem with a degenerate
+    gauge (``valid`` False; the LM refuses it) comes back untouched. Returns
+    ``lm``'s result with its problem in the original gauge."""
+    vmap = torch.func.vmap if batched else (lambda f: f)
+
+    def norm(q):
+        valid = torch.abs(normalize._t01(q.cfw_R, q.cfw_t)[uci]) > GAUGE_MIN_SHIFT
+        q_n, ns = normalize.normalize_scene(q, t1y=t1y, unity_comp_ind=uci,
+                                            min_shift=GAUGE_MIN_SHIFT)
+        return valid, q_n, (ns.R0, ns.T0, ns.world_scale)
+
+    def revert(q, gauge):
+        return normalize.revert_normalization(q, normalize.NormState(*gauge, uci))
+
+    valid, p_n, gauge = vmap(norm)(p)
+    res = lm(p_n, valid)
+    return (lm_device.select(valid, vmap(revert)(res[0], gauge), p),
+            *res[1:])
+
+
 def _run_device_loop(ba, p, term_crit: TermCriteria, blocks_fn, solve_fn,
-                     apply_fn, err_fn, normalize_cfg=None):
+                     apply_fn, err_fn, gauge=None):
     """Run lm_device.run_lm_on_device and map its stop code onto the
     BA object's (ok, stop_reason, iterations, trials) reporting.
 
-    ``normalize_cfg`` (optional, (t1y, unity_comp_ind, atol)) wraps the LM
-    in the gauge transform: validity check -> normalize -> LM -> revert, on
-    the device, with the validity flag in the LM's first fetch. A degenerate
-    gauge comes back untouched with stop code "cannot normalize"."""
-    if normalize_cfg is None:
-        p_in, valid = p, None
-    else:
-        t1y, uci, atol = normalize_cfg
-        valid = torch.abs(normalize._t01(p.cfw_R, p.cfw_t)[uci]) > atol
-        p_in, ns = normalize.normalize_scene(p, t1y=t1y, unity_comp_ind=uci,
-                                             min_shift=atol)
-    p_out, code, iters, _, trials = lm_device.run_lm_on_device(
-        p_in, blocks_fn=blocks_fn, solve_fn=solve_fn, apply_fn=apply_fn,
-        err_fn=err_fn, err_thresh=term_crit.allowed_reproj_err_rel_change,
-        max_factor=term_crit.max_hessian_factor,
-        max_iters=term_crit.max_iters, valid=valid)
-    if normalize_cfg is not None:
-        p_out = (p if code == lm_device.STOP_CANNOT_NORMALIZE
-                 else normalize.revert_normalization(p_out, ns))
+    ``gauge`` (optional, (t1y, unity_comp_ind)) wraps the LM in the gauge
+    transform (:func:`_in_gauge`), with the validity flag in the LM's first
+    fetch. A degenerate gauge comes back untouched with stop code "cannot
+    normalize"."""
+    def lm(q, valid=None):
+        return lm_device.run_lm_on_device(
+            q, blocks_fn=blocks_fn, solve_fn=solve_fn, apply_fn=apply_fn,
+            err_fn=err_fn, valid=valid, **_lm_limits(term_crit))
+    p_out, code, iters, _, trials = (lm(p) if gauge is None
+                                     else _in_gauge(p, lm, *gauge))
     ba.iterations = iters
     ba.trials = trials
     ba.stop_reason = lm_device.STOP_REASON_STR.get(code, "")
@@ -147,9 +173,8 @@ class BundleAdjustment:
         (converged, optimized problem in the original gauge)."""
         term_crit = term_crit or TermCriteria()
         if self.device_loop:
-            return _run_device_loop(
-                self, p, term_crit, *self._fns(),
-                normalize_cfg=(self.t1y, self.unity_comp_ind, 1e-5))
+            return _run_device_loop(self, p, term_crit, *self._fns(),
+                                    gauge=(self.t1y, self.unity_comp_ind))
         if not normalize.can_normalize(p, self.unity_comp_ind):
             self.stop_reason = "cannot normalize (zero cam0-cam1 shift)"
             return False, p
@@ -158,56 +183,34 @@ class BundleAdjustment:
         ok, p_opt = self.compute_on_normalized_world(p_norm, term_crit)
         return ok, normalize.revert_normalization(p_opt, ns)
 
+    def compute_batched(self, p: BAProblem,
+                        term_crit: TermCriteria | None = None
+                        ) -> lm_device.BatchedLM:
+        """B dense problems at once (every field of ``p`` with a leading
+        batch axis, as ``interop.stack`` makes them) through the program of
+        the device loop's :meth:`compute_inplace`: the gauge check,
+        normalize, the LM (:func:`lm_device.run_lm_on_device_batched`, one
+        packed fetch a trial for all B) and the revert, each mapped over
+        the batch. A problem with a degenerate gauge comes back untouched
+        with STOP_CANNOT_NORMALIZE; the others take the path they take
+        alone. Returns the LM's per-problem result, its problems in the
+        original gauge and its errors those of the normalized problems, as
+        the single-problem loop reports them."""
+        term_crit = term_crit or TermCriteria()
+        blocks_fn, solve_fn, apply_fn, err_fn = self._fns()
+
+        def lm(q, valid):
+            return lm_device.run_lm_on_device_batched(
+                q, blocks_fn=blocks_fn, solve_fn=solve_fn, apply_fn=apply_fn,
+                err_fn=err_fn, valid=valid, **_lm_limits(term_crit))
+        return lm_device.BatchedLM(*_in_gauge(p, lm, self.t1y,
+                                              self.unity_comp_ind, True))
+
     def compute_on_normalized_world(self, p: BAProblem,
                                     term_crit: TermCriteria
                                     ) -> tuple[bool, BAProblem]:
         loop = _run_device_loop if self.device_loop else _host_loop
         return loop(self, p, term_crit, *self._fns())
-
-
-def bundle_adjust_batched(p: BAProblem, term_crit: TermCriteria | None = None,
-                          *, unity_comp_ind: int = 1, t1y: float = 1.0,
-                          optimize_intrinsics: bool = True, atol: float = 1e-5):
-    """B dense problems at once (every field of ``p`` with a leading batch
-    axis, as ``interop.stack`` makes them) through the program of
-    ``BundleAdjustment(device_loop=True).compute_inplace``: the gauge
-    check, normalize, the device-loop LM
-    (:func:`lm_device.run_lm_on_device_batched`, one packed fetch a trial
-    for all B) and the revert, each mapped over the batch with
-    ``torch.func.vmap``. A problem with a degenerate gauge (zero cam0-cam1
-    shift) comes back untouched with STOP_CANNOT_NORMALIZE; the others
-    take the path they take alone. The gauge's unity component is the
-    Python int ``unity_comp_ind``, outside the vmap. Returns (problems,
-    stop codes [B], iterations [B], final errors [B], trials [B]), the
-    errors those of the normalized problems, as the single-problem loop
-    reports them."""
-    term_crit = term_crit or TermCriteria()
-    vmap = torch.func.vmap
-    ba = BundleAdjustment(unity_comp_ind=unity_comp_ind, t1y=t1y,
-                          optimize_intrinsics=optimize_intrinsics)
-    valid = vmap(lambda q: torch.abs(
-        normalize._t01(q.cfw_R, q.cfw_t)[unity_comp_ind]) > atol)(p)
-
-    def norm(q):
-        q_n, ns = normalize.normalize_scene(q, t1y=t1y,
-                                            unity_comp_ind=unity_comp_ind,
-                                            min_shift=atol)
-        return q_n, ns.R0, ns.T0, ns.world_scale
-
-    def revert(q, R0, T0, scale):
-        return normalize.revert_normalization(
-            q, normalize.NormState(R0, T0, scale, unity_comp_ind))
-
-    p_n, R0, T0, scale = vmap(norm)(p)
-    blocks_fn, solve_fn, apply_fn, err_fn = ba._fns()
-    p_out, code, iters, err, trials = lm_device.run_lm_on_device_batched(
-        p_n, blocks_fn=blocks_fn, solve_fn=solve_fn, apply_fn=apply_fn,
-        err_fn=err_fn, err_thresh=term_crit.allowed_reproj_err_rel_change,
-        max_factor=term_crit.max_hessian_factor,
-        max_iters=term_crit.max_iters, valid=valid)
-    p_out = lm_device.select(
-        valid, vmap(revert)(p_out, R0, T0, scale), p)
-    return p_out, code, iters, err, trials
 
 
 @dataclass
@@ -289,9 +292,8 @@ class SparseBundleAdjustment:
         term_crit = term_crit or TermCriteria()
         self._plan_band(p)
         if self.device_loop:
-            return _run_device_loop(
-                self, p, term_crit, *self._fns(),
-                normalize_cfg=(1.0, self.unity_comp_ind, 1e-5))
+            return _run_device_loop(self, p, term_crit, *self._fns(),
+                                    gauge=(1.0, self.unity_comp_ind))
         if not normalize.can_normalize(p, self.unity_comp_ind):
             self.stop_reason = "cannot normalize (zero cam0-cam1 shift)"
             return False, p

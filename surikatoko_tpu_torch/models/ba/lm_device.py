@@ -24,7 +24,7 @@ iterations and trials.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -57,11 +57,24 @@ STOP_OK = {
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
-def _fetch(a: torch.Tensor, b: torch.Tensor, np_dtype):
-    """Two device scalars (or two [B] vectors) in one device->host copy, as
-    np_dtype values."""
-    v = torch.stack([a.to(b.dtype), b]).cpu().numpy()
-    return np_dtype(v[0]), np_dtype(v[1])
+def _fetch(a: torch.Tensor, b: torch.Tensor):
+    """Two device scalars or two [B] vectors in one device->host copy, as
+    numpy vectors ([1] or [B]) of the type of ``b``."""
+    v = torch.stack([a.to(b.dtype), b]).cpu().numpy().reshape(2, -1)
+    return v[0], v[1]
+
+
+class BatchedLM(NamedTuple):
+    """:func:`run_lm_on_device_batched`'s result: one entry a problem, and
+    the batch's rounds (each one set of launches for all problems)."""
+
+    p: Any                 # the final problems
+    code: np.ndarray       # stop codes [B]
+    iters: np.ndarray      # accepted steps [B]
+    err: np.ndarray        # final errors [B], in the problem's dtype
+    trials: np.ndarray     # damped solves [B], rejected ones included
+    outer_rounds: int      # blocks computed (the outer loop's passes)
+    trial_rounds: int      # damped solves (the inner loop's passes)
 
 
 def run_lm_on_device(
@@ -84,72 +97,26 @@ def run_lm_on_device(
 
     ``valid`` (optional device bool) gates the whole loop: when False the
     LM never runs and the stop code is STOP_CANNOT_NORMALIZE. It rides in
-    the same fetch as the initial error."""
-    err0 = err_fn(p0)
-    npd = _NP_DTYPE[err0.dtype]
-    if valid is None:
-        valid = torch.ones((), dtype=torch.bool, device=err0.device)
-    ok0, err = _fetch(valid, err0, npd)
-    code = STOP_RUNNING if ok0 else STOP_CANNOT_NORMALIZE
-    eps_floor = npd(eps_floor_mult * float(np.finfo(npd).eps))
-    factor = npd(initial_factor)
-    p, iters, trials = p0, 0, 0
-
-    while code == STOP_RUNNING:
-        blocks = blocks_fn(p)
-        has_prev, err_prev = False, npd(0)
-        while True:
-            dX, du, ok = solve_fn(p, blocks, float(factor))
-            p_try = apply_fn(p, dX, du)
-            ok, err_new = _fetch(ok, err_fn(p_try), npd)
-            ok = bool(ok) and bool(np.isfinite(err_new))
-            trials += 1
-            decreased = ok and err_new < err
-            # host loop order (lm.py): decrease -> dtype floor -> err limit
-            # -> damp (overflow check after damping)
-            diff = err_new - err
-            dtype_conv = (ok and not decreased and diff >= 0
-                          and diff <= eps_floor * err)
-            limit = (err_thresh is not None and ok and not decreased
-                     and not dtype_conv and has_prev
-                     and abs(err_new - err_prev) < err_thresh)
-            next_factor = factor * npd(10.0)
-            stop_damping = decreased or dtype_conv or limit
-            overflow = (max_factor is not None and not stop_damping
-                        and next_factor > max_factor)
-            if ok:
-                err_prev, has_prev = err_new, True
-            if decreased:
-                break
-            factor = next_factor
-            if dtype_conv or limit or overflow:
-                code = (STOP_DTYPE_PRECISION if dtype_conv else
-                        STOP_ERR_LIMIT if limit else STOP_HESSIAN_OVERFLOW)
-                break
-        if code != STOP_RUNNING:
-            break
-        iters += 1
-        small_rel = err_thresh is not None and abs(err_new - err) < err_thresh
-        p, err = p_try, err_new
-        factor = factor / npd(10.0)
-        if small_rel:
-            code = STOP_SMALL_REL_CHANGE
-        elif iters >= max_iters:
-            code = STOP_MAX_ITERS
-    return p, code, iters, float(err), trials
+    the same fetch as the initial error. The schedule is
+    :func:`run_lm_on_device_batched`'s, on one problem and its 0-d state."""
+    r = _schedule(p0, (blocks_fn, solve_fn, apply_fn, err_fn), False,
+                  err_thresh, max_factor, max_iters, initial_factor,
+                  eps_floor_mult, valid)
+    return r.p, r.code.item(), r.iters.item(), r.err.item(), r.trials.item()
 
 
 def select(take: torch.Tensor, a: Any, b: Any) -> Any:
     """Field by field: problem i of ``a`` where ``take[i]``, else of ``b``
-    (both problems with a leading batch axis)."""
+    (problems with a leading batch axis; with a 0-d ``take``, one
+    problem). A field that is one tensor in both is passed on as it is."""
     def pick(x, y):
-        return torch.where(take.view(-1, *([1] * (x.dim() - 1))), x, y)
+        if x is y:
+            return x
+        return torch.where(take.view(*take.shape,
+                                     *([1] * (x.dim() - take.dim()))), x, y)
     return type(a)(*(pick(x, y) for x, y in zip(a, b)))
 
 
-# a failed trial's error may be inf or nan: ``ok`` masks it out of every
-# decision, so numpy's warnings about it say nothing
-@np.errstate(invalid="ignore", over="ignore")
 def run_lm_on_device_batched(
     p0: Any,
     *,
@@ -163,7 +130,7 @@ def run_lm_on_device_batched(
     initial_factor: float = 1e-4,
     eps_floor_mult: float = 32.0,
     valid: torch.Tensor | None = None,
-) -> tuple[Any, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+) -> BatchedLM:
     """:func:`run_lm_on_device` over B problems at once: ``p0`` carries a
     leading batch axis on every field, and the per-problem functions
     (``blocks_fn`` and the rest, as for one problem; ``solve_fn`` takes a
@@ -176,78 +143,104 @@ def run_lm_on_device_batched(
     in this iteration, keeps its state (``torch.where``) while the others
     try on. Each problem takes the decisions its own
     :func:`run_lm_on_device` takes, in the same order, as JAX's vmapped
-    ``while_loop`` does.
+    ``while_loop`` does: both run this schedule.
 
     ``valid`` [B] (device bool) gates each problem: where False it never
-    runs, keeps ``p0`` and stops with STOP_CANNOT_NORMALIZE. Returns
-    (p_final, stop codes [B], iterations [B], final errors [B] in the
-    problem's dtype, trials [B])."""
-    vmap = torch.func.vmap
-    v_blocks, v_solve = vmap(blocks_fn), vmap(solve_fn)
-    v_apply, v_err = vmap(apply_fn), vmap(err_fn)
-    err0 = v_err(p0)
-    B, dev = err0.shape[0], err0.device
+    runs, keeps ``p0`` and stops with STOP_CANNOT_NORMALIZE."""
+    return _schedule(p0, (blocks_fn, solve_fn, apply_fn, err_fn), True,
+                     err_thresh, max_factor, max_iters, initial_factor,
+                     eps_floor_mult, valid)
+
+
+# a failed trial's error may be inf or nan: ``ok`` masks it out of every
+# decision, so numpy's warnings about it say nothing
+@np.errstate(invalid="ignore", over="ignore")
+def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
+              initial_factor, eps_floor_mult, valid) -> BatchedLM:
+    """The LM schedule over a batch (the functions mapped with
+    ``torch.func.vmap``, the factor a [B] tensor) or over one problem
+    (``batched`` False: its state is numpy vectors of one entry, the factor
+    reaches ``solve_fn`` as a float)."""
+    if batched:
+        fns = tuple(torch.func.vmap(f) for f in fns)
+    blocks_fn, solve_fn, apply_fn, err_fn = fns
+    err0 = err_fn(p0)
+    dev = err0.device
     npd = _NP_DTYPE[err0.dtype]
     if valid is None:
-        valid = torch.ones(B, dtype=torch.bool, device=dev)
-    ok0, err = _fetch(valid, err0, lambda v: np.asarray(v, npd))
+        valid = torch.ones(err0.shape, dtype=torch.bool, device=dev)
+    ok0, err = _fetch(valid, err0)
+    shape = err.shape
     code = np.where(ok0 != 0, STOP_RUNNING, STOP_CANNOT_NORMALIZE)
     eps_floor = npd(eps_floor_mult * float(np.finfo(npd).eps))
     # no |change| is below -inf and no factor above +inf: a criterion given
     # as None never fires
     thresh = -np.inf if err_thresh is None else err_thresh
     cap = np.inf if max_factor is None else max_factor
-    factor = np.full(B, initial_factor, npd)
-    iters = np.zeros(B, np.int64)
-    trials = np.zeros(B, np.int64)
+    factor = np.full(shape, initial_factor, npd)
+    iters = np.zeros(shape, np.int64)
+    trials = np.zeros(shape, np.int64)
+    outer_rounds = trial_rounds = 0
     p = p0
 
-    while np.any(code == STOP_RUNNING):
-        blocks = v_blocks(p)
+    def factor_arg(f):
+        return (torch.as_tensor(f, dtype=err0.dtype, device=dev) if batched
+                else f.item())
+
+    while (code == STOP_RUNNING).any():
+        blocks = blocks_fn(p)
+        outer_rounds += 1
         damping = code == STOP_RUNNING
-        has_prev = np.zeros(B, bool)
-        err_prev = np.zeros(B, npd)
-        accepted = np.zeros(B, bool)
+        has_prev = np.zeros(shape, bool)
+        err_prev = np.zeros(shape, npd)
+        accepted = np.zeros(shape, bool)
         err_acc = err.copy()
         p_acc = p
-        while np.any(damping):
-            dX, du, ok = v_solve(p, blocks, torch.as_tensor(
-                factor, dtype=err0.dtype, device=dev))
-            p_try = v_apply(p, dX, du)
-            ok, err_new = _fetch(ok, v_err(p_try), lambda v: np.asarray(v, npd))
-            ok = (ok != 0) & np.isfinite(err_new)
+        # host loop order (lm.py): decrease -> dtype floor -> err limit ->
+        # damp (overflow check after damping)
+        while damping.any():
+            dX, du, ok = solve_fn(p, blocks, factor_arg(factor))
+            p_try = apply_fn(p, dX, du)
+            ok, err_new = _fetch(ok, err_fn(p_try))
+            trial_rounds += 1
             trials += damping
-            # the single-problem loop's decisions, for the damping problems
-            decreased = damping & ok & (err_new < err)
+            # a trial that counts: solved, finite, of a damping problem
+            ok = (ok != 0) & np.isfinite(err_new) & damping
+            decreased = ok & (err_new < err)
+            rest = ok & ~decreased
             diff = err_new - err
-            dtype_conv = (damping & ok & ~decreased & (diff >= 0)
-                          & (diff <= eps_floor * err))
-            limit = (damping & ok & ~decreased & ~dtype_conv & has_prev
+            dtype_conv = rest & (diff >= 0) & (diff <= eps_floor * err)
+            limit = (rest & ~dtype_conv & has_prev
                      & (np.abs(err_new - err_prev) < thresh))
-            next_factor = factor * npd(10.0)
-            stop_damping = decreased | dtype_conv | limit
-            overflow = damping & ~stop_damping & (next_factor > cap)
-            seen = damping & ok
-            err_prev = np.where(seen, err_new, err_prev)
-            has_prev |= seen
-            if np.any(decreased):
+            err_prev = np.where(ok, err_new, err_prev)
+            has_prev = has_prev | ok
+            if decreased.all():
+                # every problem accepts this trial (one problem always does
+                # when it decreases): no selection needed
+                p_acc = p_try
+            elif decreased.any():
                 p_acc = select(torch.as_tensor(decreased, device=dev), p_try,
                                p_acc)
-                err_acc = np.where(decreased, err_new, err_acc)
-                accepted |= decreased
+            err_acc = np.where(decreased, err_new, err_acc)
+            accepted = accepted | decreased
+            # the others damp on, unless their error stopped them; the
+            # factor beyond the cap (after damping) stops them too
             failed = damping & ~decreased
+            next_factor = factor * npd(10.0)
             factor = np.where(failed, next_factor, factor)
-            code = np.where(failed & dtype_conv, STOP_DTYPE_PRECISION,
-                            np.where(failed & limit, STOP_ERR_LIMIT,
-                                     np.where(failed & overflow,
-                                              STOP_HESSIAN_OVERFLOW, code)))
-            damping = failed & ~(dtype_conv | limit | overflow)
+            damping = failed & ~(dtype_conv | limit)
+            overflow = damping & (next_factor > cap)
+            damping = damping & ~overflow
+            code = np.where(dtype_conv, STOP_DTYPE_PRECISION,
+                            np.where(limit, STOP_ERR_LIMIT,
+                                     np.where(overflow, STOP_HESSIAN_OVERFLOW,
+                                              code)))
         p = p_acc
-        iters += accepted
+        iters = iters + accepted
         small_rel = accepted & (np.abs(err_acc - err) < thresh)
         err = np.where(accepted, err_acc, err)
         factor = np.where(accepted, factor / npd(10.0), factor)
         code = np.where(small_rel, STOP_SMALL_REL_CHANGE,
                         np.where(accepted & (iters >= max_iters),
                                  STOP_MAX_ITERS, code))
-    return p, code, iters, err, trials
+    return BatchedLM(p, code, iters, err, trials, outer_rounds, trial_rounds)

@@ -38,22 +38,16 @@ LAUNCHES = 0
 # problems a launch: the grid's y extent
 MAX_BATCH = 65535
 
-# The library's entry points, float32 and float64: for one problem (P, M,
-# keep, Mp, out, D, m, tile, stream) and (P, M, keep, out, D, m, stream);
-# for a batch (P, M, keep, Mp, out, B, D, m, tile, sP, sM, sK, stream) and
-# (P, M, keep, out, B, D, m, sP, sM, sK, stream), a problem's tensors s*
-# values after the previous one's.
+# The library's entry points, float32 and float64, for B problems: (P, M,
+# keep, Mp, out, B, D, m, tile, sP, sM, sK, stream) and (P, M, keep, out, B,
+# D, m, sP, sM, sK, stream), a problem's tensors s* values after the
+# previous one's (0: one tensor shared by every problem). One problem is a
+# batch of one, which the library runs without the batch addressing.
 _LIB = KernelLibrary(
-    "symmetric_downdate.cu", "symmetric_downdate_f32",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_LIB64 = KernelLibrary(
-    "symmetric_downdate.cu", "symmetric_downdate_f64",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-_LIBB = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_f32_batched",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
     + [ctypes.c_void_p])
-_LIB64B = KernelLibrary(
+_LIB64 = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_f64_batched",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3
     + [ctypes.c_void_p])
@@ -125,12 +119,10 @@ def _check(P: torch.Tensor, M: torch.Tensor, keep: torch.Tensor | None
            ) -> None:
     """Raise unless P [*L,D,D], M [*L,m,D] and keep [*L,D] (or None) share
     their leading dims L, one float type and one device, with D, m >= 1."""
-    lead = P.shape[:-2]
-    D = P.shape[-1] if P.dim() >= 2 else 0
-    if (P.dim() < 2 or P.shape[-2] != D or M.dim() != P.dim()
-            or M.shape[:-2] != lead or M.shape[-1] != D or D < 1
-            or M.shape[-2] < 1
-            or (keep is not None and tuple(keep.shape) != (*lead, D))):
+    ps, ms = P.shape, M.shape
+    if (len(ps) < 2 or ps[-2] != ps[-1] or len(ms) != len(ps)
+            or ms[:-2] != ps[:-2] or ms[-1] != ps[-1] or ps[-1] < 1
+            or ms[-2] < 1 or (keep is not None and keep.shape != ps[:-1])):
         raise ValueError(f"bad shapes: P {tuple(P.shape)}, M {tuple(M.shape)}, "
                          f"keep {None if keep is None else tuple(keep.shape)}")
     if P.dtype not in (torch.float32, torch.float64):
@@ -140,86 +132,42 @@ def _check(P: torch.Tensor, M: torch.Tensor, keep: torch.Tensor | None
             raise ValueError(f"{name} must be a {P.dtype} tensor on {P.device}")
 
 
-def _one(P: torch.Tensor, M: torch.Tensor,
-         keep: torch.Tensor | None) -> torch.Tensor:
-    """One problem, P [D,D]: the plain version on the CPU, else the
-    single-problem entry points, which run the kernel without the batch
-    addressing. It keeps its own checks and launch (not a batch of one):
-    the batch's stride handling costs the host some 20 µs a call
-    (``tools/probe_batch.py tree`` on an H100)."""
-    global LAUNCHES
-    if P.device.type == "cpu":
-        return symmetric_downdate_ref(P, M, keep)
-    if P.device.type != "cuda":
-        raise ValueError(f"no downdate kernel for device {P.device}")
-    D = P.shape[0]
-    if (P.dim() != 2 or P.shape[1] != D or M.dim() != 2 or M.shape[1] != D
-            or D < 1 or M.shape[0] < 1
-            or (keep is not None and tuple(keep.shape) != (D,))):
-        raise ValueError(f"bad shapes: P {tuple(P.shape)}, M {tuple(M.shape)}, "
-                         f"keep {None if keep is None else tuple(keep.shape)}")
-    if P.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"no downdate kernel for {P.dtype}")
-    for name, t in (("P", P), ("M", M), ("keep", keep)):
-        if t is not None and (t.dtype != P.dtype or not t.is_contiguous()
-                              or t.device != P.device):
-            raise ValueError(f"{name} must be a contiguous {P.dtype} tensor "
-                             f"on {P.device}")
-    m = M.shape[0]
-    out = torch.empty_like(P)
-    keep_ptr = None if keep is None else keep.data_ptr()
-    with torch.cuda.device(P.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if P.dtype == torch.float64:
-            rc = _LIB64.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
-                             out.data_ptr(), D, m, stream)
-        else:
-            tile = downdate_config(D)[0]
-            # 128-wide tiles load M from a copy whose rows are padded to a
-            # multiple of 4 floats (16-byte loads)
-            scratch = (torch.empty((m, -(-D // 4) * 4), dtype=P.dtype,
-                                   device=P.device) if tile == 128 else None)
-            rc = _LIB.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
-                           None if scratch is None else scratch.data_ptr(),
-                           out.data_ptr(), D, m, tile, stream)
-    if rc != 0:
-        raise RuntimeError(f"symmetric_downdate kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return out
-
-
-def _slices(t: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """(t [B,...] with contiguous slices, the values from one slice to the
+def _slices(t: torch.Tensor, B: int) -> tuple[torch.Tensor, int]:
+    """(t with contiguous problems, the values from one problem to the
     next): an axis of stride 0, one tensor shared by every problem (what
-    vmap's rule makes of an unbatched argument), is passed without a copy."""
-    if t.shape[0] > 1 and t.stride(0) == 0:
+    vmap's rule makes of an unbatched argument), is passed without a copy,
+    as is the one problem of a batch of one; both step 0."""
+    if B == 1:
+        return t.contiguous(), 0
+    if t.stride(0) == 0:
         return t[:1].contiguous(), 0
     t = t.contiguous()
-    return t, t[0].numel()
+    return t, t.numel() // B
 
 
-def _launch(P: torch.Tensor, M: torch.Tensor, keep: torch.Tensor | None
-            ) -> torch.Tensor:
+def _launch(P: torch.Tensor, M: torch.Tensor, keep: torch.Tensor | None,
+            B: int) -> torch.Tensor:
     """One launch of the kernel over B problems: P [B,D,D], M [B,m,D], keep
-    [B,D] or None (checked); returns out [B,D,D]."""
+    [B,D] or None (checked), or for B = 1 also P [D,D], M [m,D], keep [D];
+    returns out of P's shape."""
     global LAUNCHES
-    B, m, D = M.shape
+    D, m = P.shape[-1], M.shape[-2]
     if B > MAX_BATCH:
         raise ValueError(f"batch of {B} problems: at most {MAX_BATCH} a launch")
-    out = torch.empty((B, D, D), dtype=P.dtype, device=P.device)
+    out = torch.empty_like(P, memory_format=torch.contiguous_format)
     if B == 0:
         return out
-    P, sP = _slices(P)
-    M, sM = _slices(M)
+    P, sP = _slices(P, B)
+    M, sM = _slices(M, B)
     keep_ptr, sK = None, 0
     if keep is not None:
-        keep, sK = _slices(keep)
+        keep, sK = _slices(keep, B)
         keep_ptr = keep.data_ptr()
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream().cuda_stream
         if P.dtype == torch.float64:
-            rc = _LIB64B.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
-                              out.data_ptr(), B, D, m, sP, sM, sK, stream)
+            rc = _LIB64.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
+                             out.data_ptr(), B, D, m, sP, sM, sK, stream)
         else:
             tile = downdate_config(D)[0]
             # 128-wide tiles load M from a copy whose rows are padded to a
@@ -227,9 +175,9 @@ def _launch(P: torch.Tensor, M: torch.Tensor, keep: torch.Tensor | None
             scratch = (torch.empty((1 if sM == 0 else B, m, -(-D // 4) * 4),
                                    dtype=P.dtype, device=P.device)
                        if tile == 128 else None)
-            rc = _LIBB.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
-                            None if scratch is None else scratch.data_ptr(),
-                            out.data_ptr(), B, D, m, tile, sP, sM, sK, stream)
+            rc = _LIB.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
+                           None if scratch is None else scratch.data_ptr(),
+                           out.data_ptr(), B, D, m, tile, sP, sM, sK, stream)
     if rc != 0:
         raise RuntimeError(f"symmetric_downdate kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -242,14 +190,21 @@ def _downdate(P: torch.Tensor, M: torch.Tensor,
     one launch for P [D,D] and for a batch P [*L,D,D] (its leading dims L
     flattened into one). M and keep may leave out leading dims of P's (one
     shared by every problem)."""
-    if P.dim() == 2:
-        return _one(P, M, keep)
     if P.device.type == "cpu":
         return symmetric_downdate_ref(P, M, keep)
     if P.device.type != "cuda":
         raise ValueError(f"no downdate kernel for device {P.device}")
+    if P.dim() == 2:
+        # one problem: a batch of one, without the batch's expand and
+        # reshapes (host time that the flagship's frame would pay)
+        _check(P, M, keep)
+        if not (P.is_contiguous() and M.is_contiguous()
+                and (keep is None or keep.is_contiguous())):
+            raise ValueError("P, M and keep of one problem must be contiguous")
+        return _launch(P, M, keep, 1)
     lead = P.shape[:-2]
-    return _launch(*_flat(P, M, keep)).reshape(*lead, *P.shape[-2:])
+    P, M, keep = _flat(P, M, keep)
+    return _launch(P, M, keep, P.shape[0]).reshape(*lead, *P.shape[-2:])
 
 
 @torch.library.custom_op("surikatoko::symmetric_downdate", mutates_args=())

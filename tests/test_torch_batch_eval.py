@@ -15,7 +15,7 @@ on the CPU (float32 where the Pallas kernel is the reference):
   and trials equal, the final error at rtol 1e-9 (atol 1e-18: it ends at the
   rounding floor, ~1e-24), points and poses at 1e-8; and each problem against
   its own unbatched port run;
-- ``bundle_adjust_batched`` with a degenerate gauge in the batch: that
+- ``BundleAdjustment.compute_batched`` with a degenerate gauge in the batch: that
   problem comes back untouched, the others as alone;
 - the runners: ``demos.batch_ba`` at ``--batch 4``, the circle-grid fixture
   and ``world/test_data_builder`` against the JAX ones (1e-12).
@@ -42,7 +42,6 @@ from surikatoko_tpu.world import test_data_builder as jtdb
 from surikatoko_tpu_torch import interop
 from surikatoko_tpu_torch.demos import batch_ba
 from surikatoko_tpu_torch.models.ba import BundleAdjustment, TermCriteria
-from surikatoko_tpu_torch.models.ba import bundle_adjust_batched
 from surikatoko_tpu_torch.models.ba import derivs as td
 from surikatoko_tpu_torch.models.ba import lm_device as tlmd
 from surikatoko_tpu_torch.models.ba import problem as tp
@@ -246,8 +245,12 @@ def test_torch_batched_lm_matches_jax_vmap():
     t_kw = dict(blocks_fn=td.compute_blocks,
                 solve_fn=lambda _p, b, f: ts.solve_corrections_schur(b, f),
                 apply_fn=td.apply_corrections, err_fn=tp.reproj_error, **kw)
-    p_t, code_t, iters_t, err_t, trials_t = tlmd.run_lm_on_device_batched(
-        interop.stack(probs_t), **t_kw)
+    r = tlmd.run_lm_on_device_batched(interop.stack(probs_t), **t_kw)
+    p_t, code_t, iters_t, err_t, trials_t = r[:5]
+    # a round is one set of launches for all problems: as many as the
+    # problem that takes most
+    assert r.trial_rounds == trials_t.max()
+    assert r.outer_rounds >= iters_t.max()
     assert code_t.tolist() == np.asarray(code_j).tolist()
     assert iters_t.tolist() == np.asarray(iters_j).tolist()
     assert trials_t.tolist() == np.asarray(trials_j).tolist()
@@ -289,7 +292,7 @@ def test_torch_batched_lm_criteria_match_unbatched(err_thresh, max_factor,
               err_thresh=err_thresh, max_factor=max_factor,
               max_iters=max_iters)
     _, code, iters, err, trials = tlmd.run_lm_on_device_batched(
-        interop.stack(probs), **kw)
+        interop.stack(probs), **kw)[:5]
     for b, p in enumerate(probs):
         _, c1, i1, e1, t1 = tlmd.run_lm_on_device(p, **kw)
         assert (code[b], iters[b], trials[b]) == (c1, i1, t1)
@@ -313,14 +316,14 @@ def test_torch_batched_ba_leaves_a_degenerate_gauge_untouched():
                          probs[0].cfw_t[2:]]))
     batch = probs[:2] + [bad] + probs[2:]
     term = TermCriteria(allowed_reproj_err_rel_change=1e-12, max_iters=25)
-    p_out, code, iters, err, trials = bundle_adjust_batched(
-        interop.stack(batch), term)
+    ba = BundleAdjustment(device_loop=True)
+    p_out, code, iters, err, trials = ba.compute_batched(
+        interop.stack(batch), term)[:5]
     assert code[2] == tlmd.STOP_CANNOT_NORMALIZE
     assert (iters[2], trials[2]) == (0, 0)
     for name in ("points", "cfw_R", "cfw_t", "K"):
         np.testing.assert_allclose(getattr(p_out, name)[2].numpy(),
                                    getattr(bad, name).numpy(), rtol=0, atol=0)
-    ba = BundleAdjustment(device_loop=True)
     for b in (0, 1, 3):
         ok, p1 = ba.compute_inplace(batch[b], term)
         assert (tlmd.STOP_REASON_STR[int(code[b])], iters[b], trials[b]) == (

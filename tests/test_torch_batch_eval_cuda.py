@@ -166,15 +166,14 @@ def test_torch_batch_ba_f64_on_card_takes_each_problems_own_path():
     the card and on the CPU, and lands within 1e-9 of the CPU's batch."""
     from surikatoko_tpu_torch.demos import batch_ba
     from surikatoko_tpu_torch.interop import stack
-    from surikatoko_tpu_torch.models.ba import (BundleAdjustment, TermCriteria,
-                                                bundle_adjust_batched)
+    from surikatoko_tpu_torch.models.ba import BundleAdjustment, TermCriteria
     _card()
     term = TermCriteria(allowed_reproj_err_rel_change=1e-12, max_iters=25)
     res = {}
     for dev in ("cuda", "cpu"):
         probs = batch_ba.problems(batch_ba.make_args(batch=8, device=dev))
-        p, code, iters, err, trials = bundle_adjust_batched(stack(probs), term)
         ba = BundleAdjustment(device_loop=True)
+        p, code, iters, err, trials = ba.compute_batched(stack(probs), term)[:5]
         alone = []
         for q in probs:
             ba.compute_inplace(q, term)

@@ -261,14 +261,14 @@ def test_torch_batch_entry_points_default_to_the_card():
     from surikatoko_tpu_torch.demos import (ba_at_scale, batch_ba,
                                             bundle_adj_circle_grid,
                                             bundle_adj_dinosaur)
-    from surikatoko_tpu_torch.models.ba import bundle_adjust_batched
+    from surikatoko_tpu_torch.models.ba import BundleAdjustment
     for mod in (batch_ba, bundle_adj_circle_grid, bundle_adj_dinosaur,
                 ba_at_scale):
         assert mod.make_args().device == "cuda"
     if torch.cuda.is_available():
         probs = batch_ba.problems(batch_ba.make_args(batch=2))
         assert all(t.device.type == "cuda" for p in probs for t in p)
-        out = bundle_adjust_batched(interop.stack(probs))[0]
+        out = BundleAdjustment().compute_batched(interop.stack(probs)).p
         assert all(t.device.type == "cuda" for t in out)
     else:
         with pytest.raises((AssertionError, RuntimeError)):

@@ -3,6 +3,7 @@
 
     python3 tools/probe_batch.py tiles [--out FILE]
     python3 tools/probe_batch.py tree DIR LABEL [--out FILE]
+    python3 tools/probe_batch.py host FILE [--out FILE]
 
 ``tiles``: the batched float32 entry point with 32- and 128-wide tiles over
 B = 1 .. 128 at D = 589 (m = 192, scenario03's shape), D = 109 (m = 32) and
@@ -15,9 +16,16 @@ checkouts on one card in turns (e.g. the parent commit unpacked with ``git
 archive`` into ``_checkout/parent``: run parent, this tree, this tree,
 parent). B2 at (589,192) and (4621,1536) with keep: CUDA events, graph
 replay, device time, and the host's time to enqueue a call (host clock over
-back-to-back calls); then the flagship loop of chip_smoke.py (120 timed
-frames after 120 warm-up frames): fps and ATE. The checkout's own
-chip_smoke.py and package are imported.
+back-to-back calls, the median of 5 runs); then the flagship loop of
+chip_smoke.py (120 timed frames after 120 warm-up frames): fps and ATE. The
+checkout's own chip_smoke.py and package are imported.
+
+``host``: the host's time to enqueue one unbatched B2 call through this
+tree's wrapper and through another source of ``ops/covariance.py`` (FILE,
+e.g. the parent's from ``git show``), both loaded in one process and timed
+in turns (10 rounds of back-to-back calls each, medians), at (589,192) and
+(4621,1536) with keep. Both launch this tree's kernel library; the other
+source's dispatcher operator is registered under another name.
 
 One JSON line per measurement, and the card's name and power limit last.
 """
@@ -55,7 +63,7 @@ def tiles(out) -> None:
         res = torch.empty((B, D, D), device=dev)
         scratch = (torch.empty((B, m, -(-D // 4) * 4), device=dev)
                    if tile == 128 else None)
-        rc = cov._LIBB.fn()(P.data_ptr(), M.data_ptr(), keep.data_ptr(),
+        rc = cov._LIB.fn()(P.data_ptr(), M.data_ptr(), keep.data_ptr(),
                             None if scratch is None else scratch.data_ptr(),
                             res.data_ptr(), B, D, m, tile, D * D, m * D, D,
                             torch.cuda.current_stream().cuda_stream)
@@ -101,12 +109,16 @@ def tree(root: str, label: str, out) -> None:
         n = 400 if D < 1000 else 40
         row = {"events_ms": c.cuda_ms(f, n), "graph_ms": c.cuda_graph_ms(f, n // 4),
                "device_us": c.device_us_per_call(f)}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            f()
-        row["host_enqueue_us"] = 1e6 * (time.perf_counter() - t0) / n
-        torch.cuda.synchronize()
+        reps = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                f()
+            reps.append(1e6 * (time.perf_counter() - t0) / n)
+            torch.cuda.synchronize()
+        row["host_enqueue_us"] = sorted(reps)[2]
+        row["host_enqueue_us_reps"] = reps
         res[f"{D}x{m}"] = row
     params, sc = c.flagship_setup(dev)
     _, out_loop, _, dt, _ = c.run_loop(params, sc, True, dev)
@@ -114,6 +126,42 @@ def tree(root: str, label: str, out) -> None:
     res["flagship_ate"] = float(aligned_rmse(
         out_loop[2][2].double(),
         c.gt_positions(sc, list(c.TIMED_FRAMES)).double()))
+    emit(res, out)
+
+
+def host(ref: str, out) -> None:
+    import importlib.util
+    import torch
+    import chip_smoke as c
+    from surikatoko_tpu_torch import config
+    from surikatoko_tpu_torch.ops import covariance as cov
+    dev = torch.device("cuda", 0)
+    config.set_full_precision()
+    text = Path(ref).read_text().replace('"surikatoko::symmetric_downdate"',
+                                         '"surikatoko::symmetric_downdate_other"')
+    spec = importlib.util.spec_from_loader("covariance_other", loader=None)
+    other = importlib.util.module_from_spec(spec)
+    exec(compile(text, ref, "exec"), other.__dict__)
+    cov.build()
+    res = {"probe": "host", "other": ref}
+    for D, m in ((589, 192), (4621, 1536)):
+        P, M, keep = c.downdate_case(D, m, True, dev)
+        fns = {"this": lambda: cov.symmetric_downdate(P, M, keep),
+               "other": lambda: other.symmetric_downdate(P, M, keep)}
+        equal = torch.equal(fns["this"](), fns["other"]())
+        n = 2000 if D < 1000 else 40
+        reps = {k: [] for k in fns}
+        for _ in range(10):
+            for k, f in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    f()
+                reps[k].append(1e6 * (time.perf_counter() - t0) / n)
+                torch.cuda.synchronize()
+        res[f"{D}x{m}"] = {"bitwise_equal": equal, **{
+            f"host_enqueue_us_{k}": sorted(v)[len(v) // 2] for k, v in reps.items()},
+            **{f"host_enqueue_us_{k}_reps": v for k, v in reps.items()}}
     emit(res, out)
 
 
@@ -126,10 +174,16 @@ def main() -> int:
     r.add_argument("dir")
     r.add_argument("label")
     r.add_argument("--out", default=None)
+    h = sub.add_parser("host")
+    h.add_argument("file")
+    h.add_argument("--out", default=None)
     args = ap.parse_args()
-    if args.probe == "tiles":
+    if args.probe in ("tiles", "host"):
         sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-        tiles(args.out)
+        if args.probe == "tiles":
+            tiles(args.out)
+        else:
+            host(args.file, args.out)
     else:
         tree(args.dir, args.label, args.out)
     import chip_smoke as c

@@ -53,6 +53,11 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 
 TILES = (32, 128)
+# the single-problem C entry points, the interface that earlier builds
+# share: f32 (P, M, keep, Mp, out, D, m, tile, stream), f64 (P, M, keep,
+# out, D, m, stream)
+F32_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+F64_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 SWEEP_K = (16, 32, 48, 64, 96, 128, 160, 192, 224, 256, 320, 384, 512, 768)
 
 
@@ -74,7 +79,9 @@ def run_f32(fn, P, M, keep, tile):
 
 def launcher(cov, tile):
     """The wrapper's kernel with a forced tile edge."""
-    fn = cov._LIB.fn()
+    from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
+    fn = KernelLibrary(cov._LIB.source.name, "symmetric_downdate_f32",
+                       F32_ARGS).fn()
     return lambda P, M, keep: run_f32(fn, P, M, keep, tile)
 
 
@@ -91,7 +98,7 @@ def ref_launcher(path: str):
     early = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     current = "float* Mp" in text
     lib = KernelLibrary(str(Path(path).resolve()), "symmetric_downdate_f32",
-                        cov._LIB.argtypes if current else early)
+                        F32_ARGS if current else early)
     fn = lib.fn()
 
     def run(P, M, keep):
@@ -108,7 +115,7 @@ def ref_launcher(path: str):
     run64 = None
     if "symmetric_downdate_f64" in text:
         fn64 = KernelLibrary(str(Path(path).resolve()), "symmetric_downdate_f64",
-                             cov._LIB64.argtypes).fn()
+                             F64_ARGS).fn()
 
         def run64(P, M, keep):
             out = torch.empty_like(P)
