@@ -195,9 +195,37 @@ Phases, one JSON line each:
            and in float64 each problem's stop code, iterations and trials in
            both batches equal to its own run; one profiled LM iteration at
            B = 256 (busy share).
+  sharded  the distribution layer (surikatoko_tpu_torch/parallel) on a
+           one-rank NCCL group, the card's only rank. B2's row-slab entry
+           points (checked and timed right after the kernel phase) at (R, D,
+           m, r0) = (4608, 4621, 1536, 13), one rank's landmark rows at
+           K=768, and (1152, 4621, 1536, 1165), rank 1 of four, float32 and
+           float64: bit for bit the full B2 call's rows, repeating, within
+           the plain version's tolerance, timed by events, graph replay and
+           device time beside the plain version, a masked addmm of the same
+           rows and the bound (R D m FMAs). Then (a) the sharded fused step
+           at K=768 in float64 and float32 against the single-device fused
+           step: P == P^T bit for bit, the frame's slab equal to the full B2
+           output bit for bit in float64, x and P differences printed; (b)
+           the sharded imageseq runner with bench.py:355-358's settings (the
+           flagship world, recruit_max 12, 64 detector corners, the local
+           depth prior) over frames 1-8 against make_imageseq_scan_runner:
+           sharded_pallas_matched_absdiff <= 5 (bench.py's name and limit)
+           and sharded_pos_maxdiff, one B1 and two B2-slab launches a frame
+           and no full B2 launch, then frames 9-40 timed (fps) and one
+           profiled frame (busy share); (c) the banded point-sharded BA at
+           2048 x 100: its first trial's du and dX within BAND_RTOL of the
+           full-width single-device solve (relative 2-norm), the LM lowering
+           the error with the plan engaged; (d) dryrun_multichip(1) in a
+           rank of its own; (f) the MonoSlam demo's main path
+           (demos/davison_mono_slam) on configs/scenario01.json, its whole
+           40-frame path, no views, float64 (its default; ATE within 1e-6 of the CPU's)
+           and float32 (ATE <= 2 x the float64 ATE + 0.02): fps and ATE.
   Neither the BA, the MVF, the two-view phases nor batch BA may launch
   kernel B1 or B2.
-Then a line with every kernel's launches, error and times (B2's batched
+Then a line with every kernel's launches, error and times (B2's row-slab
+entry points as a kernel of their own, their launches those of the sharded
+imageseq run; B2's batched
 entry points' at (32,589,192) in both types too, and its float64 entry
 point's: its tile edge, its launches in precision_k768's float64
 run, and whether it beat its one-call yardstick; each kernel's launches on
@@ -249,6 +277,19 @@ F64_REL_FRO = 1e-12
 # tiles only) and the downdate itself
 DOWNDATE_DEVICE_KERNELS = ("pad_rows", "downdate_kernel")
 NCC_DEVICE_KERNELS = ("ncc_search_kernel",)
+# the sharded phase: B2's row slabs (R, D, m, r0) of one rank at K=768 and
+# of rank 1 of four; the imageseq frames compared (bench.py:351) and timed;
+# the banded point-sharded BA (points, frames, track length)
+SLAB_SHAPES = ((4608, 4621, 1536, 13), (1152, 4621, 1536, 13 + 1152))
+SHARDED_FRAMES = range(1, 9)
+SHARDED_TIMED = range(9, 41)
+SHARDED_BA = (2048, 100, 12)
+# the MonoSlam demo's main path (demos/davison_mono_slam.run) on
+# configs/scenario01.json, whose rectangular path is 40 frames long (frames
+# asked for past it are not run), and its float64 trajectory ATE on the CPU:
+#   python3 -c "import chip_smoke as c; print(c.demo_ate('cpu'))"
+DEMO_CONFIG, DEMO_FRAMES = "configs/scenario01.json", 40
+DEMO_ATE_F64 = 0.05146112052501679
 # profiles taken for one device time before it counts as not measured
 PROFILE_TRIES = 3
 
@@ -1623,6 +1664,269 @@ def batch_ba_phase(device) -> dict:
     return out
 
 
+def demo_run(device, x64: bool) -> dict:
+    """The MonoSlam demo's main path, DEMO_FRAMES frames of DEMO_CONFIG,
+    no views and no internals file; its metrics."""
+    from surikatoko_tpu_torch.demos import davison_mono_slam as demo
+    return demo.run(demo.make_args(
+        scene_config=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                  DEMO_CONFIG),
+        frames=DEMO_FRAMES, device=str(device), x64=x64, out_internals=""),
+        log=lambda *a: None)
+
+
+def demo_ate(device="cpu") -> float:
+    return demo_run(device, True)["ate_rmse"]
+
+
+def slab_work(R: int, D: int, m: int) -> tuple[float, float]:
+    """(FMAs, values moved) of a row slab with keep: R D m FMAs (each of
+    its R x D outputs one m-long product); P's rows, M and keep read once,
+    the [R,D] output written."""
+    return float(R * D * m), float(2 * R * D + m * D + D)
+
+
+def slab_phase(cov, device, fma_per_s, f64_fma_per_s) -> dict:
+    """Kernel B2's row-slab entry points at SLAB_SHAPES, float32 and
+    float64, random symmetric P and a keep of ~5% zeros: bit for bit the
+    full call's rows, repeating, within the plain version's tolerance
+    (float32: compare_downdate's; float64: F64_REL_FRO), timed by events,
+    graph replay and device time beside the plain version, a masked addmm
+    of the same rows (its one-call yardstick) and the bound."""
+    import torch
+    cases, timed = [], {}
+    for dtype in (torch.float32, torch.float64):
+        for R, D, m, r0 in SLAB_SHAPES:
+            P, M, keep = downdate_case(D, m, True, device, dtype)
+            Pr = P[r0:r0 + R].contiguous()
+            Mk = M * keep[None, :]
+            fns = {"kernel": lambda: cov.symmetric_downdate_rows(Pr, M, keep, r0),
+                   "plain": lambda: cov.symmetric_downdate_rows_ref(Pr, M, keep, r0),
+                   "addmm": lambda: torch.addmm(
+                       Pr * (keep[r0:r0 + R, None] * keep[None, :]),
+                       Mk[:, r0:r0 + R].T, Mk, alpha=-1)}
+            got, again, want = fns["kernel"](), fns["kernel"](), fns["plain"]()
+            full = cov.symmetric_downdate(P, M, keep)[r0:r0 + R]
+            diff = (got - want).abs()
+            if dtype == torch.float32:
+                bound = 1e-5 * (Pr.abs() * (keep[r0:r0 + R, None] * keep[None, :])
+                                + Mk[:, r0:r0 + R].abs().T @ Mk.abs()) + 1e-30
+                within = bool((diff <= bound).all())
+            else:
+                within = float(torch.linalg.norm(got - want)
+                               / torch.linalg.norm(want)) <= F64_REL_FRO
+            case = {"dtype": str(dtype).split(".")[-1], "R": R, "D": D, "m": m,
+                    "r0": r0, "max_abs_err": float(diff.max()),
+                    "bitwise_full": bool(torch.equal(got, full)),
+                    "repeats": bool(torch.equal(got, again)),
+                    "within_tolerance": within,
+                    "tile_blocks": cov.rows_config(D, R, r0, dtype)}
+            cases.append(case)
+            if not (case["bitwise_full"] and case["repeats"] and within
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"slab kernel: {case}")
+            n = 20
+            tm = {k: [] for k in fns}
+            for name in ("plain", "kernel", "addmm", "addmm", "kernel", "plain"):
+                tm[name].append(cuda_ms(fns[name], n))
+            tm["graph_ms"] = {k: cuda_graph_ms(fns[k], 5) for k in fns}
+            fma, vals = slab_work(R, D, m)
+            b_ms, b_by = bound_ms(fma, vals * got.element_size(),
+                                  fma_per_s if dtype == torch.float32
+                                  else f64_fma_per_s)
+            kern_ms = float(np.mean(tm["kernel"]))
+            tm.update(kernel_device_us=device_us_per_call(fns["kernel"]),
+                      bound_ms=b_ms, bound_by=b_by, fma=fma,
+                      pct_of_bound=100.0 * b_ms / kern_ms,
+                      pct_of_bound_graph=100.0 * b_ms / tm["graph_ms"]["kernel"])
+            timed[f"{case['dtype']}_{R}x{D}x{m}_r{r0}"] = tm
+    return {"cases": cases, "timed": timed}
+
+
+def sharded_phase(ncc_cuda, cov, device) -> dict:
+    """The distribution layer on a one-rank NCCL group (one card): the
+    sharded fused step at K=768 in float64 and float32 against the
+    single-device step (P == P^T, the frame's slab bit for bit the full B2
+    call's), the sharded imageseq runner with bench.py:355-358's settings
+    against make_imageseq_scan_runner (frames 1-8; launches, fps over 9-40,
+    one profiled frame), the banded point-sharded BA at 2048 x 100 (first
+    trial against the full-width single-device solve, the LM lowering the
+    error), dryrun_multichip(1) in ranks of its own, and the MonoSlam
+    demo's main path in float64 and float32."""
+    import torch
+    import torch.distributed as dist
+    from surikatoko_tpu_torch.models.ba import (SparseBundleAdjustment,
+                                                TermCriteria)
+    from surikatoko_tpu_torch.models.ba import sparse as sp
+    from surikatoko_tpu_torch.models.monoslam import fused_step, init_state
+    from surikatoko_tpu_torch.parallel import dryrun, launch
+    from surikatoko_tpu_torch.parallel import sharded_ekf as se
+    from surikatoko_tpu_torch.parallel.sharded_imageseq import (
+        make_sharded_imageseq_runner)
+    from surikatoko_tpu_torch.parallel.sharded_schur import (
+        make_sharded_sparse_schur_solver)
+    from surikatoko_tpu_torch.world.ba_scene import build_at_scale_problem
+    from surikatoko_tpu_torch.world.device_runner import (
+        init_imageseq, make_imageseq_scan_runner)
+    from surikatoko_tpu_torch.demos.ba_at_scale import BAND_RTOL
+
+    out, checks = {}, {}
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{launch.free_port()}",
+        world_size=1, rank=0)
+    try:
+        # (a) the sharded fused step against the single-device one
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).split(".")[-1]
+            params, st, obs, mask = dryrun.make_problem(K_FLAGSHIP, device,
+                                                        dtype)
+            ref = fused_step.fused_update_health_predict(params, st.x, st.P,
+                                                         obs, mask)
+            got = se.make_sharded_fused_step(params, K_FLAGSHIP)(
+                st.x, st.P, obs, mask)
+            _, B, keep, _, _ = fused_step._fused_update_core(
+                params, st.x, st.P, obs, mask, None, None)
+            B = B.contiguous()
+            slab = cov.symmetric_downdate_rows(st.P[13:].contiguous(), B,
+                                               keep, 13)
+            full = cov.symmetric_downdate(st.P, B, keep)[13:]
+            out[f"fused_{name}"] = {
+                "x_max_abs_diff": float((got[0] - ref[0]).abs().max()),
+                "P_max_abs_diff": float((got[1] - ref[1]).abs().max()),
+                "P_symmetric": bool(torch.equal(got[1], got[1].T)),
+                "P_equals_single_device": bool(torch.equal(got[1], ref[1])),
+                "slab_equals_full_b2": bool(torch.equal(slab, full)),
+                "finite": bool(torch.isfinite(got[1]).all())}
+            checks[f"fused_{name}_symmetric"] = out[f"fused_{name}"]["P_symmetric"]
+            checks[f"fused_{name}_finite"] = out[f"fused_{name}"]["finite"]
+            checks[f"fused_{name}_close"] = (
+                out[f"fused_{name}"]["x_max_abs_diff"]
+                <= (1e-9 if dtype == torch.float64 else 1e-3))
+            if dtype == torch.float64:
+                checks["slab_equals_full_b2_f64"] = out[f"fused_{name}"][
+                    "slab_equals_full_b2"]
+            del st, ref, got, B, slab, full
+
+        # (b) the sharded imageseq loop (bench.py:344-368)
+        params, sc = flagship_setup(device)
+        st, tm = init_imageseq(params, sc, init_state(
+            K_FLAGSHIP, dtype=sc.background.dtype, device=device), 15)
+        kw = dict(templ_width=15, recruit=True, recruit_max=12,
+                  detector_corners=64, recruit_depth="local")
+        run_sh = make_sharded_imageseq_runner(params, K_FLAGSHIP, **kw)
+        run_1 = make_imageseq_scan_runner(params, **kw)
+        args = (st.x, st.P, tm, st.lm_active, st.lm_unobserved,
+                st.lm_generation, sc)
+        torch.cuda.synchronize()
+        ncc_cuda.LAUNCHES = cov.LAUNCHES = cov.ROWS_LAUNCHES = 0
+        t0 = time.perf_counter()
+        res_sh = run_sh(*args, SHARDED_FRAMES)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        launches = {"ncc_search": ncc_cuda.LAUNCHES,
+                    "symmetric_downdate": cov.LAUNCHES,
+                    "symmetric_downdate_rows": cov.ROWS_LAUNCHES}
+        _, _, (err_1, n_1, pos_1, nrec_1, _, _) = run_1(st, tm, sc,
+                                                        SHARDED_FRAMES)
+        x_s, P_s, tm_s, act_s, un_s, gen_s, (err_s, n_s, pos_s, nrec_s,
+                                             nact_s, info_s) = res_sh
+        nf = len(SHARDED_FRAMES)
+        state_s = (x_s, P_s, tm_s, act_s, un_s, gen_s, sc)
+        t0 = time.perf_counter()
+        res_t = run_sh(*state_s, SHARDED_TIMED)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        nxt = res_t[:6] + (sc,)
+        last = SHARDED_TIMED[-1] + 1
+        busy, n_dev, top, _ = profiled(lambda: run_sh(*nxt, [last]))
+        wall_ms = 1e3 * dt / len(SHARDED_TIMED)
+        out["imageseq"] = {
+            "K": K_FLAGSHIP, "frames": [SHARDED_FRAMES[0], SHARDED_FRAMES[-1]],
+            "first_run_s": t_first, "launches": launches,
+            "sharded_pallas_matched_absdiff": int((n_s - n_1).abs().max()),
+            "sharded_pos_maxdiff": float((pos_s - pos_1).abs().max()),
+            "n_matched": n_s.tolist(), "n_matched_single": n_1.tolist(),
+            "recruited": int(nrec_s.sum()), "recruited_single": int(nrec_1.sum()),
+            "active_last": int(nact_s[-1]), "chol_info_max": int(info_s.max()),
+            "timed_frames": [SHARDED_TIMED[0], SHARDED_TIMED[-1]],
+            "fps": len(SHARDED_TIMED) / dt, "wall_ms_per_frame": wall_ms,
+            "profile_frame": last, "device_busy_us": busy,
+            "device_launches": n_dev,
+            "busy_share": busy / (1e3 * wall_ms),
+            "top_kernels_us_count": top,
+            "P_symmetric": bool(torch.equal(res_t[1], res_t[1].T))}
+        im = out["imageseq"]
+        checks.update(
+            imageseq_finite=bool(torch.isfinite(err_s).all()
+                                 and torch.isfinite(res_t[6][0]).all()),
+            imageseq_matched_absdiff_le_5=im["sharded_pallas_matched_absdiff"] <= 5,
+            imageseq_b1_each_frame=launches["ncc_search"] == nf,
+            imageseq_slab_launched=launches["symmetric_downdate_rows"] == 2 * nf,
+            imageseq_no_full_b2=launches["symmetric_downdate"] == 0,
+            imageseq_P_symmetric=im["P_symmetric"])
+        del st, tm, res_sh, res_t, state_s, nxt, x_s, P_s
+
+        # (c) the banded point-sharded BA at 2048 x 100
+        n_pts, n_fr, tl = SHARDED_BA
+        ps, fidx, fmask = build_at_scale_problem(n_pts, n_fr, tl, noise_pix=0.3,
+                                                 seed=0, dtype=torch.float32,
+                                                 device=device)
+        blocks = sp.compute_blocks(ps)
+        plan = sp.plan_bands_sharded(fidx, fmask, 1, 64, n_fr)
+        solve = make_sharded_sparse_schur_solver(n_pts, n_fr, tl,
+                                                 point_chunk=64, band_plan=plan)
+        dX, du, ok = solve(ps, blocks, 1e-4)
+        dX1, du1, ok1 = sp.solve_corrections_schur_sparse(ps, blocks, 1e-4,
+                                                          point_chunk=64)
+        rel = lambda a, b: float((a - b).norm() / b.norm())
+        err0 = float(sp.reproj_error(ps))
+        ba = SparseBundleAdjustment(group=dist.group.WORLD, point_chunk=64,
+                                    band=True)
+        ba.set_plan_inputs(fidx, fmask)
+        t0 = time.perf_counter()
+        ok_lm, ps_opt = ba.compute(ps, TermCriteria(
+            allowed_reproj_err_rel_change=None, max_iters=2))
+        torch.cuda.synchronize()
+        out["ba"] = {"points": n_pts, "frames": n_fr, "track_len": tl,
+                     "band_width": None if plan is None else plan.band_width,
+                     "trial_ok": bool(ok) and bool(ok1),
+                     "du_rel_l2": rel(du, du1), "dX_rel_l2": rel(dX, dX1),
+                     "lm_ok": bool(ok_lm), "lm_s": time.perf_counter() - t0,
+                     "iterations": ba.iterations,
+                     "plan_engaged": ba._mesh_band_plan is not None,
+                     "err_before": err0,
+                     "err_after": float(sp.reproj_error(ps_opt))}
+        b = out["ba"]
+        checks.update(ba_trial_ok=b["trial_ok"],
+                      ba_matches_single=max(b["du_rel_l2"], b["dX_rel_l2"])
+                      <= BAND_RTOL,
+                      ba_lm_ok=b["lm_ok"], ba_plan_engaged=b["plan_engaged"],
+                      ba_error_decreased=b["err_after"] < b["err_before"])
+    finally:
+        dist.destroy_process_group()
+
+    # (d) the dry run in ranks of its own
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun.dryrun_multichip(1)
+    out["dryrun"]["wall_s"] = time.perf_counter() - t0
+
+    # (f) the MonoSlam demo's main path, float64 (its default) and float32
+    for x64, name in ((True, "float64"), (False, "float32")):
+        demo_run(device, x64)                           # warm-up
+        m = demo_run(device, x64)
+        out[f"demo_{name}"] = {k: m[k] for k in (
+            "frames", "dtype", "fps", "avg_frame_ms", "wall_s", "ate_rmse",
+            "estimated_count", "finite")}
+    d64, d32 = out["demo_float64"], out["demo_float32"]
+    checks.update(
+        demo_frames=d64["frames"] == d32["frames"] == DEMO_FRAMES,
+        demo_finite=d64["finite"] and d32["finite"],
+        demo_f64_ate_as_cpu=abs(d64["ate_rmse"] - DEMO_ATE_F64) <= 1e-6,
+        demo_f32_ate=d32["ate_rmse"] <= 2 * DEMO_ATE_F64 + 0.02)
+    out["checks"] = checks
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1806,6 +2110,9 @@ def main() -> int:
     # profiler is fresh: late in the run its device events went missing;
     # reported in the batch_eval phase)
     bdd = batch_downdate_phase(covariance, device, fma_per_s, f64_fma_per_s)
+    # kernel B2's row-slab entry points, likewise (reported in the sharded
+    # phase)
+    slab = slab_phase(covariance, device, fma_per_s, f64_fma_per_s)
 
     # ---- flagship slice: the main path ----
     ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
@@ -2379,6 +2686,21 @@ def main() -> int:
     bdd_main = bdd["timed"]["float32"]
     bdd64_main = bdd["timed"]["float64"]
 
+    # ---- the distribution layer on a one-rank NCCL group ----
+    t0 = time.perf_counter()
+    shd = sharded_phase(ncc_cuda, covariance, device)
+    emit({"phase": "sharded", "phase_s": time.perf_counter() - t0,
+          "slab": slab, **shd})
+    bad = [k for k, v in shd["checks"].items() if not v]
+    if bad:
+        raise AssertionError(f"sharded: {bad}")
+    sh_launches = shd["imageseq"]["launches"]
+    slab_main = slab["timed"][f"float32_{SLAB_SHAPES[0][0]}x{SLAB_SHAPES[0][1]}"
+                              f"x{SLAB_SHAPES[0][2]}_r{SLAB_SHAPES[0][3]}"]
+    slab64_main = slab["timed"][f"float64_{SLAB_SHAPES[0][0]}x"
+                                f"{SLAB_SHAPES[0][1]}x{SLAB_SHAPES[0][2]}"
+                                f"_r{SLAB_SHAPES[0][3]}"]
+
     dd_main = dd_times["4621x1536"]
     dd64_main = dd64_times["4621x1536"]
     dd_ms = float(np.mean(dd_main["kernel"]))
@@ -2397,7 +2719,8 @@ def main() -> int:
             "mvf_at_scale_oracle_free": mvf_free_launches["ncc_search"],
             "two_view": two_view_launches["ncc_search"],
             "batch_eval_scan": bscan["launches"]["ncc_search"],
-            "batch_eval_ba": bba_launches["ncc_search"]},
+            "batch_eval_ba": bba_launches["ncc_search"],
+            "sharded_imageseq": sh_launches["ncc_search"]},
         "imageseq_shapes": {k: {n: v[n] for n in (
             "kernel_ms", "plain_ms", "graph_ms", "kernel_device_us", "bound_ms",
             "bound_by", "pct_of_bound")} for k, v in ncc_imseq.items()},
@@ -2423,7 +2746,8 @@ def main() -> int:
                 mvf_free_launches["symmetric_downdate"],
             "two_view": two_view_launches["symmetric_downdate"],
             "batch_eval_scan": bscan["launches"]["symmetric_downdate"],
-            "batch_eval_ba": bba_launches["symmetric_downdate"]},
+            "batch_eval_ba": bba_launches["symmetric_downdate"],
+            "sharded_imageseq": sh_launches["symmetric_downdate"]},
         "ms": dd_ms, "plain_ms": float(np.mean(dd_main["plain"])),
         "graph_ms": dd_main["graph_ms"]["kernel"],
         "device_us": dd_main["kernel_device_us"],
@@ -2464,7 +2788,31 @@ def main() -> int:
                    "library_device_us": v["device_us"]["baddbmm"],
                    "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
                    "pct_of_bound_device": v["pct_of_bound_device"]}
-               for t, v in (("float32", bdd_main), ("float64", bdd64_main))}}}]})
+               for t, v in (("float32", bdd_main), ("float64", bdd64_main))}}}, {
+        "name": "symmetric_downdate_rows", "route": "cuda",
+        "source": "surikatoko_tpu_torch/csrc/symmetric_downdate.cu",
+        "replaces": "surikatoko_tpu/ops/covariance.py:53",
+        "slab_of": "surikatoko_tpu/parallel/sharded_ekf.py:210",
+        "launches": sh_launches["symmetric_downdate_rows"],
+        "max_abs_err": max(c["max_abs_err"] for c in slab["cases"]
+                           if c["dtype"] == "float32"),
+        "R_D_m_r0": list(SLAB_SHAPES[0]),
+        "ms": float(np.mean(slab_main["kernel"])),
+        "plain_ms": float(np.mean(slab_main["plain"])),
+        "graph_ms": slab_main["graph_ms"]["kernel"],
+        "device_us": slab_main["kernel_device_us"],
+        "bound_ms": slab_main["bound_ms"], "bound_by": slab_main["bound_by"],
+        "pct_of_bound": slab_main["pct_of_bound"],
+        "library_ms": float(np.mean(slab_main["addmm"])),
+        "f64_ms": float(np.mean(slab64_main["kernel"])),
+        "f64_graph_ms": slab64_main["graph_ms"]["kernel"],
+        "f64_device_us": slab64_main["kernel_device_us"],
+        "f64_plain_ms": float(np.mean(slab64_main["plain"])),
+        "f64_library_ms": float(np.mean(slab64_main["addmm"])),
+        "f64_bound_ms": slab64_main["bound_ms"],
+        "f64_bound_by": slab64_main["bound_by"],
+        "f64_pct_of_bound": slab64_main["pct_of_bound"],
+        "bitwise_full_b2": all(c["bitwise_full"] for c in slab["cases"])}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

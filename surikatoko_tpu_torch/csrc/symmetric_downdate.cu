@@ -56,6 +56,20 @@
 //   tile, loads, summation order and epilogue), so every problem's output
 //   equals its unbatched call's bit for bit. torch.func.vmap of the port's
 //   filter step reaches the batched entry points (ops/covariance.py).
+// * the row-slab entry points (symmetric_downdate_rows_*) compute rows
+//   [r0, r0 + R) of the same output, for a landmark-sharded filter whose
+//   rank holds only those rows of P. Every element must equal, bit for bit,
+//   what the full call writes there, so a slab block computes exactly the
+//   full kernel's tile: for the slab's row tile si and any column tile sj
+//   it accumulates the lower-triangle tile (max(si,sj), min(si,sj)) with
+//   the same loads, k-order and MMAs, and its epilogue writes the slab's
+//   part of that tile (si >= sj) or of its mirror (si < sj). A slab of R
+//   rows is thus ceil(R / TILE) + 1 row tiles x all D / TILE column tiles,
+//   about twice the FMAs of those rows' share of the lower triangle; r0
+//   need not be tile-aligned. The full kernel reads P's lower half; a slab
+//   reads its own rows (P[s][c] for c > s where the full kernel reads
+//   P[c][s]), so the two agree bit for bit when P is exactly symmetric,
+//   the filter's invariant.
 // The kernel allocates nothing and never synchronises; the entry points
 // return a cudaError_t (0 = launched).
 //
@@ -219,22 +233,74 @@ __device__ __forceinline__ void write_tile(T* tile, const T* __restrict__ P,
   }
 }
 
-// blockIdx.x: the output tile. BATCHED: blockIdx.y is the problem of a
-// batch, whose P, M (rows ld floats apart) and keep start sP, sM and sK
+// A row slab: output rows [r0, r0 + R) of a [D,D] result; its first row
+// tile bi0 and nt tiles across D (a block is row tile bi0 + x / nt, column
+// tile x % nt)
+struct Rows {
+  int r0, R, bi0, nt;
+};
+
+// the launch modes of the kernels: one problem, a batch, a row slab
+enum Mode { SINGLE, BATCHED, ROWS };
+
+// The tile (bi, bj), bi >= bj, that block x computes: the x-th
+// lower-triangle tile, or for a slab the lower-triangle tile of its output
+// tile (si, sj) or of that tile's mirror
+__device__ __forceinline__ void block_tile(int mode, const Rows& rows,
+                                           long long& bi, long long& bj,
+                                           int& si, int& sj) {
+  if (mode == ROWS) {
+    si = rows.bi0 + (int)(blockIdx.x / rows.nt);
+    sj = (int)(blockIdx.x % rows.nt);
+    bi = si > sj ? si : sj;
+    bj = si > sj ? sj : si;
+  } else {
+    tile_of_block(blockIdx.x, bi, bj);
+    si = (int)bi;
+    sj = (int)bj;
+  }
+}
+
+// The slab epilogue. `tile` holds the accumulators of the lower-triangle
+// tile (i0, j0) (the caller synchronised after writing them); output tile
+// (si, sj)'s elements (s, c) inside the slab become
+// out[s - r0][c] = k_i k_j (P_rows[s - r0][c] - acc(i, j)) with i = max(s,
+// c), j = min(s, c): the value the full call writes at (s, c), whose P
+// read is P[i][j]. Consecutive threads on consecutive c.
+template <int TILE, int THREADS, bool HAS_KEEP, typename T>
+__device__ __forceinline__ void write_rows(const T* tile,
+                                           const T* __restrict__ P_rows,
+                                           const T* __restrict__ keep,
+                                           T* __restrict__ out, int D, int i0,
+                                           int j0, int si, int sj,
+                                           const Rows& rows, int tid) {
+  for (int e = tid; e < TILE * TILE; e += THREADS) {
+    const int s = si * TILE + e / TILE, c = sj * TILE + e % TILE;
+    if (s < rows.r0 || s >= rows.r0 + rows.R || c >= D) continue;
+    const int i = s > c ? s : c, j = s > c ? c : s;
+    const size_t o = (size_t)(s - rows.r0) * D + c;
+    T v = P_rows[o] - tile[(i - i0) * (TILE + 1) + (j - j0)];
+    if (HAS_KEEP) v *= keep[i] * keep[j];
+    out[o] = v;
+  }
+}
+
+// blockIdx.x: the output tile. MODE BATCHED: blockIdx.y is the problem of
+// a batch, whose P, M (rows ld floats apart) and keep start sP, sM and sK
 // floats on (0 for one shared by every problem) and whose output starts
-// b D^2 floats on; a single problem takes the kernel without that
+// b D^2 floats on; a single problem (SINGLE) takes the kernel without that
 // addressing (on an H100 it cost the flagship shape's call 4% of its
-// device time)
-template <int TILE, bool HAS_KEEP, bool BATCHED>
+// device time). ROWS: a row slab (`rows`), P its rows and out [R,D].
+template <int TILE, bool HAS_KEEP, int MODE>
 __global__ void __launch_bounds__(Cfg<TILE>::THREADS, Cfg<TILE>::MIN_BLOCKS)
 downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
                 const float* __restrict__ keep, float* __restrict__ out,
                 int D, int ld, int m, long long sP, long long sM,
-                long long sK) {
+                long long sK, Rows rows) {
   using C = Cfg<TILE>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
-  if constexpr (BATCHED) {
+  if constexpr (MODE == BATCHED) {
     const long long b = blockIdx.y;
     P += b * sP;
     Ms += b * sM;
@@ -243,7 +309,8 @@ downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
   }
 
   long long bi, bj;
-  tile_of_block(blockIdx.x, bi, bj);
+  int si, sj;
+  block_tile(MODE, rows, bi, bj, si, sj);
   const int i0 = (int)bi * TILE;
   const int j0 = (int)bj * TILE;
 
@@ -328,8 +395,12 @@ downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
     }
   }
   __syncthreads();
-  write_tile<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
-                                         bi == bj, tid);
+  if constexpr (MODE == ROWS)
+    write_rows<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0, si,
+                                           sj, rows, tid);
+  else
+    write_tile<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
+                                           bi == bj, tid);
 }
 
 // ---- float64 on the FP64 tensor cores ----
@@ -371,17 +442,19 @@ __device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[8],
 
 // A = M's column strip i0.., B = its strip j0..; C = A^T B accumulates in
 // registers
-// the batch axis (BATCHED) as in downdate_kernel
-template <bool HAS_KEEP, bool BATCHED>
+// the batch axis (MODE BATCHED) and the row slab (ROWS) as in
+// downdate_kernel
+template <bool HAS_KEEP, int MODE>
 __global__ void __launch_bounds__(Cfg64::THREADS, Cfg64::MIN_BLOCKS)
 downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ M,
                      const double* __restrict__ keep, double* __restrict__ out,
-                     int D, int m, long long sP, long long sM, long long sK) {
+                     int D, int m, long long sP, long long sM, long long sK,
+                     Rows rows) {
   using C = Cfg64;
   constexpr int TILE = C::TILE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* smem = reinterpret_cast<double*>(smem_raw);
-  if constexpr (BATCHED) {
+  if constexpr (MODE == BATCHED) {
     const long long b = blockIdx.y;
     P += b * sP;
     M += b * sM;
@@ -390,7 +463,8 @@ downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ M,
   }
 
   long long bi, bj;
-  tile_of_block(blockIdx.x, bi, bj);
+  int si, sj;
+  block_tile(MODE, rows, bi, bj, si, sj);
   const int i0 = (int)bi * TILE;
   const int j0 = (int)bj * TILE;
 
@@ -474,8 +548,12 @@ downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ M,
         tile[r * (TILE + 1) + c] = acc[p][q][v];
       }
   __syncthreads();
-  write_tile<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
-                                         bi == bj, tid);
+  if constexpr (MODE == ROWS)
+    write_rows<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0, si,
+                                           sj, rows, tid);
+  else
+    write_tile<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
+                                           bi == bj, tid);
 }
 
 // The shared-memory attributes of `kernel`, set once per device: `ready`
@@ -496,58 +574,40 @@ cudaError_t set_smem(Kernel kernel, int smem, unsigned long long& ready) {
   return err;
 }
 
-template <int TILE, bool HAS_KEEP, bool BATCHED>
+template <int TILE, bool HAS_KEEP, int MODE>
 cudaError_t prepare() {
   static unsigned long long ready = 0;
-  return set_smem(downdate_kernel<TILE, HAS_KEEP, BATCHED>, Cfg<TILE>::SMEM,
+  return set_smem(downdate_kernel<TILE, HAS_KEEP, MODE>, Cfg<TILE>::SMEM,
                   ready);
 }
 
-template <bool HAS_KEEP, bool BATCHED>
+template <bool HAS_KEEP, int MODE>
 cudaError_t prepare_dmma() {
   static unsigned long long ready = 0;
-  return set_smem(downdate_kernel_dmma<HAS_KEEP, BATCHED>, Cfg64::SMEM, ready);
+  return set_smem(downdate_kernel_dmma<HAS_KEEP, MODE>, Cfg64::SMEM, ready);
 }
 
-// the kernel of a launch: with or without the keep mask, and with the
-// batch addressing when there is more than one problem
-template <int TILE>
-decltype(&downdate_kernel<TILE, false, false>) pick(bool has_keep,
-                                                    bool batched,
-                                                    cudaError_t& err) {
+// the kernel of a launch in mode MODE: with or without the keep mask
+template <int TILE, int MODE>
+decltype(&downdate_kernel<TILE, false, MODE>) pick(bool has_keep,
+                                                   cudaError_t& err) {
   if (has_keep) {
-    if (batched) {
-      err = prepare<TILE, true, true>();
-      return downdate_kernel<TILE, true, true>;
-    }
-    err = prepare<TILE, true, false>();
-    return downdate_kernel<TILE, true, false>;
+    err = prepare<TILE, true, MODE>();
+    return downdate_kernel<TILE, true, MODE>;
   }
-  if (batched) {
-    err = prepare<TILE, false, true>();
-    return downdate_kernel<TILE, false, true>;
-  }
-  err = prepare<TILE, false, false>();
-  return downdate_kernel<TILE, false, false>;
+  err = prepare<TILE, false, MODE>();
+  return downdate_kernel<TILE, false, MODE>;
 }
 
-decltype(&downdate_kernel_dmma<false, false>) pick_dmma(bool has_keep,
-                                                        bool batched,
-                                                        cudaError_t& err) {
+template <int MODE>
+decltype(&downdate_kernel_dmma<false, MODE>) pick_dmma(bool has_keep,
+                                                       cudaError_t& err) {
   if (has_keep) {
-    if (batched) {
-      err = prepare_dmma<true, true>();
-      return downdate_kernel_dmma<true, true>;
-    }
-    err = prepare_dmma<true, false>();
-    return downdate_kernel_dmma<true, false>;
+    err = prepare_dmma<true, MODE>();
+    return downdate_kernel_dmma<true, MODE>;
   }
-  if (batched) {
-    err = prepare_dmma<false, true>();
-    return downdate_kernel_dmma<false, true>;
-  }
-  err = prepare_dmma<false, false>();
-  return downdate_kernel_dmma<false, false>;
+  err = prepare_dmma<false, MODE>();
+  return downdate_kernel_dmma<false, MODE>;
 }
 
 // B problems (1 <= B <= 65535, the grid's y extent); a problem's P, M and
@@ -556,15 +616,31 @@ bool bad_batch(int B, long long sP, long long sM, long long sK) {
   return B < 1 || B > 65535 || sP < 0 || sM < 0 || sK < 0;
 }
 
+// the slab of rows [r0, r0 + R) of a [D,D] output in TILE-wide tiles, or
+// false when it does not lie inside [0, D)
+bool slab_of(int D, int r0, int R, int tile, Rows& rows, unsigned int& blocks) {
+  if (D < 1 || R < 1 || r0 < 0 || r0 > D - R) return false;
+  rows.r0 = r0;
+  rows.R = R;
+  rows.bi0 = r0 / tile;
+  rows.nt = (D + tile - 1) / tile;
+  blocks = (unsigned int)((r0 + R - 1) / tile - rows.bi0 + 1) * rows.nt;
+  return true;
+}
+
+// the full call (B problems, no slab) or, with `slab`, a row slab of one
 template <int TILE>
 int launch(const float* P, const float* M, const float* keep, float* Mp,
            float* out, int B, int D, int m, long long sP, long long sM,
-           long long sK, cudaStream_t stream) {
+           long long sK, const Rows* slab, unsigned int slab_blocks,
+           cudaStream_t stream) {
   using C = Cfg<TILE>;
   if (C::PADDED && Mp == nullptr) return (int)cudaErrorInvalidValue;
   if (bad_batch(B, sP, sM, sK)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  auto kernel = pick<TILE>(keep != nullptr, B > 1, err);
+  auto kernel = slab ? pick<TILE, ROWS>(keep != nullptr, err)
+                : B > 1 ? pick<TILE, BATCHED>(keep != nullptr, err)
+                        : pick<TILE, SINGLE>(keep != nullptr, err);
   if (err != cudaSuccess) return (int)err;
   int ld = D;
   if (C::PADDED) {
@@ -577,22 +653,27 @@ int launch(const float* P, const float* M, const float* keep, float* Mp,
     sM = sMp;
   }
   const unsigned int nt = (D + TILE - 1) / TILE;
-  kernel<<<dim3(nt * (nt + 1) / 2, B), C::THREADS, C::SMEM, stream>>>(
-      P, M, keep, out, D, ld, m, sP, sM, sK);
+  const unsigned int blocks = slab ? slab_blocks : nt * (nt + 1) / 2;
+  kernel<<<dim3(blocks, B), C::THREADS, C::SMEM, stream>>>(
+      P, M, keep, out, D, ld, m, sP, sM, sK, slab ? *slab : Rows{});
   return (int)cudaGetLastError();
 }
 
 int launch_dmma(const double* P, const double* M, const double* keep,
                 double* out, int B, int D, int m, long long sP, long long sM,
-                long long sK, cudaStream_t stream) {
+                long long sK, const Rows* slab, unsigned int slab_blocks,
+                cudaStream_t stream) {
   using C = Cfg64;
   if (bad_batch(B, sP, sM, sK)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  auto kernel = pick_dmma(keep != nullptr, B > 1, err);
+  auto kernel = slab ? pick_dmma<ROWS>(keep != nullptr, err)
+                : B > 1 ? pick_dmma<BATCHED>(keep != nullptr, err)
+                        : pick_dmma<SINGLE>(keep != nullptr, err);
   if (err != cudaSuccess) return (int)err;
   const unsigned int nt = (D + C::TILE - 1) / C::TILE;
-  kernel<<<dim3(nt * (nt + 1) / 2, B), C::THREADS, C::SMEM, stream>>>(
-      P, M, keep, out, D, m, sP, sM, sK);
+  const unsigned int blocks = slab ? slab_blocks : nt * (nt + 1) / 2;
+  kernel<<<dim3(blocks, B), C::THREADS, C::SMEM, stream>>>(
+      P, M, keep, out, D, m, sP, sM, sK, slab ? *slab : Rows{});
   return (int)cudaGetLastError();
 }
 
@@ -613,9 +694,11 @@ extern "C" int symmetric_downdate_f32_batched(
     cudaStream_t stream) {
   switch (tile) {
     case 32:
-      return launch<32>(P, M, keep, Mp, out, B, D, m, sP, sM, sK, stream);
+      return launch<32>(P, M, keep, Mp, out, B, D, m, sP, sM, sK, nullptr, 0,
+                        stream);
     case 128:
-      return launch<128>(P, M, keep, Mp, out, B, D, m, sP, sM, sK, stream);
+      return launch<128>(P, M, keep, Mp, out, B, D, m, sP, sM, sK, nullptr, 0,
+                         stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -635,12 +718,47 @@ extern "C" int symmetric_downdate_f64_batched(
     const double* P, const double* M, const double* keep, double* out, int B,
     int D, int m, long long sP, long long sM, long long sK,
     cudaStream_t stream) {
-  return launch_dmma(P, M, keep, out, B, D, m, sP, sM, sK, stream);
+  return launch_dmma(P, M, keep, out, B, D, m, sP, sM, sK, nullptr, 0,
+                     stream);
 }
 
 // One float64 problem.
 extern "C" int symmetric_downdate_f64(const double* P, const double* M,
                                       const double* keep, double* out, int D,
                                       int m, cudaStream_t stream) {
-  return launch_dmma(P, M, keep, out, 1, D, m, 0, 0, 0, stream);
+  return launch_dmma(P, M, keep, out, 1, D, m, 0, 0, 0, nullptr, 0, stream);
+}
+
+// Rows [r0, r0 + R) of symmetric_downdate_f32's output for P, M and keep,
+// each element bit for bit the full call's when P is exactly symmetric:
+// P_rows [R,D] (rows r0 .. r0 + R - 1 of P, all read), M [m,D], keep [D] or
+// NULL, out [R,D]; Mp m x Dp floats for TILE = 128, as the full call's.
+// 0 <= r0 <= D - R; r0 need not be a multiple of the tile.
+extern "C" int symmetric_downdate_rows_f32(const float* P_rows, const float* M,
+                                           const float* keep, float* Mp,
+                                           float* out, int D, int m, int r0,
+                                           int R, int tile,
+                                           cudaStream_t stream) {
+  Rows rows;
+  unsigned int blocks = 0;
+  if ((tile != 32 && tile != 128) || !slab_of(D, r0, R, tile, rows, blocks))
+    return (int)cudaErrorInvalidValue;
+  if (tile == 32)
+    return launch<32>(P_rows, M, keep, Mp, out, 1, D, m, 0, 0, 0, &rows,
+                      blocks, stream);
+  return launch<128>(P_rows, M, keep, Mp, out, 1, D, m, 0, 0, 0, &rows, blocks,
+                     stream);
+}
+
+// The same for float64 (the DMMA kernel's 64-wide tiles).
+extern "C" int symmetric_downdate_rows_f64(const double* P_rows,
+                                           const double* M, const double* keep,
+                                           double* out, int D, int m, int r0,
+                                           int R, cudaStream_t stream) {
+  Rows rows;
+  unsigned int blocks = 0;
+  if (!slab_of(D, r0, R, Cfg64::TILE, rows, blocks))
+    return (int)cudaErrorInvalidValue;
+  return launch_dmma(P_rows, M, keep, out, 1, D, m, 0, 0, 0, &rows, blocks,
+                     stream);
 }

@@ -62,8 +62,9 @@ def run_factorizer(frames: int = 12, noise_pix: float = 0.0,
                    fake_localization: bool = False,
                    fake_mapping: bool = False, seed: int = 0,
                    device: torch.device | str = "cuda",
-                   dtype: torch.dtype | None = None):
-    """(factorizer, metrics) of one demo run; see :func:`run`."""
+                   dtype: torch.dtype | None = None, **mvf_kw):
+    """(factorizer, metrics) of one demo run; see :func:`run`. ``mvf_kw``
+    go to the factorizer (e.g. ``use_sparse_ba``, ``ba_group``)."""
     dtype = dtype or config.default_dtype(device)
     points, R_gt, t_gt = make_world(frames)
     n_frames = min(frames, R_gt.shape[0])
@@ -74,7 +75,8 @@ def run_factorizer(frames: int = 12, noise_pix: float = 0.0,
         track_store=ts, K=K, fake_localization=fake_localization,
         fake_mapping=fake_mapping,
         gt_cfw_fun=lambda f: SE3(R_gt[f], t_gt[f]),
-        gt_point_fun=lambda tid: points[tid], device=device, dtype=dtype)
+        gt_point_fun=lambda tid: points[tid], device=device, dtype=dtype,
+        **mvf_kw)
     rng = np.random.default_rng(seed)
 
     def write_frame_corners(f):
@@ -143,6 +145,20 @@ def run(frames: int = 12, noise_pix: float = 0.0, loop_closure: bool = False,
     after the closure."""
     return run_factorizer(frames, noise_pix, loop_closure, fake_localization,
                           fake_mapping, seed, device, dtype)[1]
+
+
+def run_map(frames: int = 12, noise_pix: float = 0.0, seed: int = 0,
+            device: torch.device | str = "cuda",
+            dtype: torch.dtype | None = None, group=None, **mvf_kw):
+    """(track ids, their points [N,3], camera positions [F,3], metrics) of
+    a demo run without closure; ``group`` point-shards its sparse BA over a
+    process group (``MultiViewFactorizer.ba_group``), the run of every rank
+    of it being the same."""
+    mvf, metrics = run_factorizer(frames, noise_pix, seed=seed, device=device,
+                                  dtype=dtype, ba_group=group, **mvf_kw)
+    tids = sorted(mvf.point_coords)
+    return (np.asarray(tids), np.stack([mvf.point_coords[t] for t in tids]),
+            camera_positions(mvf.cam_cfw_R, mvf.cam_cfw_t), metrics)
 
 
 def main() -> int:

@@ -24,6 +24,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from surikatoko_tpu_torch.models.ba import derivs, lm_device, normalize, schur
 from surikatoko_tpu_torch.models.ba import sparse as sp
@@ -217,12 +218,18 @@ class BundleAdjustment:
 class SparseBundleAdjustment:
     """LM over the padded-track sparse problem (models/ba/sparse.py)
     with the same damping schedule/termination as :class:`BundleAdjustment`.
-    The JAX package's point-sharded ``mesh`` form waits for the port's
-    distribution layer."""
+    With ``group`` (a process group, ``parallel.landmark_group``) the Schur
+    solve is point-sharded over its ranks (``parallel/sharded_schur``; with
+    ``band`` each rank's block banded by ``sparse.plan_bands_sharded``,
+    recorded as ``_mesh_band_plan``): every rank runs this LM on the same
+    problem and takes the same steps. The group form keeps the host loop
+    (the device loop maps its solve under vmap, which a collective does not
+    take)."""
 
     unity_comp_ind: int = 1
     optimize_intrinsics: bool = True
     point_chunk: int = 2048
+    group: object = None         # process group -> distributed solve
     pin_frames: tuple = ()       # fixed-keyframe BA
     device_loop: bool = False    # one packed fetch per trial (lm_device)
     band: bool = True            # banded Schur reduction when the
@@ -233,10 +240,15 @@ class SparseBundleAdjustment:
     trials: int = field(default=0, init=False)   # damped solves incl. rejected
 
     def __post_init__(self):
+        if self.group is not None and self.device_loop:
+            raise ValueError("the distributed solve runs in the host loop: "
+                             "device_loop must be False with a group")
         self._plan_inputs = None
         self._planned_fi = None
         self._plan = None
         self._band_ext = None
+        self._mesh_band_plan = None
+        self._sharded = None
 
     def set_plan_inputs(self, frame_idx, obs_mask) -> None:
         """Host-side numpy (frame_idx, obs_mask) for the banding plan, so
@@ -259,6 +271,21 @@ class SparseBundleAdjustment:
             return
         self._planned_fi = p.frame_idx
         plan = None
+        if self.group is not None:
+            from surikatoko_tpu_torch.parallel.sharded_schur import (
+                make_sharded_sparse_schur_solver)
+            if self.band:
+                fi_plan, om_plan = self._plan_src(p)
+                plan = sp.plan_bands_sharded(
+                    fi_plan, om_plan, dist.get_world_size(self.group),
+                    self.point_chunk, p.n_frames)
+            self._mesh_band_plan = plan
+            self._sharded = make_sharded_sparse_schur_solver(
+                p.n_points, p.n_frames, p.track_len, self.group,
+                self.unity_comp_ind, self.optimize_intrinsics,
+                self.point_chunk, tuple(int(f) for f in self.pin_frames),
+                band_plan=plan)
+            return
         if self.band:
             fi_plan, om_plan = self._plan_src(p)
             plan = sp.plan_bands(fi_plan, om_plan, self.point_chunk,
@@ -272,6 +299,8 @@ class SparseBundleAdjustment:
                   optimize_intrinsics=self.optimize_intrinsics,
                   pin_frames=tuple(int(f) for f in self.pin_frames))
         self._plan_band(p)
+        if self._sharded is not None:
+            return self._sharded(p, blocks, factor)
         if self._plan is not None:
             return sp.solve_corrections_schur_banded(
                 p, blocks, factor, self._plan, ext_idx=self._band_ext, **kw)

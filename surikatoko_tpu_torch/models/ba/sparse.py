@@ -289,6 +289,76 @@ def plan_bands(frame_idx, obs_mask, point_chunk: int, n_frames: int,
                     overflow_chunk=pc_ovf, point_chunk=pc, bases=bases)
 
 
+def plan_bands_sharded(frame_idx, obs_mask, n_dev: int, point_chunk: int,
+                       n_frames: int, **kw):
+    """Per-shard banding plans for the point-sharded solver
+    (``parallel/sharded_schur``): points are sharded in contiguous blocks
+    over the ranks, so each shard gets its own first-frame sort, padded to
+    COMMON chunk counts and a common band width W (the JAX package's
+    ``shard_map`` needs one static program; here every rank runs the same
+    loop). Returns a BandPlan whose ext_idx is [n_dev, Npad] of LOCAL
+    indices (sentinel = local Np) and whose ``bases`` holds one tuple of
+    banded-chunk window starts per shard (a padding chunk starts at F - W),
+    or None when any shard refuses. Pure numpy; the JAX package's plan."""
+    fi = np.asarray(frame_idx)
+    m = np.asarray(obs_mask)
+    Np = fi.shape[0]
+    if Np % n_dev:
+        raise ValueError(f"{Np} points do not divide by {n_dev} shards")
+    Nl = Np // n_dev
+
+    def _plan_all(pc_try):
+        plans = []
+        for d in range(n_dev):
+            pl = plan_bands(fi[d * Nl:(d + 1) * Nl], m[d * Nl:(d + 1) * Nl],
+                            pc_try, n_frames, **kw)
+            if pl is None:
+                return None
+            plans.append(pl)
+        return plans
+
+    # one chunk size for every shard: if the degenerate-band retry shrank
+    # chunks differently per shard, re-plan everyone at the smallest
+    pc_try = point_chunk
+    while True:
+        plans = _plan_all(pc_try)
+        if plans is None:
+            return None
+        pcs = {pl.point_chunk for pl in plans}
+        if len(pcs) == 1:
+            break
+        pc_try = min(pcs)
+    pc = plans[0].point_chunk
+    pco = min(pl.overflow_chunk for pl in plans)
+    W = max(pl.band_width for pl in plans)
+    nb = max(pl.n_banded_chunks for pl in plans)
+    n_ovf = [int((pl.ext_idx[pl.n_banded_chunks * pl.point_chunk:] < Nl)
+                 .sum()) for pl in plans]
+    no = max(-(-c // pco) if c else 0 for c in n_ovf)
+    Npad = nb * pc + no * pco
+    ext = np.full((n_dev, Npad), Nl, np.int64)
+    bases = []
+    for d, pl in enumerate(plans):
+        nbl = pl.n_banded_chunks * pl.point_chunk
+        ext[d, :nbl] = pl.ext_idx[:nbl]
+        ovl = pl.ext_idx[nbl:]
+        ovl = ovl[ovl < Nl]
+        ext[d, nb * pc:nb * pc + len(ovl)] = ovl
+        fis, ms = fi[d * Nl:(d + 1) * Nl], m[d * Nl:(d + 1) * Nl]
+        fmin = np.where(ms, fis, n_frames).min(axis=1)
+        fmin = np.where(np.where(ms, fis, -1).max(axis=1) < 0, 0, fmin)
+        bases.append(tuple(
+            min(int(fmin[ext[d, c * pc]]), n_frames - W)
+            if ext[d, c * pc] < Nl else n_frames - W for c in range(nb)))
+    return BandPlan(ext_idx=ext, band_width=W, n_banded_chunks=nb,
+                    overflow_chunk=pco, point_chunk=pc, bases=tuple(bases))
+
+
+def shard_plan(plan: BandPlan, rank: int) -> BandPlan:
+    """Shard ``rank``'s plan out of :func:`plan_bands_sharded`'s."""
+    return plan._replace(ext_idx=plan.ext_idx[rank], bases=plan.bases[rank])
+
+
 def _banded_reduction(E_d, Fpf, gp, frame_idx, plan: BandPlan, F: int,
                       ext: torch.Tensor):
     """Gram reduction over one point set in banded (extended) order.

@@ -23,8 +23,10 @@ graph sees O(log n) shapes per run. A frame is one upload (every input in
 one pinned copy), the fused localize-and-triangulate work, and one packed
 read back; a BA is one upload of its problem and one packed read of its
 result. ``fake_localization`` / ``fake_mapping`` mirror the reference
-demo's GT-substitution debugging aids. The JAX package's ``ba_mesh``
-(a point-sharded BA) waits for the port's distribution layer.
+demo's GT-substitution debugging aids. ``ba_group`` (the JAX package's
+``ba_mesh``) point-shards the sparse BA over a process group
+(``parallel.landmark_group``): every rank runs the same factorizer on the
+same corners, and only the Schur reduction is split.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from surikatoko_tpu_torch import config
 from surikatoko_tpu_torch.geom import align
@@ -266,6 +269,8 @@ class MultiViewFactorizer:
     use_sparse_ba: Optional[bool] = None
     sparse_ba_threshold: int = 200_000   # Np * F dense-grid cells
     ba_point_chunk: int = 2048
+    # process group for a point-sharded sparse BA (host LM loop), or None
+    ba_group: object = None
     # shape buckets for periodic global BA on a growing problem: points
     # padded to a multiple of ba_point_bucket, frames padded (and pinned)
     # to multiples of ba_frame_bucket
@@ -937,8 +942,10 @@ class MultiViewFactorizer:
         self.last_ba_sparse = self._use_sparse()
         if self.last_ba_sparse:
             n_f = self.frames_count()
+            n_dev = (1 if self.ba_group is None
+                     else dist.get_world_size(self.ba_group))
             tids, p = self._sparse_problem(
-                pad_points=self.ba_point_bucket or 8,
+                pad_points=self.ba_point_bucket or max(8 * n_dev, 8),
                 pad_frames=self.ba_frame_bucket)
             pins = tuple(pin_frames) + tuple(range(n_f, p.n_frames))
             key = (p.n_points, p.n_frames, pins, uci)
@@ -947,7 +954,9 @@ class MultiViewFactorizer:
                 ba = SparseBundleAdjustment(
                     optimize_intrinsics=False, pin_frames=pins,
                     point_chunk=self.ba_point_chunk, unity_comp_ind=uci,
-                    device_loop=self.ba_device_loop)
+                    group=self.ba_group,
+                    device_loop=(self.ba_device_loop
+                                 and self.ba_group is None))
                 self._ba_cache[key] = ba
             ba.set_plan_inputs(*self._last_sparse_inputs)
             _t1 = time.perf_counter()

@@ -19,6 +19,14 @@ problems of one shape is one launch too (the grid's y axis picks the
 problem), each problem's output bit for bit its own call's;
 ``torch.func.vmap`` reaches it through the dispatcher operator
 ``surikatoko::symmetric_downdate`` and its vmap rule.
+
+``symmetric_downdate_rows`` computes rows [r0, r0 + R) of the same output
+from those rows of P alone, for the landmark-sharded filter
+(``parallel/sharded_ekf``): the kernel's row-slab entry points, each element
+bit for bit what the full call writes there when P is exactly symmetric;
+its plain version, :func:`symmetric_downdate_rows_ref`, equals the matching
+rows of :func:`symmetric_downdate_ref` likewise (on the CPU's BLAS, whose
+product element does not depend on the rows asked for).
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
 LAUNCHES = 0
 # problems a launch: the grid's y extent
 MAX_BATCH = 65535
+# Row-slab calls (symmetric_downdate_rows) that launched a CUDA kernel; a
+# float32 slab at 128-wide tiles is two device launches and counts once
+ROWS_LAUNCHES = 0
 
 # The library's entry points, float32 and float64, for B problems: (P, M,
 # keep, Mp, out, B, D, m, tile, sP, sM, sK, stream) and (P, M, keep, out, B,
@@ -51,6 +62,14 @@ _LIB64 = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_f64_batched",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3
     + [ctypes.c_void_p])
+# The row-slab entry points: (P_rows, M, keep, Mp, out, D, m, r0, R, tile,
+# stream) and (P_rows, M, keep, out, D, m, r0, R, stream)
+_LIB_ROWS = KernelLibrary(
+    "symmetric_downdate.cu", "symmetric_downdate_rows_f32",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+_LIB_ROWS64 = KernelLibrary(
+    "symmetric_downdate.cu", "symmetric_downdate_rows_f64",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 # Output tile edge by D: D <= TILE_32_MAX_D takes 32, larger D 128. Wider
 # tiles reuse each loaded value more but give fewer blocks. In a sweep of
@@ -256,6 +275,86 @@ def symmetric_downdate(P: torch.Tensor, M: torch.Tensor,
     if _batched(P, M, keep):
         return _downdate_op(P, M, keep)
     return _downdate(P, M, keep)
+
+
+def symmetric_downdate_rows_ref(P_rows: torch.Tensor, M: torch.Tensor,
+                                keep: torch.Tensor | None, r0: int
+                                ) -> torch.Tensor:
+    """Plain version of rows [r0, r0 + R) of :func:`symmetric_downdate_ref`:
+    P_rows [R,D] (those rows of a symmetric P), M [m,D], keep [D] or None;
+    returns [R,D] = P_rows o k_rows k^T - (M o k)[:, rows]^T (M o k)."""
+    R = P_rows.shape[0]
+    if keep is not None:
+        P_rows = P_rows * (keep[r0:r0 + R, None] * keep[None, :])
+        M = M * keep[None, :]
+    cols = M[:, r0:r0 + R]
+    if R == 1:
+        # a one-row product would go to the BLAS's matrix-vector routine,
+        # which sums in another order than the full product's
+        return torch.addmm(P_rows.repeat(2, 1), cols.repeat(1, 2).T, M,
+                           alpha=-1)[:1]
+    return torch.addmm(P_rows, cols.T, M, alpha=-1)
+
+
+def symmetric_downdate_rows(P_rows: torch.Tensor, M: torch.Tensor,
+                            keep: torch.Tensor | None, r0: int
+                            ) -> torch.Tensor:
+    """Kernel wrapper, same contract as :func:`symmetric_downdate_rows_ref`:
+    rows [r0, r0 + R) of ``symmetric_downdate(P, M, keep)`` from P's rows
+    alone, each element bit for bit the full call's where P is exactly
+    symmetric. P_rows [R,D], M [m,D], keep [D] 0/1 or None, contiguous, one
+    float type, one CUDA device, 0 <= r0 <= D - R (r0 need not be aligned
+    to the tile). The plain version for tensors on the CPU."""
+    global ROWS_LAUNCHES
+    R, D = P_rows.shape[-2], P_rows.shape[-1]
+    if (P_rows.dim() != 2 or M.dim() != 2 or M.shape[-1] != D
+            or M.shape[0] < 1 or R < 1 or not 0 <= r0 <= D - R
+            or (keep is not None and tuple(keep.shape) != (D,))):
+        raise ValueError(f"bad slab: P_rows {tuple(P_rows.shape)}, M "
+                         f"{tuple(M.shape)}, r0 {r0}")
+    if P_rows.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"no downdate kernel for {P_rows.dtype}")
+    for name, t in (("M", M), ("keep", keep)):
+        if t is not None and (t.dtype != P_rows.dtype
+                              or t.device != P_rows.device):
+            raise ValueError(f"{name} must be a {P_rows.dtype} tensor on "
+                             f"{P_rows.device}")
+    if P_rows.device.type == "cpu":
+        return symmetric_downdate_rows_ref(P_rows, M, keep, r0)
+    if P_rows.device.type != "cuda":
+        raise ValueError(f"no downdate kernel for device {P_rows.device}")
+    if not (P_rows.is_contiguous() and M.is_contiguous()
+            and (keep is None or keep.is_contiguous())):
+        raise ValueError("P_rows, M and keep must be contiguous")
+    m = M.shape[0]
+    out = torch.empty_like(P_rows)
+    keep_ptr = None if keep is None else keep.data_ptr()
+    with torch.cuda.device(P_rows.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if P_rows.dtype == torch.float64:
+            rc = _LIB_ROWS64.fn()(P_rows.data_ptr(), M.data_ptr(), keep_ptr,
+                                  out.data_ptr(), D, m, r0, R, stream)
+        else:
+            tile = downdate_config(D)[0]
+            scratch = (torch.empty((m, -(-D // 4) * 4), dtype=M.dtype,
+                                   device=M.device) if tile == 128 else None)
+            rc = _LIB_ROWS.fn()(P_rows.data_ptr(), M.data_ptr(), keep_ptr,
+                                None if scratch is None else scratch.data_ptr(),
+                                out.data_ptr(), D, m, r0, R, tile, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"symmetric_downdate_rows kernel launch failed: CUDA error {rc}")
+    ROWS_LAUNCHES += 1
+    return out
+
+
+def rows_config(D: int, R: int, r0: int, dtype: torch.dtype = torch.float32
+                ) -> tuple[int, int]:
+    """(tile edge, thread blocks) of a row slab: the full call's tile edge,
+    one block per (row tile, column tile) of the slab's row tiles."""
+    tile = downdate_config(D, dtype)[0]
+    nt = -(-D // tile)
+    return tile, ((r0 + R - 1) // tile - r0 // tile + 1) * nt
 
 
 def build():

@@ -161,3 +161,55 @@ def test_torch_kernel_libraries_keyed_by_their_own_source():
         assert lib.source.name == f"{stem}.cu"
         assert lib.path() == cuda_build.BUILD_DIR / f"lib{stem}_{tag}.so"
     assert cuda_build.NVCC_FLAGS[:2] == ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+# (D, m, r0, R): row slabs whose r0 and r0 + R lie off the tile edges (13 +
+# 6 L rank), a slab of the camera rows, one of the whole matrix, one row
+SLABS = [(43, 10, 13, 24), (43, 10, 0, 43), (109, 32, 13 + 48, 48),
+         (300, 64, 7, 13), (589, 192, 13 + 96, 96), (130, 7, 129, 1)]
+
+
+@pytest.mark.parametrize("D,m,r0,R", SLABS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_torch_downdate_rows_plain_equals_full_rows(rng, D, m, r0, R, dtype,
+                                                     with_keep):
+    """The plain row slab is bit for bit the matching rows of the plain
+    full downdate for a symmetric P, and the wrapper takes it on the CPU."""
+    P, M = _case(rng, D, m)
+    P = torch.as_tensor(P, dtype=dtype)
+    P = torch.tril(P) + torch.tril(P, -1).T
+    M = torch.as_tensor(M, dtype=dtype)
+    keep = (torch.as_tensor(rng.uniform(size=D) > 0.1, dtype=dtype)
+            if with_keep else None)
+    full = covariance.symmetric_downdate_ref(P, M, keep)
+    Pr = P[r0:r0 + R].contiguous()
+    assert torch.equal(covariance.symmetric_downdate_rows_ref(Pr, M, keep, r0),
+                       full[r0:r0 + R])
+    before = covariance.ROWS_LAUNCHES
+    assert torch.equal(covariance.symmetric_downdate_rows(Pr, M, keep, r0),
+                       full[r0:r0 + R])
+    assert covariance.ROWS_LAUNCHES == before
+
+
+def test_torch_downdate_rows_checks():
+    P = torch.eye(20, dtype=torch.float64)
+    M = torch.ones((3, 20), dtype=torch.float64)
+    with pytest.raises(ValueError, match="bad slab"):
+        covariance.symmetric_downdate_rows(P[5:15], M, None, 11)
+    with pytest.raises(ValueError, match="bad slab"):
+        covariance.symmetric_downdate_rows(P[5:15], M[:, :19], None, 5)
+    with pytest.raises(ValueError, match="must be a"):
+        covariance.symmetric_downdate_rows(P[5:15], M.float(), None, 5)
+    with pytest.raises(ValueError, match="no downdate kernel"):
+        covariance.symmetric_downdate_rows(P[5:15].half(), M.half(), None, 5)
+
+
+def test_torch_downdate_rows_config():
+    """A slab's grid: its row tiles (r0 off the tile edge adds one) times
+    all column tiles, at the full call's tile edge."""
+    assert covariance.rows_config(4621, 4608, 13, torch.float64) == (64, 73 * 73)
+    assert covariance.rows_config(4621, 1152, 13 + 1152,
+                                  torch.float64) == (64, 19 * 73)
+    assert covariance.rows_config(4621, 13, 0) == (128, 37)
+    assert covariance.rows_config(589, 96, 109) == (32, 4 * 19)

@@ -252,3 +252,32 @@ def test_torch_scan_runner_f64_on_card_matches_cpu():
             assert torch.equal(out[0].P, out[0].P.T)
         pos[d.type] = out[3].cpu()
     assert float((pos["cuda"] - pos["cpu"]).abs().max()) <= 1e-9
+
+
+# (D, m, r0, R) of the row slabs: one rank at K=768, rank 1 of four, the
+# camera rows, f32's 32- and 128-wide tiles off their edges, ragged m
+SLABS = [(4621, 1536, 13, 4608), (4621, 1536, 13 + 1152, 1152),
+         (4621, 1536, 0, 13), (589, 192, 13 + 96, 96), (2317, 772, 613, 600),
+         (130, 7, 5, 100), (43, 10, 0, 43)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,m,r0,R", SLABS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_torch_downdate_rows_kernel_equals_full_kernel(D, m, r0, R, dtype,
+                                                       with_keep):
+    """The row-slab kernel writes, bit for bit, the full kernel's rows
+    r0 .. r0 + R - 1 (the same tiles, k-order and MMAs), one launch on its
+    own count, and repeats."""
+    dev = _card()
+    P, M, keep = _inputs(D, m, with_keep, dev, dtype)
+    Pr = P[r0:r0 + R].contiguous()
+    full = covariance.symmetric_downdate(P, M, keep)
+    before = covariance.ROWS_LAUNCHES
+    got = covariance.symmetric_downdate_rows(Pr, M, keep, r0)
+    again = covariance.symmetric_downdate_rows(Pr, M, keep, r0)
+    torch.cuda.synchronize()
+    assert covariance.ROWS_LAUNCHES == before + 2
+    assert torch.equal(got, full[r0:r0 + R])
+    assert torch.equal(got, again)

@@ -281,3 +281,18 @@ def test_torch_batch_entry_points_default_to_the_card():
     out = device_runner.make_batched_scan_runner(params, 1)(st, sc, [1, 2], noise)
     assert out[0].x.shape[0] == 2 and out[1].shape == (2, 2)
     assert all(t.device.type == dev for t in _tensors(out))
+
+
+def test_torch_distribution_entry_points_default_to_the_card():
+    """The distribution layer: a rank pool, ``multihost.initialize`` and the
+    dry run name the card (NCCL) unless the caller asks for the CPU (gloo),
+    and a pool without a card raises before it starts a rank."""
+    from surikatoko_tpu_torch.parallel import dryrun, launch, multihost
+    for fn in (launch.RankPool.__init__, launch.run_ranks,
+               multihost.initialize, dryrun.dryrun_multichip):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launch.RankPool(1)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            launch.run_ranks(launch.free_port, 1)
