@@ -199,28 +199,32 @@ Phases, one JSON line each:
            one-rank NCCL group, the card's only rank. B2's row-slab entry
            points (checked and timed right after the kernel phase) at (R, D,
            m, r0) = (4608, 4621, 1536, 13), one rank's landmark rows at
-           K=768, and (1152, 4621, 1536, 1165), rank 1 of four, float32 and
-           float64: bit for bit the full B2 call's rows, repeating, within
-           the plain version's tolerance, timed by events, graph replay and
-           device time beside the plain version, a masked addmm of the same
-           rows and the bound (R D m FMAs). Then (a) the sharded fused step
-           at K=768 in float64 and float32 against the single-device fused
-           step: P == P^T bit for bit, the frame's slab equal to the full B2
-           output bit for bit in float64, x and P differences printed; (b)
-           the sharded imageseq runner with bench.py:355-358's settings (the
-           flagship world, recruit_max 12, 64 detector corners, the local
-           depth prior) over frames 1-8 against make_imageseq_scan_runner:
+           K=768, (1152, 4621, 1536, 1165), rank 1 of four, and (13, 4621,
+           1536, 0), the camera rows, float32 and float64: bit for bit the
+           full B2 call's rows, repeating, within the plain version's
+           tolerance, timed by events, graph replay and device time beside
+           the plain version, a masked addmm of the same rows and the bound
+           (R (D - R) m + R (R + 1) / 2 m FMAs: each symmetric pair once).
+           Then parity.sharded_parity: (a) the sharded fused step at K=768
+           in float64 and float32 against the single-device fused step: P ==
+           P^T bit for bit, P equal to the single-device P in float64 and
+           within 1e-6 of max |P| in float32, the camera-row and own-row
+           slabs equal to the full B2 output bit for bit; (b) the sharded
+           imageseq runner with bench.py:355-358's settings (the flagship
+           world, recruit_max 12, 64 detector corners, the local depth
+           prior) over frames 1-8 against make_imageseq_scan_runner:
            sharded_pallas_matched_absdiff <= 5 (bench.py's name and limit)
            and sharded_pos_maxdiff, one B1 and two B2-slab launches a frame
            and no full B2 launch, then frames 9-40 timed (fps) and one
            profiled frame (busy share); (c) the banded point-sharded BA at
            2048 x 100: its first trial's du and dX within BAND_RTOL of the
            full-width single-device solve (relative 2-norm), the LM lowering
-           the error with the plan engaged; (d) dryrun_multichip(1) in a
+           the error with the plan engaged. (d) dryrun_multichip(1) in a
            rank of its own; (f) the MonoSlam demo's main path
            (demos/davison_mono_slam) on configs/scenario01.json, its whole
-           40-frame path, no views, float64 (its default; ATE within 1e-6 of the CPU's)
-           and float32 (ATE <= 2 x the float64 ATE + 0.02): fps and ATE.
+           40-frame path, no views, float64 (its default; ATE within 1e-6
+           of the CPU's) and float32 (ATE <= 2 x the float64 ATE + 0.02):
+           fps and ATE.
   Neither the BA, the MVF, the two-view phases nor batch BA may launch
   kernel B1 or B2.
 Then a line with every kernel's launches, error and times (B2's row-slab
@@ -277,10 +281,12 @@ F64_REL_FRO = 1e-12
 # tiles only) and the downdate itself
 DOWNDATE_DEVICE_KERNELS = ("pad_rows", "downdate_kernel")
 NCC_DEVICE_KERNELS = ("ncc_search_kernel",)
-# the sharded phase: B2's row slabs (R, D, m, r0) of one rank at K=768 and
-# of rank 1 of four; the imageseq frames compared (bench.py:351) and timed;
-# the banded point-sharded BA (points, frames, track length)
-SLAB_SHAPES = ((4608, 4621, 1536, 13), (1152, 4621, 1536, 13 + 1152))
+# the sharded phase: B2's row slabs (R, D, m, r0) of one rank at K=768, of
+# rank 1 of four, and of the camera rows (the main path's two slabs a frame
+# are the first and the last); the imageseq frames compared (bench.py:351)
+# and timed; the banded point-sharded BA (points, frames, track length)
+SLAB_SHAPES = ((4608, 4621, 1536, 13), (1152, 4621, 1536, 13 + 1152),
+               (13, 4621, 1536, 0))
 SHARDED_FRAMES = range(1, 9)
 SHARDED_TIMED = range(9, 41)
 SHARDED_BA = (2048, 100, 12)
@@ -632,24 +638,8 @@ def compare_downdate_f64(cov, P, M, keep):
 
 
 def flagship_setup(device):
-    import torch
-    from surikatoko_tpu_torch import config
-    from surikatoko_tpu_torch.geom import camera
-    from surikatoko_tpu_torch.models.monoslam import make_params
-    from surikatoko_tpu_torch.world.device_runner import build_imageseq_scenario
-    dtype = config.default_dtype(device)
-    cam = camera.make_intrinsics((640, 480), (320.0, 240.0), 1.95,
-                                 (0.005, 0.005), dtype=dtype, device=device)
-    params = make_params(cam, None, dt=1.0, process_noise_lin_veloc_std=0.075,
-                         process_noise_ang_veloc_std=0.01,
-                         sal_pnt_init_inv_dist=0.5,
-                         sal_pnt_init_inv_dist_std=0.5,
-                         max_undetected_frames=30, covar_diag_inflation=1e-6,
-                         dtype=dtype, device=device)
-    sc = build_imageseq_scenario(K_FLAGSHIP, dtype=dtype, image_size=(640, 480),
-                                 n_points=1024, bg_cell=48, max_deviation=0.8,
-                                 world="wide", device=device)
-    return params, sc
+    from surikatoko_tpu_torch.parallel.parity import flagship_world
+    return flagship_world(K_FLAGSHIP, device)
 
 
 def flagship_patches(params, sc, state, templates):
@@ -1680,10 +1670,12 @@ def demo_ate(device="cpu") -> float:
 
 
 def slab_work(R: int, D: int, m: int) -> tuple[float, float]:
-    """(FMAs, values moved) of a row slab with keep: R D m FMAs (each of
-    its R x D outputs one m-long product); P's rows, M and keep read once,
-    the [R,D] output written."""
-    return float(R * D * m), float(2 * R * D + m * D + D)
+    """(FMAs, values moved) of a row slab with keep: R (D - R) m FMAs for
+    the columns outside its rows and R (R + 1) / 2 m for the symmetric
+    block inside them (each of its pairs one m-long product); P's rows, M
+    and keep read once, the [R,D] output written."""
+    return (float(R * (D - R) * m + R * (R + 1) // 2 * m),
+            float(2 * R * D + m * D + D))
 
 
 def slab_phase(cov, device, fma_per_s, f64_fma_per_s) -> dict:
@@ -1743,167 +1735,36 @@ def slab_phase(cov, device, fma_per_s, f64_fma_per_s) -> dict:
     return {"cases": cases, "timed": timed}
 
 
-def sharded_phase(ncc_cuda, cov, device) -> dict:
-    """The distribution layer on a one-rank NCCL group (one card): the
-    sharded fused step at K=768 in float64 and float32 against the
-    single-device step (P == P^T, the frame's slab bit for bit the full B2
-    call's), the sharded imageseq runner with bench.py:355-358's settings
-    against make_imageseq_scan_runner (frames 1-8; launches, fps over 9-40,
-    one profiled frame), the banded point-sharded BA at 2048 x 100 (first
-    trial against the full-width single-device solve, the LM lowering the
-    error), dryrun_multichip(1) in ranks of its own, and the MonoSlam
-    demo's main path in float64 and float32."""
-    import torch
+def sharded_phase(device) -> dict:
+    """The distribution layer on a one-rank NCCL group (one card):
+    parity.sharded_parity at K=768 (the sharded fused step in float64 and
+    float32 against the single-device step, its camera-row and own-row
+    slabs bit for bit the full B2 call's; the sharded imageseq runner with
+    bench.py:355-358's settings against make_imageseq_scan_runner over
+    frames 1-8, launches, fps over 9-40, one profiled frame; the banded
+    point-sharded BA at 2048 x 100), dryrun_multichip(1) in ranks of its
+    own, and the MonoSlam demo's main path in float64 and float32."""
     import torch.distributed as dist
-    from surikatoko_tpu_torch.models.ba import (SparseBundleAdjustment,
-                                                TermCriteria)
-    from surikatoko_tpu_torch.models.ba import sparse as sp
-    from surikatoko_tpu_torch.models.monoslam import fused_step, init_state
-    from surikatoko_tpu_torch.parallel import dryrun, launch
-    from surikatoko_tpu_torch.parallel import sharded_ekf as se
-    from surikatoko_tpu_torch.parallel.sharded_imageseq import (
-        make_sharded_imageseq_runner)
-    from surikatoko_tpu_torch.parallel.sharded_schur import (
-        make_sharded_sparse_schur_solver)
-    from surikatoko_tpu_torch.world.ba_scene import build_at_scale_problem
-    from surikatoko_tpu_torch.world.device_runner import (
-        init_imageseq, make_imageseq_scan_runner)
-    from surikatoko_tpu_torch.demos.ba_at_scale import BAND_RTOL
+    from surikatoko_tpu_torch.parallel import dryrun, launch, parity
 
-    out, checks = {}, {}
+    def profile(fn):
+        busy, n_dev, top, _ = profiled(fn)
+        return {"device_busy_us": busy, "device_launches": n_dev,
+                "top_kernels_us_count": top}
+
     dist.init_process_group(
         "nccl", init_method=f"tcp://localhost:{launch.free_port()}",
         world_size=1, rank=0)
     try:
-        # (a) the sharded fused step against the single-device one
-        for dtype in (torch.float64, torch.float32):
-            name = str(dtype).split(".")[-1]
-            params, st, obs, mask = dryrun.make_problem(K_FLAGSHIP, device,
-                                                        dtype)
-            ref = fused_step.fused_update_health_predict(params, st.x, st.P,
-                                                         obs, mask)
-            got = se.make_sharded_fused_step(params, K_FLAGSHIP)(
-                st.x, st.P, obs, mask)
-            _, B, keep, _, _ = fused_step._fused_update_core(
-                params, st.x, st.P, obs, mask, None, None)
-            B = B.contiguous()
-            slab = cov.symmetric_downdate_rows(st.P[13:].contiguous(), B,
-                                               keep, 13)
-            full = cov.symmetric_downdate(st.P, B, keep)[13:]
-            out[f"fused_{name}"] = {
-                "x_max_abs_diff": float((got[0] - ref[0]).abs().max()),
-                "P_max_abs_diff": float((got[1] - ref[1]).abs().max()),
-                "P_symmetric": bool(torch.equal(got[1], got[1].T)),
-                "P_equals_single_device": bool(torch.equal(got[1], ref[1])),
-                "slab_equals_full_b2": bool(torch.equal(slab, full)),
-                "finite": bool(torch.isfinite(got[1]).all())}
-            checks[f"fused_{name}_symmetric"] = out[f"fused_{name}"]["P_symmetric"]
-            checks[f"fused_{name}_finite"] = out[f"fused_{name}"]["finite"]
-            checks[f"fused_{name}_close"] = (
-                out[f"fused_{name}"]["x_max_abs_diff"]
-                <= (1e-9 if dtype == torch.float64 else 1e-3))
-            if dtype == torch.float64:
-                checks["slab_equals_full_b2_f64"] = out[f"fused_{name}"][
-                    "slab_equals_full_b2"]
-            del st, ref, got, B, slab, full
-
-        # (b) the sharded imageseq loop (bench.py:344-368)
-        params, sc = flagship_setup(device)
-        st, tm = init_imageseq(params, sc, init_state(
-            K_FLAGSHIP, dtype=sc.background.dtype, device=device), 15)
-        kw = dict(templ_width=15, recruit=True, recruit_max=12,
-                  detector_corners=64, recruit_depth="local")
-        run_sh = make_sharded_imageseq_runner(params, K_FLAGSHIP, **kw)
-        run_1 = make_imageseq_scan_runner(params, **kw)
-        args = (st.x, st.P, tm, st.lm_active, st.lm_unobserved,
-                st.lm_generation, sc)
-        torch.cuda.synchronize()
-        ncc_cuda.LAUNCHES = cov.LAUNCHES = cov.ROWS_LAUNCHES = 0
-        t0 = time.perf_counter()
-        res_sh = run_sh(*args, SHARDED_FRAMES)
-        torch.cuda.synchronize()
-        t_first = time.perf_counter() - t0
-        launches = {"ncc_search": ncc_cuda.LAUNCHES,
-                    "symmetric_downdate": cov.LAUNCHES,
-                    "symmetric_downdate_rows": cov.ROWS_LAUNCHES}
-        _, _, (err_1, n_1, pos_1, nrec_1, _, _) = run_1(st, tm, sc,
-                                                        SHARDED_FRAMES)
-        x_s, P_s, tm_s, act_s, un_s, gen_s, (err_s, n_s, pos_s, nrec_s,
-                                             nact_s, info_s) = res_sh
-        nf = len(SHARDED_FRAMES)
-        state_s = (x_s, P_s, tm_s, act_s, un_s, gen_s, sc)
-        t0 = time.perf_counter()
-        res_t = run_sh(*state_s, SHARDED_TIMED)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        nxt = res_t[:6] + (sc,)
-        last = SHARDED_TIMED[-1] + 1
-        busy, n_dev, top, _ = profiled(lambda: run_sh(*nxt, [last]))
-        wall_ms = 1e3 * dt / len(SHARDED_TIMED)
-        out["imageseq"] = {
-            "K": K_FLAGSHIP, "frames": [SHARDED_FRAMES[0], SHARDED_FRAMES[-1]],
-            "first_run_s": t_first, "launches": launches,
-            "sharded_pallas_matched_absdiff": int((n_s - n_1).abs().max()),
-            "sharded_pos_maxdiff": float((pos_s - pos_1).abs().max()),
-            "n_matched": n_s.tolist(), "n_matched_single": n_1.tolist(),
-            "recruited": int(nrec_s.sum()), "recruited_single": int(nrec_1.sum()),
-            "active_last": int(nact_s[-1]), "chol_info_max": int(info_s.max()),
-            "timed_frames": [SHARDED_TIMED[0], SHARDED_TIMED[-1]],
-            "fps": len(SHARDED_TIMED) / dt, "wall_ms_per_frame": wall_ms,
-            "profile_frame": last, "device_busy_us": busy,
-            "device_launches": n_dev,
-            "busy_share": busy / (1e3 * wall_ms),
-            "top_kernels_us_count": top,
-            "P_symmetric": bool(torch.equal(res_t[1], res_t[1].T))}
-        im = out["imageseq"]
-        checks.update(
-            imageseq_finite=bool(torch.isfinite(err_s).all()
-                                 and torch.isfinite(res_t[6][0]).all()),
-            imageseq_matched_absdiff_le_5=im["sharded_pallas_matched_absdiff"] <= 5,
-            imageseq_b1_each_frame=launches["ncc_search"] == nf,
-            imageseq_slab_launched=launches["symmetric_downdate_rows"] == 2 * nf,
-            imageseq_no_full_b2=launches["symmetric_downdate"] == 0,
-            imageseq_P_symmetric=im["P_symmetric"])
-        del st, tm, res_sh, res_t, state_s, nxt, x_s, P_s
-
-        # (c) the banded point-sharded BA at 2048 x 100
-        n_pts, n_fr, tl = SHARDED_BA
-        ps, fidx, fmask = build_at_scale_problem(n_pts, n_fr, tl, noise_pix=0.3,
-                                                 seed=0, dtype=torch.float32,
-                                                 device=device)
-        blocks = sp.compute_blocks(ps)
-        plan = sp.plan_bands_sharded(fidx, fmask, 1, 64, n_fr)
-        solve = make_sharded_sparse_schur_solver(n_pts, n_fr, tl,
-                                                 point_chunk=64, band_plan=plan)
-        dX, du, ok = solve(ps, blocks, 1e-4)
-        dX1, du1, ok1 = sp.solve_corrections_schur_sparse(ps, blocks, 1e-4,
-                                                          point_chunk=64)
-        rel = lambda a, b: float((a - b).norm() / b.norm())
-        err0 = float(sp.reproj_error(ps))
-        ba = SparseBundleAdjustment(group=dist.group.WORLD, point_chunk=64,
-                                    band=True)
-        ba.set_plan_inputs(fidx, fmask)
-        t0 = time.perf_counter()
-        ok_lm, ps_opt = ba.compute(ps, TermCriteria(
-            allowed_reproj_err_rel_change=None, max_iters=2))
-        torch.cuda.synchronize()
-        out["ba"] = {"points": n_pts, "frames": n_fr, "track_len": tl,
-                     "band_width": None if plan is None else plan.band_width,
-                     "trial_ok": bool(ok) and bool(ok1),
-                     "du_rel_l2": rel(du, du1), "dX_rel_l2": rel(dX, dX1),
-                     "lm_ok": bool(ok_lm), "lm_s": time.perf_counter() - t0,
-                     "iterations": ba.iterations,
-                     "plan_engaged": ba._mesh_band_plan is not None,
-                     "err_before": err0,
-                     "err_after": float(sp.reproj_error(ps_opt))}
-        b = out["ba"]
-        checks.update(ba_trial_ok=b["trial_ok"],
-                      ba_matches_single=max(b["du_rel_l2"], b["dX_rel_l2"])
-                      <= BAND_RTOL,
-                      ba_lm_ok=b["lm_ok"], ba_plan_engaged=b["plan_engaged"],
-                      ba_error_decreased=b["err_after"] < b["err_before"])
+        out = parity.sharded_parity(
+            device=device, capacity=K_FLAGSHIP, frames=SHARDED_FRAMES,
+            timed=SHARDED_TIMED, ba_size=SHARDED_BA, profile=profile)
     finally:
         dist.destroy_process_group()
+    im = out["imageseq"]
+    im["busy_share"] = im["profile"]["device_busy_us"] / (
+        1e3 * im["wall_ms_per_frame"])
+    checks = out["checks"]
 
     # (d) the dry run in ranks of its own
     t0 = time.perf_counter()
@@ -2688,7 +2549,7 @@ def main() -> int:
 
     # ---- the distribution layer on a one-rank NCCL group ----
     t0 = time.perf_counter()
-    shd = sharded_phase(ncc_cuda, covariance, device)
+    shd = sharded_phase(device)
     emit({"phase": "sharded", "phase_s": time.perf_counter() - t0,
           "slab": slab, **shd})
     bad = [k for k, v in shd["checks"].items() if not v]

@@ -59,17 +59,19 @@
 // * the row-slab entry points (symmetric_downdate_rows_*) compute rows
 //   [r0, r0 + R) of the same output, for a landmark-sharded filter whose
 //   rank holds only those rows of P. Every element must equal, bit for bit,
-//   what the full call writes there, so a slab block computes exactly the
-//   full kernel's tile: for the slab's row tile si and any column tile sj
-//   it accumulates the lower-triangle tile (max(si,sj), min(si,sj)) with
-//   the same loads, k-order and MMAs, and its epilogue writes the slab's
-//   part of that tile (si >= sj) or of its mirror (si < sj). A slab of R
-//   rows is thus ceil(R / TILE) + 1 row tiles x all D / TILE column tiles,
-//   about twice the FMAs of those rows' share of the lower triangle; r0
-//   need not be tile-aligned. The full kernel reads P's lower half; a slab
-//   reads its own rows (P[s][c] for c > s where the full kernel reads
-//   P[c][s]), so the two agree bit for bit when P is exactly symmetric,
-//   the filter's invariant.
+//   what the full call writes there, so a slab block computes exactly one
+//   of the full kernel's lower-triangle tiles (bi, bj), with the same loads,
+//   k-order and MMAs, and its epilogue writes the slab's part of that tile
+//   and of its mirror (bj, bi). The slab's row tiles are bi0 .. bi1 (r0
+//   need not be tile-aligned): a column tile sj outside them pairs with
+//   each row tile si once, and the pairs of two row tiles inside are the
+//   nr (nr + 1) / 2 lower-triangle tiles among them, each computed once and
+//   written to both output tiles. That is nr (nt - nr) + nr (nr + 1) / 2
+//   blocks for nr row tiles and nt column tiles: a slab of every row is the
+//   full call's grid. The full kernel reads P's lower half; a slab reads its
+//   own rows (P[s][c] for c > s where the full kernel reads P[c][s]), so the
+//   two agree bit for bit when P is exactly symmetric, the filter's
+//   invariant.
 // The kernel allocates nothing and never synchronises; the entry points
 // return a cudaError_t (0 = launched).
 //
@@ -233,25 +235,38 @@ __device__ __forceinline__ void write_tile(T* tile, const T* __restrict__ P,
   }
 }
 
-// A row slab: output rows [r0, r0 + R) of a [D,D] result; its first row
-// tile bi0 and nt tiles across D (a block is row tile bi0 + x / nt, column
-// tile x % nt)
+// A row slab: output rows [r0, r0 + R) of a [D,D] result in its nr row
+// tiles bi0 .. bi0 + nr - 1, of nt tiles across D
 struct Rows {
-  int r0, R, bi0, nt;
+  int r0, R, bi0, nr, nt;
 };
 
 // the launch modes of the kernels: one problem, a batch, a row slab
 enum Mode { SINGLE, BATCHED, ROWS };
 
 // The tile (bi, bj), bi >= bj, that block x computes: the x-th
-// lower-triangle tile, or for a slab the lower-triangle tile of its output
-// tile (si, sj) or of that tile's mirror
+// lower-triangle tile, or for a slab first the lower-triangle tiles among
+// its row tiles (x < nr (nr + 1) / 2; most write two output tiles, so they
+// start first), then its row tiles si against the column tiles sj outside
+// them; (si, sj) is the output tile whose slab part the block writes, and
+// for a pair of two row tiles of the slab its mirror
 __device__ __forceinline__ void block_tile(int mode, const Rows& rows,
                                            long long& bi, long long& bj,
                                            int& si, int& sj) {
   if (mode == ROWS) {
-    si = rows.bi0 + (int)(blockIdx.x / rows.nt);
-    sj = (int)(blockIdx.x % rows.nt);
+    const long long x = blockIdx.x;
+    const long long inside = (long long)rows.nr * (rows.nr + 1) / 2;
+    if (x < inside) {
+      long long a, b;
+      tile_of_block(x, a, b);
+      si = rows.bi0 + (int)a;
+      sj = rows.bi0 + (int)b;
+    } else {
+      const int w = rows.nt - rows.nr;
+      si = rows.bi0 + (int)((x - inside) / w);
+      sj = (int)((x - inside) % w);
+      if (sj >= rows.bi0) sj += rows.nr;
+    }
     bi = si > sj ? si : sj;
     bj = si > sj ? sj : si;
   } else {
@@ -261,12 +276,21 @@ __device__ __forceinline__ void block_tile(int mode, const Rows& rows,
   }
 }
 
+// whether output tile (sj, si), the mirror of a slab block's tile, lies in
+// the slab too (and is another tile)
+__device__ __forceinline__ bool mirror_in_slab(int si, int sj,
+                                               const Rows& rows) {
+  return si != sj && sj >= rows.bi0 && sj < rows.bi0 + rows.nr;
+}
+
 // The slab epilogue. `tile` holds the accumulators of the lower-triangle
 // tile (i0, j0) (the caller synchronised after writing them); output tile
 // (si, sj)'s elements (s, c) inside the slab become
 // out[s - r0][c] = k_i k_j (P_rows[s - r0][c] - acc(i, j)) with i = max(s,
 // c), j = min(s, c): the value the full call writes at (s, c), whose P
-// read is P[i][j]. Consecutive threads on consecutive c.
+// read is P[i][j]. Only the tile's rows inside the slab are visited,
+// consecutive threads on consecutive c, EPI_LOADS loads of P in flight a
+// thread as in write_tile.
 template <int TILE, int THREADS, bool HAS_KEEP, typename T>
 __device__ __forceinline__ void write_rows(const T* tile,
                                            const T* __restrict__ P_rows,
@@ -274,14 +298,32 @@ __device__ __forceinline__ void write_rows(const T* tile,
                                            T* __restrict__ out, int D, int i0,
                                            int j0, int si, int sj,
                                            const Rows& rows, int tid) {
-  for (int e = tid; e < TILE * TILE; e += THREADS) {
-    const int s = si * TILE + e / TILE, c = sj * TILE + e % TILE;
-    if (s < rows.r0 || s >= rows.r0 + rows.R || c >= D) continue;
-    const int i = s > c ? s : c, j = s > c ? c : s;
-    const size_t o = (size_t)(s - rows.r0) * D + c;
-    T v = P_rows[o] - tile[(i - i0) * (TILE + 1) + (j - j0)];
-    if (HAS_KEEP) v *= keep[i] * keep[j];
-    out[o] = v;
+  const int s0 = si * TILE > rows.r0 ? si * TILE : rows.r0;
+  const int s1 = si * TILE + TILE < rows.r0 + rows.R ? si * TILE + TILE
+                                                     : rows.r0 + rows.R;
+  const int n = (s1 - s0) * TILE;
+  for (int e0 = tid; e0 < n; e0 += EPI_LOADS * THREADS) {
+    T pv[EPI_LOADS], kv[EPI_LOADS];
+#pragma unroll
+    for (int u = 0; u < EPI_LOADS; ++u) {
+      const int e = e0 + u * THREADS;
+      const int s = s0 + e / TILE, c = sj * TILE + e % TILE;
+      const bool ok = e < n && c < D;
+      const size_t o = (size_t)(s - rows.r0) * D + c;
+      pv[u] = ok ? P_rows[o] : T(0);
+      if (HAS_KEEP) kv[u] = ok ? keep[s > c ? s : c] * keep[s > c ? c : s] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < EPI_LOADS; ++u) {
+      const int e = e0 + u * THREADS;
+      const int s = s0 + e / TILE, c = sj * TILE + e % TILE;
+      if (e < n && c < D) {
+        const int i = s > c ? s : c, j = s > c ? c : s;
+        T v = pv[u] - tile[(i - i0) * (TILE + 1) + (j - j0)];
+        if (HAS_KEEP) v *= kv[u];
+        out[(size_t)(s - rows.r0) * D + c] = v;
+      }
+    }
   }
 }
 
@@ -395,10 +437,13 @@ downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
     }
   }
   __syncthreads();
-  if constexpr (MODE == ROWS)
+  if constexpr (MODE == ROWS) {
     write_rows<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0, si,
                                            sj, rows, tid);
-  else
+    if (mirror_in_slab(si, sj, rows))
+      write_rows<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
+                                             sj, si, rows, tid);
+  } else
     write_tile<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
                                            bi == bj, tid);
 }
@@ -548,10 +593,13 @@ downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ M,
         tile[r * (TILE + 1) + c] = acc[p][q][v];
       }
   __syncthreads();
-  if constexpr (MODE == ROWS)
+  if constexpr (MODE == ROWS) {
     write_rows<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0, si,
                                            sj, rows, tid);
-  else
+    if (mirror_in_slab(si, sj, rows))
+      write_rows<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
+                                             sj, si, rows, tid);
+  } else
     write_tile<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
                                            bi == bj, tid);
 }
@@ -616,15 +664,17 @@ bool bad_batch(int B, long long sP, long long sM, long long sK) {
   return B < 1 || B > 65535 || sP < 0 || sM < 0 || sK < 0;
 }
 
-// the slab of rows [r0, r0 + R) of a [D,D] output in TILE-wide tiles, or
-// false when it does not lie inside [0, D)
+// the slab of rows [r0, r0 + R) of a [D,D] output in TILE-wide tiles and
+// its grid, or false when it does not lie inside [0, D)
 bool slab_of(int D, int r0, int R, int tile, Rows& rows, unsigned int& blocks) {
   if (D < 1 || R < 1 || r0 < 0 || r0 > D - R) return false;
   rows.r0 = r0;
   rows.R = R;
   rows.bi0 = r0 / tile;
+  rows.nr = (r0 + R - 1) / tile - rows.bi0 + 1;
   rows.nt = (D + tile - 1) / tile;
-  blocks = (unsigned int)((r0 + R - 1) / tile - rows.bi0 + 1) * rows.nt;
+  blocks = (unsigned int)(rows.nr * (rows.nt - rows.nr) +
+                          rows.nr * (rows.nr + 1) / 2);
   return true;
 }
 

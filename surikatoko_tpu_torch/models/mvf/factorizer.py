@@ -269,12 +269,13 @@ class MultiViewFactorizer:
     use_sparse_ba: Optional[bool] = None
     sparse_ba_threshold: int = 200_000   # Np * F dense-grid cells
     ba_point_chunk: int = 2048
-    # process group for a point-sharded sparse BA (host LM loop), or None
+    # process group for a point-sharded sparse BA (host LM loop, so
+    # ba_device_loop False), or None
     ba_group: object = None
     # shape buckets for periodic global BA on a growing problem: points
-    # padded to a multiple of ba_point_bucket, frames padded (and pinned)
-    # to multiples of ba_frame_bucket
-    ba_point_bucket: int = 0             # 0 = pad to a multiple of 8
+    # padded to a multiple of ba_point_bucket (with ba_group, a multiple of
+    # its size), frames padded (and pinned) to multiples of ba_frame_bucket
+    ba_point_bucket: int = 0             # 0 = a multiple of 8 x the ranks
     ba_frame_bucket: int = 0             # 0 = exact frame count
     # each BA's LM through models/ba/lm_device: one packed read per trial
     # instead of the host loop's two
@@ -305,6 +306,14 @@ class MultiViewFactorizer:
     def __post_init__(self):
         self.device = torch.device(self.device)
         self.dtype = self.dtype or config.default_dtype(self.device)
+        if self.ba_group is not None:
+            if self.ba_device_loop:
+                raise ValueError("the point-sharded BA runs in the host loop: "
+                                 "ba_device_loop must be False with ba_group")
+            n = dist.get_world_size(self.ba_group)
+            if self.ba_point_bucket % n:
+                raise ValueError(f"ba_point_bucket {self.ba_point_bucket} "
+                                 f"does not divide by the group's {n} ranks")
 
     def frames_count(self) -> int:
         return len(self.cam_cfw_R)
@@ -954,9 +963,7 @@ class MultiViewFactorizer:
                 ba = SparseBundleAdjustment(
                     optimize_intrinsics=False, pin_frames=pins,
                     point_chunk=self.ba_point_chunk, unity_comp_ind=uci,
-                    group=self.ba_group,
-                    device_loop=(self.ba_device_loop
-                                 and self.ba_group is None))
+                    group=self.ba_group, device_loop=self.ba_device_loop)
                 self._ba_cache[key] = ba
             ba.set_plan_inputs(*self._last_sparse_inputs)
             _t1 = time.perf_counter()

@@ -351,10 +351,12 @@ def symmetric_downdate_rows(P_rows: torch.Tensor, M: torch.Tensor,
 def rows_config(D: int, R: int, r0: int, dtype: torch.dtype = torch.float32
                 ) -> tuple[int, int]:
     """(tile edge, thread blocks) of a row slab: the full call's tile edge,
-    one block per (row tile, column tile) of the slab's row tiles."""
+    one block per pair of the slab's nr row tiles with the column tiles
+    outside them, and one per lower-triangle tile among its row tiles."""
     tile = downdate_config(D, dtype)[0]
     nt = -(-D // tile)
-    return tile, ((r0 + R - 1) // tile - r0 // tile + 1) * nt
+    nr = (r0 + R - 1) // tile - r0 // tile + 1
+    return tile, nr * (nt - nr) + nr * (nr + 1) // 2
 
 
 def build():

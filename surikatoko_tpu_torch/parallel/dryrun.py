@@ -58,8 +58,13 @@ def make_problem(capacity: int, device, dtype):
     return params, state, obs, mask
 
 
-def _body(n: int, capacity: int, ba_size: tuple, img_k: int, frames_img: int,
-          device: str) -> dict:
+# the dry run's sizes: the fused loop's capacity, the BA's (points, frames),
+# the imageseq loop's slots and frames
+SIZES = dict(capacity=768, ba_size=(2048, 100), img_k=256, frames_img=6)
+
+
+def _body(n: int, device: str, capacity: int, ba_size: tuple, img_k: int,
+          frames_img: int) -> dict:
     """Rank body of :func:`dryrun_multichip`."""
     group = mesh.landmark_group(n)
     dtype = config.default_dtype(device)
@@ -135,14 +140,14 @@ def _body(n: int, capacity: int, ba_size: tuple, img_k: int, frames_img: int,
     return out
 
 
-def dryrun_multichip(n_devices: int, device: torch.device | str = "cuda", *,
-                     capacity: int = 768, ba_size: tuple = (2048, 100),
-                     img_k: int = 256, frames_img: int = 6) -> dict:
+def dryrun_multichip(n_devices: int, device: torch.device | str = "cuda",
+                     **sizes) -> dict:
     """The dry run on ``n_devices`` new ranks (one card each on "cuda");
-    returns rank 0's metrics. The sizes shrink for a CPU rehearsal."""
+    returns rank 0's metrics. ``sizes`` replace some of :data:`SIZES` (they
+    shrink for a CPU rehearsal)."""
     device = torch.device(device).type
-    outs = launch.run_ranks(_body, n_devices, n_devices, capacity, ba_size,
-                            img_k, frames_img, device, device=device)
+    outs = launch.run_ranks(_body, n_devices, n_devices, device,
+                            device=device, **{**SIZES, **sizes})
     return outs[0]
 
 

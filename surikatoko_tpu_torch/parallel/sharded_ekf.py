@@ -45,8 +45,6 @@ from surikatoko_tpu_torch.ops.covariance import symmetric_downdate_rows
 from surikatoko_tpu_torch.parallel import mesh
 
 _N = CAM_STATE_COMPS
-# all_gather into one tensor: torch 2.13 renames all_gather_into_tensor
-_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
 class Shard(NamedTuple):
@@ -75,7 +73,7 @@ def shard_of(group, capacity: int) -> Shard:
 def all_gather_rows(t: torch.Tensor, sh: Shard) -> torch.Tensor:
     """[n * t.shape[0], ...]: every rank's ``t`` stacked in rank order."""
     out = t.new_empty((sh.n * t.shape[0], *t.shape[1:]))
-    _all_gather(out, t.contiguous(), group=sh.group)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=sh.group)
     return out
 
 

@@ -25,7 +25,6 @@ from surikatoko_tpu_torch.models.ba.schur import (
     _damp, _fixed_var_identity, add_block_diag_, all_finite,
     preconditioned_cholesky_solve)
 from surikatoko_tpu_torch.parallel import mesh
-from surikatoko_tpu_torch.parallel.sharded_ekf import _all_gather
 
 
 class _Points:
@@ -55,7 +54,7 @@ class _Points:
         buf = torch.cat([dX_loc, ok_loc.to(dX_loc.dtype).expand(self.Nl, 1)],
                         dim=1)
         out = buf.new_empty((self.n * self.Nl, 4))
-        _all_gather(out, buf.contiguous(), group=self.group)
+        dist.all_gather_into_tensor(out, buf.contiguous(), group=self.group)
         return out[:, :3], torch.all(out[:, 3] > 0.5)
 
 

@@ -207,9 +207,11 @@ def test_torch_downdate_rows_checks():
 
 def test_torch_downdate_rows_config():
     """A slab's grid: its row tiles (r0 off the tile edge adds one) times
-    all column tiles, at the full call's tile edge."""
-    assert covariance.rows_config(4621, 4608, 13, torch.float64) == (64, 73 * 73)
+    the column tiles outside them, plus each pair of its row tiles once, at
+    the full call's tile edge; a slab of every row is the full call's grid."""
+    assert covariance.rows_config(4621, 4608, 13, torch.float64) == (
+        64, 73 * 74 // 2)
     assert covariance.rows_config(4621, 1152, 13 + 1152,
-                                  torch.float64) == (64, 19 * 73)
-    assert covariance.rows_config(4621, 13, 0) == (128, 37)
-    assert covariance.rows_config(589, 96, 109) == (32, 4 * 19)
+                                  torch.float64) == (64, 19 * 54 + 19 * 20 // 2)
+    assert covariance.rows_config(4621, 13, 0) == (128, 36 + 1)
+    assert covariance.rows_config(589, 96, 109) == (32, 4 * 15 + 4 * 5 // 2)

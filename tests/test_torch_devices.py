@@ -284,12 +284,14 @@ def test_torch_batch_entry_points_default_to_the_card():
 
 
 def test_torch_distribution_entry_points_default_to_the_card():
-    """The distribution layer: a rank pool, ``multihost.initialize`` and the
-    dry run name the card (NCCL) unless the caller asks for the CPU (gloo),
-    and a pool without a card raises before it starts a rank."""
-    from surikatoko_tpu_torch.parallel import dryrun, launch, multihost
+    """The distribution layer: a rank pool, ``multihost.initialize``, the
+    dry run and the sharded parity checks name the card (NCCL) unless the
+    caller asks for the CPU (gloo), and a pool without a card raises before
+    it starts a rank."""
+    from surikatoko_tpu_torch.parallel import dryrun, launch, multihost, parity
     for fn in (launch.RankPool.__init__, launch.run_ranks,
-               multihost.initialize, dryrun.dryrun_multichip):
+               multihost.initialize, dryrun.dryrun_multichip,
+               parity.sharded_parity):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

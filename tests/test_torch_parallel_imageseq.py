@@ -115,3 +115,23 @@ def test_torch_sharded_imageseq_delete_policy_fires(pool):
     off = 13 + 3 * 6
     assert np.abs(P2[off:off + 6, :]).max() == 0.0
     _state_close(x2, P2, jx, jP)
+
+
+def test_torch_sharded_parity_checks_hold(pool):
+    """parallel.parity.sharded_parity, the card's sharded checks, at a small
+    size on 4 ranks: every check holds (P equal to the single-device P
+    within 1e-9 in float64 here: the CPU's plain slab is not the card's
+    kernel), the BA's band plan engages, and the ranks agree."""
+    from surikatoko_tpu_torch.parallel import parity
+    outs = pool.run(launch.call_with_group, 4, parity.sharded_parity, (),
+                    None, dict(device="cpu", capacity=64, n_points=128,
+                               frames=range(1, 4), timed=range(4, 6),
+                               ba_size=(768, 48, 12)))
+    for o in outs:
+        assert o["ranks"] == 4 and o["backend"] == "gloo"
+        assert all(o["checks"].values()), o["checks"]
+        assert o["ba"]["plan_engaged"]
+        for t in ("float64", "float32"):
+            assert o[f"fused_{t}"]["P_checksum"] == \
+                outs[0][f"fused_{t}"]["P_checksum"]
+    assert outs[0]["imageseq"]["sharded_pallas_matched_absdiff"] == 0

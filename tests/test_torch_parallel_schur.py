@@ -156,7 +156,7 @@ def test_torch_mvf_sparse_ba_distributed_matches_local(pool):
     tids_l, pts_l, pos_l, m_l = tdemo.run_map(**kw)
     assert m_l["ba_runs"] >= 1
     outs = pool.run(launch.call_with_group, 2, tdemo.run_map, (), None,
-                    dict(kw, ba_point_chunk=32))
+                    dict(kw, ba_point_chunk=32, ba_device_loop=False))
     # both ranks build the same map (their metrics hold their own timings)
     launch.first([o[:3] for o in outs[:2]])
     tids_m, pts_m, pos_m, m_m = outs[0]
@@ -164,6 +164,15 @@ def test_torch_mvf_sparse_ba_distributed_matches_local(pool):
     assert m_m["ba_runs"] == m_l["ba_runs"]
     np.testing.assert_allclose(pts_m, pts_l, atol=1e-6)
     np.testing.assert_allclose(pos_m, pos_l, atol=1e-6)
+
+
+def test_torch_mvf_group_needs_host_loop():
+    """A factorizer with ba_group refuses the device LM loop, as the group
+    form of SparseBundleAdjustment does."""
+    from surikatoko_tpu_torch.models.mvf import MultiViewFactorizer, TrackStore
+    with pytest.raises(ValueError, match="ba_device_loop must be False"):
+        MultiViewFactorizer(TrackStore(8, 4), np.eye(3), ba_group=object(),
+                            device="cpu")
 
 
 def _medium_port(rng):

@@ -236,6 +236,7 @@ def test_torch_distribution_views_and_demo_never_import_jax():
             "surikatoko_tpu_torch.parallel.sharded_schur",
             "surikatoko_tpu_torch.parallel.sharded_imageseq",
             "surikatoko_tpu_torch.parallel.dryrun",
+            "surikatoko_tpu_torch.parallel.parity",
             "surikatoko_tpu_torch.io.config_reader", "surikatoko_tpu_torch.viz",
             "surikatoko_tpu_torch.viz.live_view",
             "surikatoko_tpu_torch.demos.davison_mono_slam", "chip_smoke"]
