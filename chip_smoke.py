@@ -199,12 +199,14 @@ Phases, one JSON line each:
            one-rank NCCL group, the card's only rank. B2's row-slab entry
            points (checked and timed right after the kernel phase) at (R, D,
            m, r0) = (4608, 4621, 1536, 13), one rank's landmark rows at
-           K=768, (1152, 4621, 1536, 1165), rank 1 of four, and (13, 4621,
-           1536, 0), the camera rows, float32 and float64: bit for bit the
+           K=768, (1152, 4621, 1536, 1165), rank 1 of four, (13, 4621,
+           1536, 0), the camera rows (the thin kernel), and (2304, 4621,
+           1536, 13), rank 0 of two, float32 and float64: bit for bit the
            full B2 call's rows, repeating, within the plain version's
            tolerance, timed by events, graph replay and device time beside
            the plain version, a masked addmm of the same rows and the bound
-           (R (D - R) m + R (R + 1) / 2 m FMAs: each symmetric pair once).
+           (R (D - R) m + R (R + 1) / 2 m FMAs: each symmetric pair once);
+           each shape's form and grid (covariance.rows_config).
            Then parity.sharded_parity: (a) the sharded fused step at K=768
            in float64 and float32 against the single-device fused step: P ==
            P^T bit for bit, P equal to the single-device P in float64 and
@@ -229,7 +231,8 @@ Phases, one JSON line each:
   kernel B1 or B2.
 Then a line with every kernel's launches, error and times (B2's row-slab
 entry points as a kernel of their own, their launches those of the sharded
-imageseq run; B2's batched
+imageseq run, with every slab shape's form, times, bound, plain and addmm
+times and whether it beat the addmm; B2's batched
 entry points' at (32,589,192) in both types too, and its float64 entry
 point's: its tile edge, its launches in precision_k768's float64
 run, and whether it beat its one-call yardstick; each kernel's launches on
@@ -282,11 +285,12 @@ F64_REL_FRO = 1e-12
 DOWNDATE_DEVICE_KERNELS = ("pad_rows", "downdate_kernel")
 NCC_DEVICE_KERNELS = ("ncc_search_kernel",)
 # the sharded phase: B2's row slabs (R, D, m, r0) of one rank at K=768, of
-# rank 1 of four, and of the camera rows (the main path's two slabs a frame
-# are the first and the last); the imageseq frames compared (bench.py:351)
-# and timed; the banded point-sharded BA (points, frames, track length)
+# rank 1 of four, of the camera rows (the main path's two slabs a frame are
+# the first and the third) and of rank 0 of two; the imageseq frames
+# compared (bench.py:351) and timed; the banded point-sharded BA (points,
+# frames, track length)
 SLAB_SHAPES = ((4608, 4621, 1536, 13), (1152, 4621, 1536, 13 + 1152),
-               (13, 4621, 1536, 0))
+               (13, 4621, 1536, 0), (2304, 4621, 1536, 13))
 SHARDED_FRAMES = range(1, 9)
 SHARDED_TIMED = range(9, 41)
 SHARDED_BA = (2048, 100, 12)
@@ -1712,7 +1716,8 @@ def slab_phase(cov, device, fma_per_s, f64_fma_per_s) -> dict:
                     "bitwise_full": bool(torch.equal(got, full)),
                     "repeats": bool(torch.equal(got, again)),
                     "within_tolerance": within,
-                    "tile_blocks": cov.rows_config(D, R, r0, dtype)}
+                    "form_width_blocks": cov.rows_config(
+                        D, R, r0, dtype, cov.sm_count(device))}
             cases.append(case)
             if not (case["bitwise_full"] and case["repeats"] and within
                     and bool(torch.isfinite(got).all())):
@@ -1728,11 +1733,34 @@ def slab_phase(cov, device, fma_per_s, f64_fma_per_s) -> dict:
                                   else f64_fma_per_s)
             kern_ms = float(np.mean(tm["kernel"]))
             tm.update(kernel_device_us=device_us_per_call(fns["kernel"]),
+                      addmm_device_us=device_us_per_call(fns["addmm"]),
+                      form_width_blocks=case["form_width_blocks"],
                       bound_ms=b_ms, bound_by=b_by, fma=fma,
                       pct_of_bound=100.0 * b_ms / kern_ms,
                       pct_of_bound_graph=100.0 * b_ms / tm["graph_ms"]["kernel"])
             timed[f"{case['dtype']}_{R}x{D}x{m}_r{r0}"] = tm
     return {"cases": cases, "timed": timed}
+
+
+def slab_report(tm: dict) -> dict:
+    """One slab shape's line in the kernels report: form and grid, the
+    kernel's ms by events, graph replay and device time, its bound, the
+    plain version's and the masked addmm's times, and whether the kernel
+    beat the addmm by both graph replay and device time."""
+    ms = float(np.mean(tm["kernel"]))
+    return {"form_width_blocks": list(tm["form_width_blocks"]), "ms": ms,
+            "graph_ms": tm["graph_ms"]["kernel"],
+            "device_us": tm["kernel_device_us"],
+            "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
+            "pct_of_bound": tm["pct_of_bound"],
+            "pct_of_bound_graph": tm["pct_of_bound_graph"],
+            "plain_ms": float(np.mean(tm["plain"])),
+            "library_ms": float(np.mean(tm["addmm"])),
+            "library_graph_ms": tm["graph_ms"]["addmm"],
+            "library_device_us": tm["addmm_device_us"],
+            "faster_than_library": bool(
+                tm["graph_ms"]["kernel"] < tm["graph_ms"]["addmm"]
+                and tm["kernel_device_us"] < tm["addmm_device_us"])}
 
 
 def sharded_phase(device) -> dict:
@@ -2556,11 +2584,9 @@ def main() -> int:
     if bad:
         raise AssertionError(f"sharded: {bad}")
     sh_launches = shd["imageseq"]["launches"]
-    slab_main = slab["timed"][f"float32_{SLAB_SHAPES[0][0]}x{SLAB_SHAPES[0][1]}"
-                              f"x{SLAB_SHAPES[0][2]}_r{SLAB_SHAPES[0][3]}"]
-    slab64_main = slab["timed"][f"float64_{SLAB_SHAPES[0][0]}x"
-                                f"{SLAB_SHAPES[0][1]}x{SLAB_SHAPES[0][2]}"
-                                f"_r{SLAB_SHAPES[0][3]}"]
+    slab_key = "{}x{}x{}_r{}".format(*SLAB_SHAPES[0])
+    slab_main = slab["timed"][f"float32_{slab_key}"]
+    slab64_main = slab["timed"][f"float64_{slab_key}"]
 
     dd_main = dd_times["4621x1536"]
     dd64_main = dd64_times["4621x1536"]
@@ -2673,7 +2699,8 @@ def main() -> int:
         "f64_bound_ms": slab64_main["bound_ms"],
         "f64_bound_by": slab64_main["bound_by"],
         "f64_pct_of_bound": slab64_main["pct_of_bound"],
-        "bitwise_full_b2": all(c["bitwise_full"] for c in slab["cases"])}]})
+        "bitwise_full_b2": all(c["bitwise_full"] for c in slab["cases"]),
+        "shapes": {k: slab_report(v) for k, v in slab["timed"].items()}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

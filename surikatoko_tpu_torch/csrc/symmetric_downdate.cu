@@ -71,7 +71,31 @@
 //   full call's grid. The full kernel reads P's lower half; a slab reads its
 //   own rows (P[s][c] for c > s where the full kernel reads P[c][s]), so the
 //   two agree bit for bit when P is exactly symmetric, the filter's
-//   invariant.
+//   invariant. In float32 an element's bits do not depend on the tile that
+//   computes it (one fmaf chain from 0 in increasing a), so a float32 slab
+//   at 128-wide tiles lays its grid from its own first row (lp zero columns
+//   lead M's in the padded copy: a slab of 9 x 128 rows is 9 row tiles, not
+//   10) and computes a cross tile as it lies, the slab's rows against its
+//   columns. Its blocks fill two an SM; where the last wave would hold at
+//   most one tile an SM, those tiles run as two blocks of 64 columns each
+//   (`split`): a tile alone on an SM took about half a wave's time.
+// * thin slabs (the camera rows: R = 13) take a kernel of their own
+//   (thin_kernel, thin_kernel_dmma): 128-wide tiles would give one short
+//   wave of blocks that each compute a 128 x 128 tile, 1536 deep, to keep
+//   13 of its rows (10x the FMAs the rows need). A thin block owns 16 of
+//   the slab's rows against CW output columns, so D / CW blocks spread
+//   over the card; M's columns stream through a cp.async ring straight from
+//   M (no padded copy, so one launch), the slab's own columns of M, which
+//   every block reads, from L2. What bounds the card is M's bytes, read
+//   once; what bounds this kernel is its 4-byte copies (see Thin).
+//   float32: one fmaf chain an output from 0 in increasing a, as the full
+//   kernel's. float64: one m16n8k16 DMMA a 16-row panel of M in increasing
+//   order, the slab's rows the A operand and the columns B, as the full
+//   kernel's panels; an element's bits are then its two columns' products
+//   in the tensor core's order, whatever its place in the fragment and
+//   whichever of the two is A (the card tests hold it to the full kernel).
+//   Inside the slab's own rows an element and its mirror are computed
+//   apart, from the same products in the same order.
 // The kernel allocates nothing and never synchronises; the entry points
 // return a cudaError_t (0 = launched).
 //
@@ -171,15 +195,16 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Mp [m, Dp] = M [m, D] with zero columns D .. Dp-1; one block per row,
-// blockIdx.y the problem of a batch (M and Mp offset by sM and sMp floats).
+// Mp [m, Dp] = M [m, D] behind lp zero columns, zero columns past them;
+// one block per row, blockIdx.y the problem of a batch (M and Mp offset by
+// sM and sMp floats).
 __global__ void pad_rows(const float* __restrict__ M, float* __restrict__ Mp,
-                         int D, int Dp, long long sM, long long sMp) {
+                         int D, int Dp, int lp, long long sM, long long sMp) {
   const size_t k = blockIdx.x;
   M += blockIdx.y * sM;
   Mp += blockIdx.y * sMp;
   for (int c = threadIdx.x; c < Dp; c += blockDim.x)
-    Mp[k * Dp + c] = c < D ? M[k * D + c] : 0.f;
+    Mp[k * Dp + c] = c >= lp && c - lp < D ? M[k * D + c - lp] : 0.f;
 }
 
 // lower-triangle tile (bi >= bj) of block t = bi (bi + 1) / 2 + bj
@@ -236,9 +261,19 @@ __device__ __forceinline__ void write_tile(T* tile, const T* __restrict__ P,
 }
 
 // A row slab: output rows [r0, r0 + R) of a [D,D] result in its nr row
-// tiles bi0 .. bi0 + nr - 1, of nt tiles across D
+// tiles bi0 .. bi0 + nr - 1, of nt tiles across D. The tile grid may start
+// lp rows and columns before the output (a float32 slab's grid starts at
+// its first row); r0, bi0 and nt count in the grid's coordinates, where
+// the output's row or column x is x + lp.
+// A float32 slab may compute its last `split` cross tiles (see block_tile)
+// as two halves of TILE / 2 columns each, two blocks.
 struct Rows {
-  int r0, R, bi0, nr, nt;
+  int r0, R, bi0, nr, nt, lp, split;
+};
+
+template <int N>
+struct IntC {
+  static constexpr int value = N;
 };
 
 // the launch modes of the kernels: one problem, a batch, a row slab
@@ -248,11 +283,13 @@ enum Mode { SINGLE, BATCHED, ROWS };
 // lower-triangle tile, or for a slab first the lower-triangle tiles among
 // its row tiles (x < nr (nr + 1) / 2; most write two output tiles, so they
 // start first), then its row tiles si against the column tiles sj outside
-// them; (si, sj) is the output tile whose slab part the block writes, and
-// for a pair of two row tiles of the slab its mirror
+// them (cross tiles); (si, sj) is the output tile whose slab part the block
+// writes, and for a pair of two row tiles of the slab its mirror. The last
+// rows.split cross tiles take two blocks each, `half` 0 and 1 (else -1).
 __device__ __forceinline__ void block_tile(int mode, const Rows& rows,
                                            long long& bi, long long& bj,
-                                           int& si, int& sj) {
+                                           int& si, int& sj, int& half) {
+  half = -1;
   if (mode == ROWS) {
     const long long x = blockIdx.x;
     const long long inside = (long long)rows.nr * (rows.nr + 1) / 2;
@@ -263,8 +300,14 @@ __device__ __forceinline__ void block_tile(int mode, const Rows& rows,
       sj = rows.bi0 + (int)b;
     } else {
       const int w = rows.nt - rows.nr;
-      si = rows.bi0 + (int)((x - inside) / w);
-      sj = (int)((x - inside) % w);
+      const long long whole = (long long)rows.nr * w - rows.split;
+      long long u = x - inside;
+      if (u >= whole) {
+        half = (int)((u - whole) % 2);
+        u = whole + (u - whole) / 2;
+      }
+      si = rows.bi0 + (int)(u / w);
+      sj = (int)(u % w);
       if (sj >= rows.bi0) sj += rows.nr;
     }
     bi = si > sj ? si : sj;
@@ -283,21 +326,24 @@ __device__ __forceinline__ bool mirror_in_slab(int si, int sj,
   return si != sj && sj >= rows.bi0 && sj < rows.bi0 + rows.nr;
 }
 
-// The slab epilogue. `tile` holds the accumulators of the lower-triangle
-// tile (i0, j0) (the caller synchronised after writing them); output tile
-// (si, sj)'s elements (s, c) inside the slab become
-// out[s - r0][c] = k_i k_j (P_rows[s - r0][c] - acc(i, j)) with i = max(s,
-// c), j = min(s, c): the value the full call writes at (s, c), whose P
-// read is P[i][j]. Only the tile's rows inside the slab are visited,
-// consecutive threads on consecutive c, EPI_LOADS loads of P in flight a
-// thread as in write_tile.
+// The slab epilogue. `tile` holds the accumulators of the tile (i0, j0)
+// (the caller synchronised after writing them); output tile (si, sj)'s
+// elements (s, c) inside the slab, in its columns TILE sj + c_lo .. + c_n
+// - 1, become out[s - r0][c] = k_s k_c (P_rows[s - r0][c] - acc(s, c)), the
+// value the full call writes at (s, c) (grid coordinates, less lp for the
+// output's). acc(s, c) is the tile's (s - i0, c - j0), or with `flip` its
+// (c - i0, s - j0); a diagonal tile's (max - i0, min - j0), the lower half
+// the full call reads, whose P read is P[max][min]. Only the tile's rows
+// inside the slab are visited, consecutive threads on consecutive c,
+// EPI_LOADS loads of P in flight a thread as in write_tile.
 template <int TILE, int THREADS, bool HAS_KEEP, typename T>
 __device__ __forceinline__ void write_rows(const T* tile,
                                            const T* __restrict__ P_rows,
                                            const T* __restrict__ keep,
                                            T* __restrict__ out, int D, int i0,
                                            int j0, int si, int sj,
-                                           const Rows& rows, int tid) {
+                                           const Rows& rows, int tid,
+                                           bool flip, int c_lo, int c_n) {
   const int s0 = si * TILE > rows.r0 ? si * TILE : rows.r0;
   const int s1 = si * TILE + TILE < rows.r0 + rows.R ? si * TILE + TILE
                                                      : rows.r0 + rows.R;
@@ -307,9 +353,11 @@ __device__ __forceinline__ void write_rows(const T* tile,
 #pragma unroll
     for (int u = 0; u < EPI_LOADS; ++u) {
       const int e = e0 + u * THREADS;
-      const int s = s0 + e / TILE, c = sj * TILE + e % TILE;
-      const bool ok = e < n && c < D;
-      const size_t o = (size_t)(s - rows.r0) * D + c;
+      const int s = s0 + e / TILE - rows.lp;
+      const int c = sj * TILE + e % TILE - rows.lp;
+      const bool ok = e < n && c >= 0 && c < D &&
+                      (unsigned)(e % TILE - c_lo) < (unsigned)c_n;
+      const size_t o = (size_t)(s + rows.lp - rows.r0) * D + c;
       pv[u] = ok ? P_rows[o] : T(0);
       if (HAS_KEEP) kv[u] = ok ? keep[s > c ? s : c] * keep[s > c ? c : s] : T(0);
     }
@@ -317,11 +365,14 @@ __device__ __forceinline__ void write_rows(const T* tile,
     for (int u = 0; u < EPI_LOADS; ++u) {
       const int e = e0 + u * THREADS;
       const int s = s0 + e / TILE, c = sj * TILE + e % TILE;
-      if (e < n && c < D) {
-        const int i = s > c ? s : c, j = s > c ? c : s;
+      if (e < n && c >= rows.lp && c - rows.lp < D &&
+          (unsigned)(e % TILE - c_lo) < (unsigned)c_n) {
+        const bool diag = si == sj;
+        const int i = diag ? (s > c ? s : c) : flip ? c : s;
+        const int j = diag ? (s > c ? c : s) : flip ? s : c;
         T v = pv[u] - tile[(i - i0) * (TILE + 1) + (j - j0)];
         if (HAS_KEEP) v *= kv[u];
-        out[(size_t)(s - rows.r0) * D + c] = v;
+        out[(size_t)(s - rows.r0) * D + c - rows.lp] = v;
       }
     }
   }
@@ -351,10 +402,20 @@ downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
   }
 
   long long bi, bj;
-  int si, sj;
-  block_tile(MODE, rows, bi, bj, si, sj);
+  int si, sj, half;
+  block_tile(MODE, rows, bi, bj, si, sj, half);
+  if constexpr (MODE == ROWS) {
+    // a cross tile is computed as it lies, the slab's rows against its
+    // columns (a float32 element's bits do not depend on the tile), a split
+    // one in two blocks of TILE / 2 columns (the first column group of a
+    // thread's register tile)
+    if (sj < rows.bi0 || sj >= rows.bi0 + rows.nr) {
+      bi = si;
+      bj = sj;
+    }
+  }
   const int i0 = (int)bi * TILE;
-  const int j0 = (int)bj * TILE;
+  const int j0 = (int)bj * TILE + (half > 0 ? TILE / 2 : 0);
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
@@ -397,31 +458,45 @@ downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
     if (s < n_panels) load_panel(s);
     cp_async_commit();
   }
-  for (int panel = 0; panel < n_panels; ++panel) {
-    // panel's group has landed for every thread, and every thread is done
-    // with the stage the next load overwrites (panel - 1's)
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (panel + STAGES - 1 < n_panels) load_panel(panel + STAGES - 1);
-    cp_async_commit();
-    const float* si = smem + (panel % STAGES) * 2 * C::STRIP;
-    const float* sj = si + C::STRIP;
-    // rows past m rounded up to 16 are skipped (see the summation order)
-    const bool second_half = panel * KP + KP / 2 < m;
+  // the k-loop over QH of the H column groups of the register tile
+  auto k_loop = [&](auto qh) {
+    constexpr int QH = decltype(qh)::value;
+    for (int panel = 0; panel < n_panels; ++panel) {
+      // panel's group has landed for every thread, and every thread is done
+      // with the stage the next load overwrites (panel - 1's)
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();
+      if (panel + STAGES - 1 < n_panels) load_panel(panel + STAGES - 1);
+      cp_async_commit();
+      const float* si = smem + (panel % STAGES) * 2 * C::STRIP;
+      const float* sj = si + C::STRIP;
+      // rows past m rounded up to 16 are skipped (see the summation order)
+      const bool second_half = panel * KP + KP / 2 < m;
 #pragma unroll
-    for (int kk = 0; kk < KP; ++kk) {
-      if (kk == KP / 2 && !second_half) break;
-      float a[C::RT], b[C::RT];
+      for (int kk = 0; kk < KP; ++kk) {
+        if (kk == KP / 2 && !second_half) break;
+        float a[C::RT], b[C::RT];
 #pragma unroll
-      for (int h = 0; h < C::H; ++h) {
-        load4(si + kk * TILE + h * C::HALF + 4 * ty, a + 4 * h);
-        load4(sj + kk * TILE + h * C::HALF + 4 * tx, b + 4 * h);
+        for (int h = 0; h < C::H; ++h)
+          load4(si + kk * TILE + h * C::HALF + 4 * ty, a + 4 * h);
+#pragma unroll
+        for (int h = 0; h < QH; ++h)
+          load4(sj + kk * TILE + h * C::HALF + 4 * tx, b + 4 * h);
+#pragma unroll
+        for (int p = 0; p < C::RT; ++p)
+#pragma unroll
+          for (int q = 0; q < 4 * QH; ++q)
+            acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
       }
-#pragma unroll
-      for (int p = 0; p < C::RT; ++p)
-#pragma unroll
-        for (int q = 0; q < C::RT; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
     }
+  };
+  if constexpr (MODE == ROWS && C::H == 2) {
+    if (half >= 0)
+      k_loop(IntC<1>{});
+    else
+      k_loop(IntC<C::H>{});
+  } else {
+    k_loop(IntC<C::H>{});
   }
   cp_async_wait<0>();
   __syncthreads();   // the ring is free: it becomes the epilogue tile
@@ -438,11 +513,13 @@ downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
   }
   __syncthreads();
   if constexpr (MODE == ROWS) {
-    write_rows<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0, si,
-                                           sj, rows, tid);
+    write_rows<TILE, C::THREADS, HAS_KEEP>(
+        tile, P, keep, out, D, i0, j0, si, sj, rows, tid, bi != si,
+        half > 0 ? TILE / 2 : 0, half >= 0 ? TILE / 2 : TILE);
     if (mirror_in_slab(si, sj, rows))
       write_rows<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
-                                             sj, si, rows, tid);
+                                             sj, si, rows, tid, bi != sj, 0,
+                                             TILE);
   } else
     write_tile<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
                                            bi == bj, tid);
@@ -508,8 +585,8 @@ downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ M,
   }
 
   long long bi, bj;
-  int si, sj;
-  block_tile(MODE, rows, bi, bj, si, sj);
+  int si, sj, half;   // float64 slabs are not split: half is -1
+  block_tile(MODE, rows, bi, bj, si, sj, half);
   const int i0 = (int)bi * TILE;
   const int j0 = (int)bj * TILE;
 
@@ -595,32 +672,228 @@ downdate_kernel_dmma(const double* __restrict__ P, const double* __restrict__ M,
   __syncthreads();
   if constexpr (MODE == ROWS) {
     write_rows<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0, si,
-                                           sj, rows, tid);
+                                           sj, rows, tid, bi != si, 0, TILE);
     if (mirror_in_slab(si, sj, rows))
       write_rows<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
-                                             sj, si, rows, tid);
+                                             sj, si, rows, tid, bi != sj, 0,
+                                             TILE);
   } else
     write_tile<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
                                            bi == bj, tid);
 }
 
+// ---- thin row slabs ----
+
+// A block: ROWS of the slab's rows (blockIdx.y picks which) against CW
+// output columns (blockIdx.x), a warp 16 rows x 16 columns (float32: a
+// thread 4 rows x 2 columns; float64: two DMMA tiles), and every thread
+// copies too. A stage is KP rows of M: the slab's strip [KP][LA] (its rows'
+// columns of M) and the block's columns' [KP][LB], copied an element at a
+// time, coalesced across the warp (rows of M start at k D elements, D odd).
+// On an H100 the float32 kernel's time is set by these copies and by how
+// many blocks an SM holds: at the camera rows one block an SM (CW = 48 at
+// D = 4621) with few deep stages ran fastest; 16-byte copies into a
+// shifted layout, a copy warp beside the compute warps, copies staged
+// through registers, TMA boxes of M seen as aligned lines of 4 rows, and
+// other thread tiles were all slower (PERF.md).
+// float32 rows are 16-byte aligned for the float4 loads, float64 rows 4
+// doubles longer than they hold, so that a half-warp's fragment loads hit
+// 16 distinct bank pairs, as in Cfg64.
+template <int CW, typename T>
+struct Thin {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int ROWS = 16;
+  static constexpr int THREADS = 2 * CW;
+  static constexpr int KP = F32 ? 48 : 32;
+  static constexpr int STAGES = F32 ? 3 : 4;
+  static constexpr int PAD = F32 ? 0 : 4;
+  static constexpr int LA = ROWS + PAD, LB = CW + PAD;
+  static constexpr int STAGE = KP * (LA + LB);
+  static constexpr int SMEM = STAGES * STAGE * (int)sizeof(T);
+  static_assert(CW % 16 == 0 && STAGE % 4 == 0 && THREADS % 32 == 0,
+                "layout");
+};
+
+// Copies of stage `st` of M's rows into the ring: the slab's columns r0 ..
+// r0 + rows - 1 and the block's c0 .. c0 + CW - 1, zero past them, past D
+// and past m
+template <int CW, typename T>
+__device__ __forceinline__ void thin_stage(T* smem, const T* __restrict__ M,
+                                           int D, int m, int st, int r0,
+                                           int rows, int c0, int tid) {
+  using C = Thin<CW, T>;
+  static_assert(C::KP * C::ROWS % C::THREADS == 0 &&
+                    C::KP * CW % C::THREADS == 0, "copies a thread");
+  T* sa = smem + (st % C::STAGES) * C::STAGE;
+  T* sb = sa + C::KP * C::LA;
+#pragma unroll
+  for (int u = 0; u < C::KP * C::ROWS / C::THREADS; ++u) {
+    const int e = tid + u * C::THREADS;
+    const int k = st * C::KP + e / C::ROWS, r = e % C::ROWS;
+    const bool ok = k < m && r < rows;
+    cp_async<sizeof(T)>(sa + (e / C::ROWS) * C::LA + r,
+                        M + (ok ? (size_t)k * D + r0 + r : 0), ok);
+  }
+#pragma unroll
+  for (int u = 0; u < C::KP * CW / C::THREADS; ++u) {
+    const int e = tid + u * C::THREADS;
+    const int k = st * C::KP + e / CW, c = e % CW;
+    const bool ok = k < m && c0 + c < D;
+    cp_async<sizeof(T)>(sb + (e / CW) * C::LB + c,
+                        M + (ok ? (size_t)k * D + c0 + c : 0), ok);
+  }
+}
+
+// out[s][c] = k_{r0+s} k_c (P_rows[s][c] - acc) for slab row s (counted
+// from r0) and column c: the full call's value there
+template <bool HAS_KEEP, typename T>
+__device__ __forceinline__ void thin_write(T acc, const T* __restrict__ P_rows,
+                                           const T* __restrict__ keep,
+                                           T* __restrict__ out, int D, int r0,
+                                           int s, int c) {
+  const size_t o = (size_t)s * D + c;
+  T v = P_rows[o] - acc;
+  if (HAS_KEEP) v *= keep[r0 + s] * keep[c];
+  out[o] = v;
+}
+
+// float32: a thread 4 rows x 2 columns of its warp's patch (rows 4 (lane
+// / 8) .., columns 2 (8 warp + lane % 8) ..), 8 fmaf chains
+template <int CW, bool HAS_KEEP>
+__global__ void __launch_bounds__(Thin<CW, float>::THREADS)
+thin_kernel(const float* __restrict__ P_rows, const float* __restrict__ M,
+            const float* __restrict__ keep, float* __restrict__ out, int D,
+            int m, int r0, int R) {
+  using C = Thin<CW, float>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int c0 = blockIdx.x * CW, y0 = blockIdx.y * C::ROWS;
+  const int rows = min(C::ROWS, R - y0);
+  const int ra = 4 * (lane / 8), cb = 2 * (8 * warp + lane % 8);
+  const int n_st = (m + C::KP - 1) / C::KP;
+
+  float acc[4][2];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+    acc[p][0] = acc[p][1] = 0.f;
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < n_st) thin_stage<CW>(smem, M, D, m, s, r0 + y0, rows, c0, tid);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_st; ++st) {
+    // stage st has landed for every thread, and every thread is done with
+    // the stage the next copies overwrite (st - 1's)
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();
+    if (st + C::STAGES - 1 < n_st)
+      thin_stage<CW>(smem, M, D, m, st + C::STAGES - 1, r0 + y0, rows, c0, tid);
+    cp_async_commit();
+    const float* sa = smem + (st % C::STAGES) * C::STAGE + ra;
+    const float* sb = smem + (st % C::STAGES) * C::STAGE + C::KP * C::LA + cb;
+#pragma unroll
+    for (int kk = 0; kk < C::KP; ++kk) {
+      float a[4];
+      load4(sa + kk * C::LA, a);
+      const float2 b = *reinterpret_cast<const float2*>(sb + kk * C::LB);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        acc[p][0] = fmaf(a[p], b.x, acc[p][0]);
+        acc[p][1] = fmaf(a[p], b.y, acc[p][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      if (ra + p < rows && c0 + cb + q < D)
+        thin_write<HAS_KEEP>(acc[p][q], P_rows, keep, out, D, r0,
+                             y0 + ra + p, c0 + cb + q);
+}
+
+// float64: a warp's 16 x 16 patch is two m16n8k16 DMMAs a 16-row panel (A
+// the slab's rows, B the columns), fragments as in downdate_kernel_dmma
+template <int CW, bool HAS_KEEP>
+__global__ void __launch_bounds__(Thin<CW, double>::THREADS)
+thin_kernel_dmma(const double* __restrict__ P_rows,
+                 const double* __restrict__ M, const double* __restrict__ keep,
+                 double* __restrict__ out, int D, int m, int r0, int R) {
+  using C = Thin<CW, double>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* smem = reinterpret_cast<double*>(smem_raw);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int c0 = blockIdx.x * CW, y0 = blockIdx.y * C::ROWS;
+  const int rows = min(C::ROWS, R - y0);
+  const int n_st = (m + C::KP - 1) / C::KP;
+
+  double acc[2][4];
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[q][v] = 0.0;
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) {
+    if (s < n_st) thin_stage<CW>(smem, M, D, m, s, r0 + y0, rows, c0, tid);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_st; ++st) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();
+    if (st + C::STAGES - 1 < n_st)
+      thin_stage<CW>(smem, M, D, m, st + C::STAGES - 1, r0 + y0, rows, c0, tid);
+    cp_async_commit();
+    const double* sa = smem + (st % C::STAGES) * C::STAGE + g;
+    const double* sb = sa + C::KP * C::LA + warp * 16;
+#pragma unroll
+    for (int k16 = 0; k16 < C::KP; k16 += 16) {
+      // the full kernel runs no panel wholly past m
+      if (st * C::KP + k16 >= m) break;
+      double a[8], b[2][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a[i] = sa[(k16 + t + 4 * (i / 2)) * C::LA + 8 * (i % 2)];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) b[q][i] = sb[(k16 + t + 4 * i) * C::LB + 8 * q];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) dmma(acc[q], a, b[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int r = g + 8 * (v / 2), c = c0 + warp * 16 + 8 * q + 2 * t + v % 2;
+      if (r < rows && c < D)
+        thin_write<HAS_KEEP>(acc[q][v], P_rows, keep, out, D, r0, y0 + r, c);
+    }
+}
+
 // The shared-memory attributes of `kernel`, set once per device: `ready`
-// holds one bit per device, one variable per kernel.
+// holds one bit per device, one variable per kernel. With `max_shared` the
+// SM's L1 / shared split is asked to favour shared memory (else the driver
+// picks it: the thin kernels, which need little, ran faster so in float64).
 template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, int smem, unsigned long long& ready) {
+cudaError_t set_smem(Kernel kernel, int smem, unsigned long long& ready,
+                     bool max_shared = true) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 64 && (ready >> dev & 1ull)) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess && max_shared)
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err == cudaSuccess && dev < 64) ready |= 1ull << dev;
   return err;
 }
+
 
 template <int TILE, bool HAS_KEEP, int MODE>
 cudaError_t prepare() {
@@ -664,49 +937,72 @@ bool bad_batch(int B, long long sP, long long sM, long long sK) {
   return B < 1 || B > 65535 || sP < 0 || sM < 0 || sK < 0;
 }
 
-// the slab of rows [r0, r0 + R) of a [D,D] output in TILE-wide tiles and
-// its grid, or false when it does not lie inside [0, D)
-bool slab_of(int D, int r0, int R, int tile, Rows& rows, unsigned int& blocks) {
-  if (D < 1 || R < 1 || r0 < 0 || r0 > D - R) return false;
-  rows.r0 = r0;
+// whether rows [r0, r0 + R) lie inside a [D,D] output
+bool bad_slab(int D, int r0, int R) {
+  return D < 1 || R < 1 || r0 < 0 || r0 > D - R;
+}
+
+// the slab of rows [r0, r0 + R) of a [D,D] output in TILE-wide tiles whose
+// grid starts lp rows and columns before the output, its last `split`
+// cross tiles in halves, and its blocks, or false when it does not lie
+// inside [0, D) or has fewer cross tiles
+bool slab_of(int D, int r0, int R, int tile, int lp, int split, Rows& rows,
+             unsigned int& blocks) {
+  if (bad_slab(D, r0, R) || split < 0) return false;
+  rows.lp = lp;
+  rows.split = split;
+  rows.r0 = r0 + lp;
   rows.R = R;
-  rows.bi0 = r0 / tile;
-  rows.nr = (r0 + R - 1) / tile - rows.bi0 + 1;
-  rows.nt = (D + tile - 1) / tile;
+  rows.bi0 = rows.r0 / tile;
+  rows.nr = (rows.r0 + R - 1) / tile - rows.bi0 + 1;
+  rows.nt = (D + lp + tile - 1) / tile;
+  if (split > rows.nr * (rows.nt - rows.nr)) return false;
   blocks = (unsigned int)(rows.nr * (rows.nt - rows.nr) +
-                          rows.nr * (rows.nr + 1) / 2);
+                          rows.nr * (rows.nr + 1) / 2 + split);
   return true;
 }
 
-// the full call (B problems, no slab) or, with `slab`, a row slab of one
-template <int TILE>
+// B problems (MODE SINGLE or BATCHED: one lower-triangle tile a block) or
+// a row slab of one (MODE ROWS, `rows` and its `blocks`)
+template <int TILE, int MODE>
 int launch(const float* P, const float* M, const float* keep, float* Mp,
            float* out, int B, int D, int m, long long sP, long long sM,
-           long long sK, const Rows* slab, unsigned int slab_blocks,
+           long long sK, const Rows& rows, unsigned int blocks,
            cudaStream_t stream) {
   using C = Cfg<TILE>;
   if (C::PADDED && Mp == nullptr) return (int)cudaErrorInvalidValue;
   if (bad_batch(B, sP, sM, sK)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  auto kernel = slab ? pick<TILE, ROWS>(keep != nullptr, err)
-                : B > 1 ? pick<TILE, BATCHED>(keep != nullptr, err)
-                        : pick<TILE, SINGLE>(keep != nullptr, err);
+  auto kernel = pick<TILE, MODE>(keep != nullptr, err);
   if (err != cudaSuccess) return (int)err;
   int ld = D;
   if (C::PADDED) {
-    // a shared M is padded once
-    ld = (D + 3) / 4 * 4;
+    // a shared M is padded once; a slab's grid origin lp leads the rows
+    ld = (D + rows.lp + 3) / 4 * 4;
     const long long sMp = sM == 0 ? 0 : (long long)m * ld;
-    pad_rows<<<dim3(m, sM == 0 ? 1 : B), 256, 0, stream>>>(M, Mp, D, ld, sM,
-                                                           sMp);
+    pad_rows<<<dim3(m, sM == 0 ? 1 : B), 256, 0, stream>>>(
+        M, Mp, D, ld, rows.lp, sM, sMp);
     M = Mp;
     sM = sMp;
   }
-  const unsigned int nt = (D + TILE - 1) / TILE;
-  const unsigned int blocks = slab ? slab_blocks : nt * (nt + 1) / 2;
+  if (MODE != ROWS) {
+    const unsigned int nt = (D + TILE - 1) / TILE;
+    blocks = nt * (nt + 1) / 2;
+  }
   kernel<<<dim3(blocks, B), C::THREADS, C::SMEM, stream>>>(
-      P, M, keep, out, D, ld, m, sP, sM, sK, slab ? *slab : Rows{});
+      P, M, keep, out, D, ld, m, sP, sM, sK, rows);
   return (int)cudaGetLastError();
+}
+
+// the full call of B problems in TILE-wide tiles
+template <int TILE>
+int launch_full(const float* P, const float* M, const float* keep, float* Mp,
+                float* out, int B, int D, int m, long long sP, long long sM,
+                long long sK, cudaStream_t stream) {
+  return B > 1 ? launch<TILE, BATCHED>(P, M, keep, Mp, out, B, D, m, sP, sM,
+                                       sK, Rows{}, 0, stream)
+               : launch<TILE, SINGLE>(P, M, keep, Mp, out, B, D, m, sP, sM,
+                                      sK, Rows{}, 0, stream);
 }
 
 int launch_dmma(const double* P, const double* M, const double* keep,
@@ -727,6 +1023,54 @@ int launch_dmma(const double* P, const double* M, const double* keep,
   return (int)cudaGetLastError();
 }
 
+// the thin kernel of type T (thin_kernel, thin_kernel_dmma) at column
+// width CW, with or without the keep mask
+template <int CW, bool HAS_KEEP, typename T>
+cudaError_t thin_prepared(void (*&kernel)(const T*, const T*, const T*, T*,
+                                          int, int, int, int)) {
+  static unsigned long long ready = 0;
+  if constexpr (sizeof(T) == 4)
+    kernel = thin_kernel<CW, HAS_KEEP>;
+  else
+    kernel = thin_kernel_dmma<CW, HAS_KEEP>;
+  return set_smem(kernel, Thin<CW, T>::SMEM, ready, false);
+}
+
+// a thin slab: ceil(D / CW) x ceil(R / 16) blocks, one launch
+template <int CW, typename T>
+int launch_thin(const T* P_rows, const T* M, const T* keep, T* out, int D,
+                int m, int r0, int R, cudaStream_t stream) {
+  using C = Thin<CW, T>;
+  void (*kernel)(const T*, const T*, const T*, T*, int, int, int, int) =
+      nullptr;
+  const cudaError_t err = keep ? thin_prepared<CW, true>(kernel)
+                               : thin_prepared<CW, false>(kernel);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((D + CW - 1) / CW, (R + C::ROWS - 1) / C::ROWS);
+  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(P_rows, M, keep, out, D, m, r0,
+                                                R);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int thin_slab(const T* P_rows, const T* M, const T* keep, T* out, int D, int m,
+              int r0, int R, int cw, cudaStream_t stream) {
+  if (bad_slab(D, r0, R) || m < 1 || (R + 15) / 16 > 65535)
+    return (int)cudaErrorInvalidValue;
+  switch (cw) {
+    case 16: return launch_thin<16>(P_rows, M, keep, out, D, m, r0, R, stream);
+    case 32: return launch_thin<32>(P_rows, M, keep, out, D, m, r0, R, stream);
+    case 48:
+      // float32 only (a float64 block of 96 threads would not divide its
+      // copies)
+      if constexpr (sizeof(T) == 4)
+        return launch_thin<48>(P_rows, M, keep, out, D, m, r0, R, stream);
+      return (int)cudaErrorInvalidValue;
+    case 64: return launch_thin<64>(P_rows, M, keep, out, D, m, r0, R, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // out[b] = k_b k_b^T o (P_b - M_b^T M_b) for B problems: P_b [D,D] (lower
@@ -744,11 +1088,10 @@ extern "C" int symmetric_downdate_f32_batched(
     cudaStream_t stream) {
   switch (tile) {
     case 32:
-      return launch<32>(P, M, keep, Mp, out, B, D, m, sP, sM, sK, nullptr, 0,
-                        stream);
+      return launch_full<32>(P, M, keep, Mp, out, B, D, m, sP, sM, sK, stream);
     case 128:
-      return launch<128>(P, M, keep, Mp, out, B, D, m, sP, sM, sK, nullptr, 0,
-                         stream);
+      return launch_full<128>(P, M, keep, Mp, out, B, D, m, sP, sM, sK,
+                              stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -782,22 +1125,30 @@ extern "C" int symmetric_downdate_f64(const double* P, const double* M,
 // Rows [r0, r0 + R) of symmetric_downdate_f32's output for P, M and keep,
 // each element bit for bit the full call's when P is exactly symmetric:
 // P_rows [R,D] (rows r0 .. r0 + R - 1 of P, all read), M [m,D], keep [D] or
-// NULL, out [R,D]; Mp m x Dp floats for TILE = 128, as the full call's.
-// 0 <= r0 <= D - R; r0 need not be a multiple of the tile.
+// NULL, out [R,D]; TILE 32 or 128 (whatever the full call's). At TILE =
+// 128 the tile grid starts at row r0 (lp = (128 - r0 % 128) % 128 columns
+// of zeros lead M's in the scratch; Mp is m x Dp floats, Dp = D + lp
+// rounded up to 4) and the last `split` of its cross tiles are computed in
+// halves (0 at the other edges). 0 <= r0 <= D - R.
 extern "C" int symmetric_downdate_rows_f32(const float* P_rows, const float* M,
                                            const float* keep, float* Mp,
                                            float* out, int D, int m, int r0,
-                                           int R, int tile,
+                                           int R, int tile, int split,
                                            cudaStream_t stream) {
   Rows rows;
   unsigned int blocks = 0;
-  if ((tile != 32 && tile != 128) || !slab_of(D, r0, R, tile, rows, blocks))
+  if ((tile != 32 && tile != 128) || (split && tile != 128) ||
+      !slab_of(D, r0, R, tile, tile == 128 ? (128 - r0 % 128) % 128 : 0,
+               split, rows, blocks))
     return (int)cudaErrorInvalidValue;
-  if (tile == 32)
-    return launch<32>(P_rows, M, keep, Mp, out, 1, D, m, 0, 0, 0, &rows,
-                      blocks, stream);
-  return launch<128>(P_rows, M, keep, Mp, out, 1, D, m, 0, 0, 0, &rows, blocks,
-                     stream);
+  switch (tile) {
+    case 32:
+      return launch<32, ROWS>(P_rows, M, keep, Mp, out, 1, D, m, 0, 0, 0, rows,
+                              blocks, stream);
+    default:
+      return launch<128, ROWS>(P_rows, M, keep, Mp, out, 1, D, m, 0, 0, 0,
+                               rows, blocks, stream);
+  }
 }
 
 // The same for float64 (the DMMA kernel's 64-wide tiles).
@@ -807,8 +1158,28 @@ extern "C" int symmetric_downdate_rows_f64(const double* P_rows,
                                            int R, cudaStream_t stream) {
   Rows rows;
   unsigned int blocks = 0;
-  if (!slab_of(D, r0, R, Cfg64::TILE, rows, blocks))
+  if (!slab_of(D, r0, R, Cfg64::TILE, 0, 0, rows, blocks))
     return (int)cudaErrorInvalidValue;
   return launch_dmma(P_rows, M, keep, out, 1, D, m, 0, 0, 0, &rows, blocks,
                      stream);
+}
+
+// The same rows by the thin kernels (no scratch, one launch): a block 16
+// rows x cw columns (cw 16, 32, 48 or 64 in float32; 16, 32 or 64 in
+// float64, DMMA).
+extern "C" int symmetric_downdate_rows_thin_f32(const float* P_rows,
+                                                const float* M,
+                                                const float* keep, float* out,
+                                                int D, int m, int r0, int R,
+                                                int cw, cudaStream_t stream) {
+  return thin_slab(P_rows, M, keep, out, D, m, r0, R, cw, stream);
+}
+
+extern "C" int symmetric_downdate_rows_thin_f64(const double* P_rows,
+                                                const double* M,
+                                                const double* keep,
+                                                double* out, int D, int m,
+                                                int r0, int R, int cw,
+                                                cudaStream_t stream) {
+  return thin_slab(P_rows, M, keep, out, D, m, r0, R, cw, stream);
 }

@@ -101,9 +101,9 @@ def run_dino(device, dtype, n_points=DINO_POINTS):
             "map_ate": ate, "finite": finite}
 
 
-def dino_ate(device="cpu"):
-    """Map ATE of :func:`run_dino` in float64 (the pin of the card run's
-    float32 ATE)."""
+def dino_ate(device):
+    """Map ATE of :func:`run_dino` in float64 on ``device`` (the pin of the
+    card run's float32 ATE is this on "cpu")."""
     return run_dino(device, torch.float64)["map_ate"]
 
 

@@ -26,7 +26,10 @@ from those rows of P alone, for the landmark-sharded filter
 bit for bit what the full call writes there when P is exactly symmetric;
 its plain version, :func:`symmetric_downdate_rows_ref`, equals the matching
 rows of :func:`symmetric_downdate_ref` likewise (on the CPU's BLAS, whose
-product element does not depend on the rows asked for).
+product element does not depend on the rows asked for). A slab of few rows
+(the camera rows) takes the thin kernels, one launch; a larger one the full
+call's tiles, in float32 laid from the slab's first row with a short last
+wave split in halves (:func:`rows_config`).
 """
 
 from __future__ import annotations
@@ -63,13 +66,19 @@ _LIB64 = KernelLibrary(
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 3
     + [ctypes.c_void_p])
 # The row-slab entry points: (P_rows, M, keep, Mp, out, D, m, r0, R, tile,
-# stream) and (P_rows, M, keep, out, D, m, r0, R, stream)
+# split, stream) and (P_rows, M, keep, out, D, m, r0, R, stream)
 _LIB_ROWS = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_rows_f32",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 _LIB_ROWS64 = KernelLibrary(
     "symmetric_downdate.cu", "symmetric_downdate_rows_f64",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# The thin slab's: (P_rows, M, keep, out, D, m, r0, R, cw, stream), f32 and f64
+_THIN_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_LIB_THIN = KernelLibrary("symmetric_downdate.cu",
+                          "symmetric_downdate_rows_thin_f32", _THIN_ARGS)
+_LIB_THIN64 = KernelLibrary("symmetric_downdate.cu",
+                            "symmetric_downdate_rows_thin_f64", _THIN_ARGS)
 
 # Output tile edge by D: D <= TILE_32_MAX_D takes 32, larger D 128. Wider
 # tiles reuse each loaded value more but give fewer blocks. In a sweep of
@@ -79,6 +88,19 @@ _LIB_ROWS64 = KernelLibrary(
 TILE_32_MAX_D = 1933
 # float64 takes the DMMA kernel's 64-wide tiles at every D
 F64_TILE = 64
+
+# Row slabs (rows_config). A slab of at most THIN_MAX_R rows takes the thin
+# kernel: a block 16 of its rows against thin_width columns. In the sweeps
+# of tools/probe_downdate.py --slabs on an H100 at D = 4621, m = 1536
+# (PERF.md) the thin kernel beat the tiles by 1.7x at 128 rows in float32
+# (by 4% at 256; the tiles won at 576) and up to 64 rows in float64 (the
+# DMMA tiles won at 128).
+THIN_MAX_R = {torch.float32: 128, torch.float64: 64}
+# blocks of 128-wide float32 tiles resident on an SM (launch bounds and
+# shared memory)
+TILE128_BLOCKS_PER_SM = 2
+# the SMs of an H100 SXM, for a config asked for without a card
+H100_SMS = 132
 
 
 def downdate_config(D: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
@@ -304,7 +326,8 @@ def symmetric_downdate_rows(P_rows: torch.Tensor, M: torch.Tensor,
     alone, each element bit for bit the full call's where P is exactly
     symmetric. P_rows [R,D], M [m,D], keep [D] 0/1 or None, contiguous, one
     float type, one CUDA device, 0 <= r0 <= D - R (r0 need not be aligned
-    to the tile). The plain version for tensors on the CPU."""
+    to the tile). The form and its grid come from :func:`rows_config`. The
+    plain version for tensors on the CPU."""
     global ROWS_LAUNCHES
     R, D = P_rows.shape[-2], P_rows.shape[-1]
     if (P_rows.dim() != 2 or M.dim() != 2 or M.shape[-1] != D
@@ -329,18 +352,28 @@ def symmetric_downdate_rows(P_rows: torch.Tensor, M: torch.Tensor,
     m = M.shape[0]
     out = torch.empty_like(P_rows)
     keep_ptr = None if keep is None else keep.data_ptr()
+    form, width, _, split = rows_config(D, R, r0, P_rows.dtype,
+                                        sm_count(P_rows.device))
+    f64 = P_rows.dtype == torch.float64
     with torch.cuda.device(P_rows.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if P_rows.dtype == torch.float64:
+        if form == "thin":
+            rc = (_LIB_THIN64 if f64 else _LIB_THIN).fn()(
+                P_rows.data_ptr(), M.data_ptr(), keep_ptr, out.data_ptr(), D,
+                m, r0, R, width, stream)
+        elif f64:
             rc = _LIB_ROWS64.fn()(P_rows.data_ptr(), M.data_ptr(), keep_ptr,
                                   out.data_ptr(), D, m, r0, R, stream)
         else:
-            tile = downdate_config(D)[0]
-            scratch = (torch.empty((m, -(-D // 4) * 4), dtype=M.dtype,
-                                   device=M.device) if tile == 128 else None)
+            # 128-wide tiles load M from a padded copy whose rows start with
+            # the grid origin's zero columns
+            scratch = (torch.empty((m, -(-(D + grid_origin(r0, width)) // 4) * 4),
+                                   dtype=M.dtype, device=M.device)
+                       if width == 128 else None)
             rc = _LIB_ROWS.fn()(P_rows.data_ptr(), M.data_ptr(), keep_ptr,
                                 None if scratch is None else scratch.data_ptr(),
-                                out.data_ptr(), D, m, r0, R, tile, stream)
+                                out.data_ptr(), D, m, r0, R, width, split,
+                                stream)
     if rc != 0:
         raise RuntimeError(
             f"symmetric_downdate_rows kernel launch failed: CUDA error {rc}")
@@ -348,15 +381,75 @@ def symmetric_downdate_rows(P_rows: torch.Tensor, M: torch.Tensor,
     return out
 
 
-def rows_config(D: int, R: int, r0: int, dtype: torch.dtype = torch.float32
-                ) -> tuple[int, int]:
-    """(tile edge, thread blocks) of a row slab: the full call's tile edge,
-    one block per pair of the slab's nr row tiles with the column tiles
-    outside them, and one per lower-triangle tile among its row tiles."""
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device, asked once."""
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def grid_origin(r0: int, tile: int) -> int:
+    """Rows and columns by which a slab's tile grid starts before the
+    output: 128-wide (float32) grids start at the slab's first row, so its
+    rows fill whole tiles (the scratch copy of M leads with as many zero
+    columns); the others at row 0, as the full call's."""
+    return -r0 % tile if tile == 128 else 0
+
+
+def _row_tiles(D: int, R: int, r0: int, tile: int) -> tuple[int, int]:
+    """(nr, nt): a slab's row tiles and the tiles across its grid."""
+    lp = grid_origin(r0, tile)
+    return ((r0 + lp + R - 1) // tile - (r0 + lp) // tile + 1,
+            -(-(D + lp) // tile))
+
+
+def tile_grid(D: int, R: int, r0: int, tile: int) -> int:
+    """Thread blocks of a slab in tile x tile tiles: one per pair of its nr
+    row tiles with the column tiles outside them, and one per
+    lower-triangle tile among its row tiles."""
+    nr, nt = _row_tiles(D, R, r0, tile)
+    return nr * (nt - nr) + nr * (nr + 1) // 2
+
+
+def thin_width(D: int, R: int, dtype: torch.dtype, sms: int = H100_SMS) -> int:
+    """Columns of a thin block (16 of R rows). float32: the narrowest of 16,
+    32, 48 and 64 that puts at most one block on each of ``sms`` SMs, else
+    64 (at D = 4621 on an H100: 48 for 13 rows, the fastest there, a second
+    block on an SM set the float32 kernel's time; 64 from 17 rows, where
+    every width puts more blocks on an SM). float64: 64, the fastest at D =
+    4621 (fewer, wider blocks on the FP64 tensor cores)."""
+    if dtype == torch.float64:
+        return 64
+    groups = -(-R // 16)
+    return min(64, 16 * max(1, -(-D * groups // (16 * sms))))
+
+
+def rows_config(D: int, R: int, r0: int, dtype: torch.dtype = torch.float32,
+                sms: int = H100_SMS) -> tuple[str, int, int, int]:
+    """(form, width, thread blocks, split) of a row slab on a card of
+    ``sms`` SMs: ("thin", :func:`thin_width`, ceil(D / width) ceil(R / 16)
+    blocks, 0) for at most THIN_MAX_R rows; else ("tiles", the full call's
+    tile edge, :func:`tile_grid` + split, split). A float32 grid of 128-wide
+    tiles whose last wave would hold at most ``sms`` tiles, one alone on an
+    SM, takes those as two half tiles each (split: a float32 element's bits
+    do not depend on the tile)."""
+    if R <= THIN_MAX_R[dtype]:
+        cw = thin_width(D, R, dtype, sms)
+        return "thin", cw, -(-D // cw) * -(-R // 16), 0
     tile = downdate_config(D, dtype)[0]
-    nt = -(-D // tile)
-    nr = (r0 + R - 1) // tile - r0 // tile + 1
-    return tile, nr * (nt - nr) + nr * (nr + 1) // 2
+    units = tile_grid(D, R, r0, tile)
+    split = 0
+    if tile == 128:
+        slots = TILE128_BLOCKS_PER_SM * sms
+        last = units % slots
+        if units > slots and last <= sms:
+            nr, nt = _row_tiles(D, R, r0, tile)
+            split = min(last, nr * (nt - nr))
+    return "tiles", tile, units + split, split
 
 
 def build():

@@ -164,12 +164,16 @@ def test_torch_kernel_libraries_keyed_by_their_own_source():
 
 
 # (D, m, r0, R): row slabs whose r0 and r0 + R lie off the tile edges (13 +
-# 6 L rank), a slab of the camera rows, one of the whole matrix, one row
+# 6 L rank), a slab of the camera rows, one of the whole matrix, one row;
+# then the thin kernel's shapes: the camera rows at r0 = 0 and at landmark
+# 5's rows, 16, 17 and 32 rows, m ragged against 16 and 32
 SLABS = [(43, 10, 13, 24), (43, 10, 0, 43), (109, 32, 13 + 48, 48),
          (300, 64, 7, 13), (589, 192, 13 + 96, 96), (130, 7, 129, 1)]
+THIN_SLABS = [(109, 47, 0, 13), (109, 33, 13 + 6 * 5, 13), (300, 17, 7, 1),
+              (300, 47, 0, 16), (589, 33, 7, 17), (300, 50, 21, 32)]
 
 
-@pytest.mark.parametrize("D,m,r0,R", SLABS)
+@pytest.mark.parametrize("D,m,r0,R", SLABS + THIN_SLABS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("with_keep", [False, True])
 def test_torch_downdate_rows_plain_equals_full_rows(rng, D, m, r0, R, dtype,
@@ -192,6 +196,22 @@ def test_torch_downdate_rows_plain_equals_full_rows(rng, D, m, r0, R, dtype,
     assert covariance.ROWS_LAUNCHES == before
 
 
+@pytest.mark.parametrize("D,m,r0,R", THIN_SLABS)
+def test_torch_downdate_rows_plain_matches_pallas_interpret(rng, D, m, r0, R):
+    """The plain slab at the thin shapes against the rows of the JAX
+    kernel's output in interpret mode (f32, atol 2e-5, as the full call's
+    pin)."""
+    P, M = _case(rng, D, m, np.float32)
+    P = np.tril(P) + np.tril(P, -1).T
+    want = np.asarray(j_downdate(jnp.asarray(P), jnp.asarray(M),
+                                 interpret=True))[r0:r0 + R]
+    got = covariance.symmetric_downdate_rows_ref(
+        torch.as_tensor(P[r0:r0 + R]).contiguous(), torch.as_tensor(M), None,
+        r0)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+
+
 def test_torch_downdate_rows_checks():
     P = torch.eye(20, dtype=torch.float64)
     M = torch.ones((3, 20), dtype=torch.float64)
@@ -206,12 +226,46 @@ def test_torch_downdate_rows_checks():
 
 
 def test_torch_downdate_rows_config():
-    """A slab's grid: its row tiles (r0 off the tile edge adds one) times
-    the column tiles outside them, plus each pair of its row tiles once, at
-    the full call's tile edge; a slab of every row is the full call's grid."""
-    assert covariance.rows_config(4621, 4608, 13, torch.float64) == (
-        64, 73 * 74 // 2)
-    assert covariance.rows_config(4621, 1152, 13 + 1152,
-                                  torch.float64) == (64, 19 * 54 + 19 * 20 // 2)
-    assert covariance.rows_config(4621, 13, 0) == (128, 36 + 1)
-    assert covariance.rows_config(589, 96, 109) == (32, 4 * 15 + 4 * 5 // 2)
+    """A slab's form and grid on an H100 (132 SMs). Up to THIN_MAX_R rows
+    (128 float32, 64 float64) the thin kernel: ceil(D / width) column
+    blocks for each 16 rows. Above,
+    the full call's tile edge: its row tiles (r0 off the tile edge adds one
+    in float64, whose grid starts at row 0; a float32 128-wide grid starts
+    at r0) times the column tiles outside them, plus each pair of its row
+    tiles once, and in float32 a last wave of at most 132 tiles split in
+    halves; a float64 slab of every row is the full call's grid."""
+    f64 = torch.float64
+    # one rank of one at K=768: float64 the full call's 73 x 74 / 2 tiles;
+    # float32 36 aligned row tiles, 36 pairs x 1 column tile + 36 x 37 / 2
+    assert covariance.rows_config(4621, 4608, 13, f64) == (
+        "tiles", 64, 73 * 74 // 2, 0)
+    assert covariance.rows_config(4621, 4608, 13) == (
+        "tiles", 128, 36 * 1 + 36 * 37 // 2, 0)
+    # rank 1 of four: float64 19 row tiles; float32 9 aligned ones, 297
+    # tiles, 264 in two blocks an SM and the last 33 in halves
+    assert covariance.rows_config(4621, 1152, 13 + 1152, f64) == (
+        "tiles", 64, 19 * 54 + 19 * 20 // 2, 0)
+    assert covariance.rows_config(4621, 1152, 13 + 1152) == (
+        "tiles", 128, 9 * 28 + 9 * 10 // 2 + 33, 33)
+    # the two ranks of two: 18 aligned row tiles, 513 tiles (a last wave
+    # of 249: not split)
+    for r0 in (13, 13 + 2304):
+        assert covariance.rows_config(4621, 2304, r0) == (
+            "tiles", 128, 18 * 19 + 18 * 19 // 2, 0)
+    # the camera rows and other thin slabs
+    # (float32: the narrowest width that gives at most one block an SM,
+    # else 64)
+    assert covariance.rows_config(4621, 13, 0) == ("thin", 48, 97, 0)
+    assert covariance.rows_config(4621, 13, 0, f64) == ("thin", 64, 73, 0)
+    assert covariance.rows_config(4621, 17, 0) == ("thin", 64, 73 * 2, 0)
+    assert covariance.rows_config(4621, 13, 0, sms=66) == ("thin", 64, 73, 0)
+    assert covariance.rows_config(589, 96, 109) == ("thin", 32, 19 * 6, 0)
+    assert covariance.rows_config(589, 13, 43) == ("thin", 16, 37, 0)
+    assert covariance.rows_config(589, 96, 109, f64) == (
+        "tiles", 64, 3 * 7 + 3 * 4 // 2, 0)
+    assert covariance.rows_config(589, 13, 43, f64) == ("thin", 64, 10, 0)
+    # 32-wide tiles below TILE_32_MAX_D, from row 0 as the full call's
+    assert covariance.rows_config(589, 196, 109) == (
+        "tiles", 32, 7 * 12 + 7 * 8 // 2, 0)
+    assert covariance.rows_config(589, 196, 109, f64) == (
+        "tiles", 64, 4 * 6 + 4 * 5 // 2, 0)

@@ -6,6 +6,12 @@ card against the CPU. Imports no JAX, so it runs where the card is:
 
 Without a CUDA device every case skips (the kernel has no CPU mode)."""
 
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -36,19 +42,42 @@ def _inputs(D, m, with_keep, dev, dtype=torch.float32):
     return P, M, keep
 
 
-def fmaf_chain(P, M, keep):
-    """The float32 kernel's arithmetic, emulated: per output one f32
-    accumulator from +0, acc = fmaf(M_ai, M_aj, acc) for a = 0 .. m-1 (the
-    product is exact in float64 and the sum is rounded once to float32,
-    bar a double rounding that these inputs do not hit), then
-    (P_ij - acc) k_i k_j on the lower triangle, mirrored."""
+def fmaf_chain_rows(P, M, keep, r0, R):
+    """Rows r0 .. r0 + R - 1 of the float32 kernel's arithmetic, emulated
+    exactly: per output one f32 accumulator from +0 and acc = fmaf(M_as,
+    M_ac, acc) for a = 0 .. m-1, then (P_sc - acc) k_s k_c. The product is
+    exact in float64; the sum p + acc is taken in float64 with its rounding
+    error (two-sum), and where the float64 sum falls exactly halfway
+    between two floats the error decides the side, so each step is the one
+    rounding of fmaf (rounding the float64 sum to float32 would round twice,
+    which millions of outputs do hit)."""
     Md = M.double()
-    acc = torch.zeros_like(P)
+    acc = torch.zeros((R, M.shape[1]), dtype=torch.float32, device=M.device)
+    inf = torch.full_like(acc, float("inf"))
     for a in range(M.shape[0]):
-        acc = (Md[a][:, None] * Md[a][None, :] + acc.double()).float()
-    v = P - acc
+        p = Md[a, r0:r0 + R, None] * Md[a][None, :]
+        q = acc.double()
+        s = p + q
+        b = s - p
+        e = (p - (s - b)) + (q - b)
+        r = s.float()
+        d = s - r.double()
+        n = torch.nextafter(r, torch.where(d > 0, inf, -inf))
+        half = 2 * d == n.double() - r.double()
+        acc = torch.where(half & (d != 0) & (e != 0) & ((e > 0) == (d > 0)),
+                          n, r)
+    v = P[r0:r0 + R] - acc
     if keep is not None:
-        v = v * (keep[:, None] * keep[None, :])
+        v = v * (keep[r0:r0 + R, None] * keep[None, :])
+    return v
+
+
+def fmaf_chain(P, M, keep):
+    """The float32 kernel's arithmetic, emulated exactly (fmaf_chain_rows
+    over every row): per output one f32 accumulator from +0, acc =
+    fmaf(M_ai, M_aj, acc) for a = 0 .. m-1, then (P_ij - acc) k_i k_j on
+    the lower triangle, mirrored."""
+    v = fmaf_chain_rows(P, M, keep, 0, P.shape[0])
     return torch.tril(v) + torch.tril(v, -1).T
 
 
@@ -255,10 +284,17 @@ def test_torch_scan_runner_f64_on_card_matches_cpu():
 
 
 # (D, m, r0, R) of the row slabs: one rank at K=768, rank 1 of four, the
-# camera rows, f32's 32- and 128-wide tiles off their edges, ragged m
+# camera rows, f32's 32- and 128-wide tiles off their edges, ragged m; the
+# two ranks of two at K=768; thin slabs (one row, the camera rows at r0 = 0
+# and at landmark 5's rows, 16, 17 and 32 rows, r0 off the 16-row edge, m
+# ragged against 16 and 32)
 SLABS = [(4621, 1536, 13, 4608), (4621, 1536, 13 + 1152, 1152),
          (4621, 1536, 0, 13), (589, 192, 13 + 96, 96), (2317, 772, 613, 600),
-         (130, 7, 5, 100), (43, 10, 0, 43)]
+         (130, 7, 5, 100), (43, 10, 0, 43),
+         (4621, 1536, 13, 2304), (4621, 1536, 13 + 2304, 2304),
+         (4621, 1536, 13 + 6 * 5, 13), (589, 47, 13 + 6 * 5, 13),
+         (589, 193, 300, 1), (589, 33, 0, 16), (589, 17, 7, 17),
+         (1000, 50, 21, 32), (130, 7, 0, 13)]
 
 
 @pytest.mark.cuda
@@ -268,8 +304,9 @@ SLABS = [(4621, 1536, 13, 4608), (4621, 1536, 13 + 1152, 1152),
 def test_torch_downdate_rows_kernel_equals_full_kernel(D, m, r0, R, dtype,
                                                        with_keep):
     """The row-slab kernel writes, bit for bit, the full kernel's rows
-    r0 .. r0 + R - 1 (the same tiles, k-order and MMAs), one launch on its
-    own count, and repeats."""
+    r0 .. r0 + R - 1 (in float32 the same fmaf chain an element, emulated
+    by fmaf_chain_rows; in float64 the same DMMAs), one launch on its own
+    count, and repeats."""
     dev = _card()
     P, M, keep = _inputs(D, m, with_keep, dev, dtype)
     Pr = P[r0:r0 + R].contiguous()
@@ -281,3 +318,37 @@ def test_torch_downdate_rows_kernel_equals_full_kernel(D, m, r0, R, dtype,
     assert covariance.ROWS_LAUNCHES == before + 2
     assert torch.equal(got, full[r0:r0 + R])
     assert torch.equal(got, again)
+    if dtype == torch.float32:
+        assert torch.equal(got, fmaf_chain_rows(P, M, keep, r0, R))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_torch_downdate_rows_thin_is_one_launch(dtype):
+    """The camera rows' slab takes the thin kernel: one device launch, no
+    row padding copy. Profiled in a process of its own (after another
+    profile in the same process the profiler may record no device event)."""
+    _card()
+    assert covariance.rows_config(4621, 13, 0, dtype)[0] == "thin"
+    code = f"""
+import torch
+from surikatoko_tpu_torch.ops import covariance
+from surikatoko_tpu_torch.utils.profiling import device_profile
+dev = torch.device("cuda", 0)
+P = torch.eye(4621, device=dev, dtype={dtype})
+M = torch.rand(1536, 4621, device=dev, dtype={dtype})
+keep = torch.ones(4621, device=dev, dtype={dtype})
+Pr = P[:13].contiguous()
+covariance.symmetric_downdate_rows(Pr, M, keep, 0)
+kernels = device_profile(
+    lambda: covariance.symmetric_downdate_rows(Pr, M, keep, 0))[3]
+print(sorted((k, v[1]) for k, v in kernels.items()))
+"""
+    root = Path(__file__).resolve().parent.parent
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=root, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(root)})
+    assert done.returncode == 0, done.stderr
+    kernels = ast.literal_eval(done.stdout.strip().splitlines()[-1])
+    assert len(kernels) == 1 and "thin_kernel" in kernels[0][0], kernels
+    assert kernels[0][1] == 1, kernels

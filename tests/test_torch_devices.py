@@ -265,6 +265,9 @@ def test_torch_batch_entry_points_default_to_the_card():
     for mod in (batch_ba, bundle_adj_circle_grid, bundle_adj_dinosaur,
                 ba_at_scale):
         assert mod.make_args().device == "cuda"
+    # the dino pin's runner takes its device from the caller: no default
+    dev_param = inspect.signature(bundle_adj_dinosaur.dino_ate).parameters["device"]
+    assert dev_param.default is inspect.Parameter.empty
     if torch.cuda.is_available():
         probs = batch_ba.problems(batch_ba.make_args(batch=2))
         assert all(t.device.type == "cuda" for p in probs for t in p)

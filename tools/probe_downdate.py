@@ -4,7 +4,8 @@ CUDA card: ptxas's report, bitwise checks and a timing sweep over the tile
 edges, the data behind the tile threshold of ``ops/covariance.py``.
 
     python3 tools/probe_downdate.py [--ref-source FILE] [--flagship-frames N]
-                                    [--clock-seconds S] [--no-sweep] [--out FILE]
+                                    [--clock-seconds S] [--no-sweep] [--slabs]
+                                    [--out FILE]
 
 * every shape of ``chip_smoke.DOWNDATE_SHAPES``, without and with keep, is
   held to ``chip_smoke.compare_downdate`` (the plain version's tolerance,
@@ -33,6 +34,16 @@ edges, the data behind the tile threshold of ``ops/covariance.py``.
   with a 0/1 keep (CUDA events and the profiler's device time), and the
   float64 entry point there by device time (and the reference build's with
   ``--ref-source``).
+* ``--slabs``: the row-slab forms at (R, r0) of SLAB_SWEEP, D = 4621, m =
+  1536 (K = 768) with a 0/1 keep, float32 and float64: the thin kernel at
+  each column width of THIN_CWS (float64 has no 48; up to
+  THIN_SWEEP_MAX_R rows), the tiled
+  form with and without the split of its last wave, and with
+  ``--ref-source`` that build's row-slab entry point (its own tile), each
+  held bit for bit to the full call's rows and timed in turns by graph
+  replay and device time, beside a masked addmm of the rows and the
+  wrapper's pick (``rows_config``): the data behind ``rows_config``'s rule.
+  ``--no-sweep`` skips the D sweep, not this one.
 One JSON line per result on stdout, and also in ``--out`` FILE if given.
 """
 
@@ -59,6 +70,14 @@ TILES = (32, 128)
 F32_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 F64_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 SWEEP_K = (16, 32, 48, 64, 96, 128, 160, 192, 224, 256, 320, 384, 512, 768)
+# the row slabs (R, r0) at K = 768: the camera rows and their neighbours,
+# the thin form's reach, one rank of 8, 4, 2 (both ranks) and 1
+SLAB_D, SLAB_M = 4621, 1536
+SLAB_SWEEP = ((13, 0), (16, 0), (17, 0), (32, 13), (64, 13), (128, 13),
+              (256, 13), (576, 13 + 576), (1152, 13 + 1152), (2304, 13),
+              (2304, 13 + 2304), (4608, 13))
+THIN_CWS = (16, 32, 48, 64)
+THIN_SWEEP_MAX_R = 256
 
 
 def run_f32(fn, P, M, keep, tile):
@@ -128,10 +147,141 @@ def ref_launcher(path: str):
     return run, run64, lib
 
 
-def sass_ops(lib_path, ops=("DMMA", "DFMA", "FFMA")) -> dict:
+def slab_forms(cov, ref_lib, sms):
+    """{name: fn(Pr, M, keep, r0) -> out} of the row-slab forms, float32 or
+    float64 by the arguments' type, each launching its entry point
+    directly: thin_<cw>; tiles, the full call's edge (float32 128, its
+    grid from the slab's first row; float64 the DMMA kernel's 64);
+    tiles_split, the float32 grid with rows_config's split of its last
+    wave; and with ``ref_lib`` (another build's path) ref, that build's
+    symmetric_downdate_rows_f32 (P_rows, M, keep, Mp, out, D, m, r0, R,
+    tile, stream) / _f64 at its own tile."""
+    import torch
+    from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
+
+    def call(fn, *args):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"slab form: CUDA error {rc}")
+
+    def thin(cw):
+        def run(Pr, M, keep, r0):
+            out = torch.empty_like(Pr)
+            lib = cov._LIB_THIN64 if Pr.dtype == torch.float64 else cov._LIB_THIN
+            call(lib.fn(), Pr.data_ptr(), M.data_ptr(),
+                 None if keep is None else keep.data_ptr(), out.data_ptr(),
+                 M.shape[1], M.shape[0], r0, Pr.shape[0], cw)
+            return out
+        return run
+
+    def tiles(f32_fn, f64_fn, edge, split=None):
+        def run(Pr, M, keep, r0):
+            out = torch.empty_like(Pr)
+            D, m, kp = M.shape[1], M.shape[0], None if keep is None else keep.data_ptr()
+            if Pr.dtype == torch.float64:
+                call(f64_fn, Pr.data_ptr(), M.data_ptr(), kp, out.data_ptr(),
+                     D, m, r0, Pr.shape[0])
+                return out
+            e = edge or cov.downdate_config(D)[0]
+            # room for a grid origin of up to 127 zero columns
+            scratch = (torch.empty((m, -(-(D + 127) // 4) * 4),
+                                   device=M.device) if e == 128 else None)
+            args = [Pr.data_ptr(), M.data_ptr(), kp,
+                    None if scratch is None else scratch.data_ptr(),
+                    out.data_ptr(), D, m, r0, Pr.shape[0], e]
+            if split is not None:
+                args.append(cov.rows_config(D, Pr.shape[0], r0, Pr.dtype,
+                                            sms)[3] if split else 0)
+            call(f32_fn, *args)
+            return out
+        return run
+
+    rows, rows64 = cov._LIB_ROWS.fn(), cov._LIB_ROWS64.fn()
+    forms = {f"thin_{cw}": thin(cw) for cw in THIN_CWS}
+    forms["tiles"] = tiles(rows, rows64, 128, False)
+    forms["tiles_split"] = tiles(rows, rows64, 128, True)
+    if ref_lib:
+        f32 = KernelLibrary(ref_lib, "symmetric_downdate_rows_f32",
+                            cov._LIB_ROWS.argtypes[:-2]
+                            + cov._LIB_ROWS.argtypes[-1:]).fn()
+        f64 = KernelLibrary(ref_lib, "symmetric_downdate_rows_f64",
+                            cov._LIB_ROWS64.argtypes).fn()
+        forms["ref"] = tiles(f32, f64, None)
+    return forms
+
+
+def device_us(fn):
+    """chip_smoke.device_us_per_call, or None where the profiler recorded
+    no device event (not measured)."""
+    try:
+        return cs.device_us_per_call(fn)
+    except RuntimeError:
+        return None
+
+
+def slab_sweep(cov, dev, ref_source, emit) -> bool:
+    """The ``--slabs`` sweep; True if every form equals the full call's
+    rows bit for bit and repeats."""
+    import torch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    forms = slab_forms(cov, str(Path(ref_source).resolve()) if ref_source
+                       else None, sms)
+    # f32 lanes and FP64 tensor-core FMAs per SM and clock are both 128
+    fma_per_s = sms * cs.F32_LANES_PER_SM * float(
+        cs.nvidia_smi("clocks.max.sm", units=False)) * 1e6
+    ok = True
+    for dtype in (torch.float32, torch.float64):
+        P, M, keep = cs.downdate_case(SLAB_D, SLAB_M, True, dev, dtype)
+        full = cov.symmetric_downdate(P, M, keep)
+        Mk = M * keep[None, :]
+        for R, r0 in SLAB_SWEEP:
+            Pr = P[r0:r0 + R].contiguous()
+            want = full[r0:r0 + R]
+            fns = {}
+            for name, f in forms.items():
+                if name.startswith("thin") and (
+                        R > THIN_SWEEP_MAX_R
+                        or (dtype == torch.float64 and name == "thin_48")):
+                    continue
+                if name == "tiles_split" and not cov.rows_config(
+                        SLAB_D, R, r0, dtype, sms)[3]:
+                    continue
+                fns[name] = (lambda f=f: f(Pr, M, keep, r0))
+            fns["wrapper"] = lambda: cov.symmetric_downdate_rows(Pr, M, keep, r0)
+            fns["addmm"] = lambda: torch.addmm(
+                Pr * (keep[r0:r0 + R, None] * keep[None, :]),
+                Mk[:, r0:r0 + R].T, Mk, alpha=-1)
+            bitwise = {}
+            for name, f in fns.items():
+                if name == "addmm":
+                    continue
+                got = f()
+                bitwise[name] = bool(torch.equal(got, want) and torch.equal(got, f()))
+            fma, vals = cs.slab_work(R, SLAB_D, SLAB_M)
+            b_ms, b_by = cs.bound_ms(fma, vals * P.element_size(), fma_per_s)
+            reps = max(5, min(200, int(2e4 / (1 + fma / 1e7))))
+            order = list(fns) + list(reversed(fns))
+            graph = {k: [] for k in fns}
+            for name in order:
+                graph[name].append(cs.cuda_graph_ms(fns[name], reps))
+            dev_us = {k: device_us(f) for k, f in fns.items()}
+            row = {"probe": "slab", "dtype": str(dtype).split(".")[-1], "R": R,
+                   "r0": r0, "D": SLAB_D, "m": SLAB_M,
+                   "pick": list(cov.rows_config(SLAB_D, R, r0, dtype, sms)),
+                   "bitwise_full": bitwise, "graph_ms": graph,
+                   "device_us": dev_us, "bound_ms": b_ms, "bound_by": b_by,
+                   "grid_tiles": cov.tile_grid(
+                       SLAB_D, R, r0, cov.downdate_config(SLAB_D, dtype)[0])}
+            emit(row)
+            ok &= all(bitwise.values())
+    return ok
+
+
+def sass_ops(lib_path, ops=("DMMA", "DFMA", "FFMA", "LDGSTS")) -> dict:
     """{kernel: {opcode: count}} of the library's SASS (cuobjdump), for the
     kernels that contain any of ``ops``: which run on the FP64 tensor
-    cores (DMMA) and which on the vector lanes (DFMA, FFMA)."""
+    cores (DMMA) and which on the vector lanes (DFMA, FFMA), and their
+    cp.async copies (LDGSTS)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=120).stdout
@@ -153,6 +303,7 @@ def main() -> int:
     ap.add_argument("--ref-source")
     ap.add_argument("--flagship-frames", type=int, default=0)
     ap.add_argument("--no-sweep", action="store_true")
+    ap.add_argument("--slabs", action="store_true")
     ap.add_argument("--clock-seconds", type=float, default=0.0)
     ap.add_argument("--out")
     args = ap.parse_args()
@@ -296,6 +447,9 @@ def main() -> int:
               "clocks_sm_mhz": sorted(r[0] for r in rows)[len(rows) // 2] if rows else None,
               "power_w": sorted(r[1] for r in rows)[len(rows) // 2] if rows else None,
               "temperature_c": max(r[2] for r in rows) if rows else None})
+
+    if args.slabs:
+        ok &= slab_sweep(cov, dev, args.ref_source, emit)
 
     if not args.no_sweep:
         for K in SWEEP_K:
