@@ -489,6 +489,17 @@ def bound_ms(fma: float, nbytes: float, fma_per_s: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def config_report(cov, D: int, dtype, B: int = 1) -> dict:
+    """covariance.downdate_config's answer for B problems of [D,D] of
+    ``dtype`` on this card, with the float32 form's name."""
+    import torch
+    cfg = cov.downdate_config(D, dtype, B, cov.sm_count(
+        torch.device("cuda", torch.cuda.current_device())))._asdict()
+    cfg["form_name"] = (None if cfg["form"] is None
+                        else cov.F32_FORMS[cfg["form"]].name)
+    return cfg
+
+
 def downdate_work(D: int, m: int, with_keep: bool) -> tuple[float, float]:
     """(FMAs, bytes) of the downdate: the lower triangle's D(D+1)/2 m FMAs;
     P's lower half and M (and keep) read once, the [D,D] output written."""
@@ -1475,7 +1486,9 @@ def batch_downdate_phase(cov, device, fma_per_s, f64_fma_per_s) -> dict:
             graph = {k: cuda_graph_ms(fns[k], 20) for k in fns}
             dev_us = {k: device_us_per_call(fns[k]) for k in fns}
             out["timed"][case["dtype"]] = {
-                "B": B, "D": D, "m": m, "ms": tm, "graph_ms": graph,
+                "B": B, "D": D, "m": m,
+                "config": config_report(cov, D, dtype, B),
+                "ms": tm, "graph_ms": graph,
                 "device_us": dev_us, "fma": B * fma,
                 "bytes": B * nbytes * (2 if f64 else 1), "bound_ms": b_ms,
                 "bound_by": b_by,
@@ -1483,6 +1496,37 @@ def batch_downdate_phase(cov, device, fma_per_s, f64_fma_per_s) -> dict:
                 "batched_vs_unbatched_device": dev_us["unbatched_calls"]
                 / dev_us["batched"]}
     return out
+
+
+def small_report(single: dict, batched: dict) -> dict:
+    """B2's small-D float32 form at scenario03's (D, m), one problem (the
+    kernel phase's timings) and the first BATCH_DOWNDATE_SHAPES batch
+    (batch_downdate_phase's): its configuration, time by CUDA events, graph
+    replay and device time, the bound, the one PyTorch call beside it (the
+    masked addmm / baddbmm) and whether the kernel beat that call by both
+    graph replay and device time."""
+    one = {"config": single["config"],
+           "ms": float(np.mean(single["kernel"])),
+           "graph_ms": single["graph_ms"]["kernel"],
+           "device_us": single["kernel_device_us"],
+           "bound_ms": single["bound_ms"], "bound_by": single["bound_by"],
+           "library_ms": float(np.mean(single["addmm"])),
+           "library_graph_ms": single["graph_ms"]["addmm"],
+           "library_device_us": single["addmm_device_us"]}
+    many = {"config": batched["config"],
+            "ms": float(np.mean(batched["ms"]["batched"])),
+            "graph_ms": batched["graph_ms"]["batched"],
+            "device_us": batched["device_us"]["batched"],
+            "bound_ms": batched["bound_ms"], "bound_by": batched["bound_by"],
+            "pct_of_bound_device": batched["pct_of_bound_device"],
+            "library_ms": float(np.mean(batched["ms"]["baddbmm"])),
+            "library_graph_ms": batched["graph_ms"]["baddbmm"],
+            "library_device_us": batched["device_us"]["baddbmm"]}
+    for r in (one, many):
+        r["beats_library"] = bool(r["graph_ms"] < r["library_graph_ms"]
+                                  and r["device_us"] < r["library_device_us"])
+    D, m = DOWNDATE_TIMED[0]
+    return {f"{D}x{m}": one, "{}x{}x{}".format(*BATCH_DOWNDATE_SHAPES[0]): many}
 
 
 def batch_scan_noise(device, dtype, ate_noise):
@@ -1556,6 +1600,9 @@ def batch_scan_phase(ncc, cov, device) -> dict:
     diff64 = float((pos64["card"] - pos64["cpu"]).abs().max())
     out = {
         "B": B, "K": SC03_K, "D": int(state.x.shape[0]), "update_impl": 1,
+        # B2's form and grid for the batch's downdate (one launch a frame)
+        "downdate_config": config_report(cov, int(state.x.shape[0]),
+                                         torch.float32, B),
         "frames": T, "batched_s": t_batched,
         "instance_frames_per_s_batched": B * T / t_batched,
         "sequential_frames": n_seq, "sequential_s": t_seq,
@@ -1941,7 +1988,8 @@ def main() -> int:
                 b_ms, b_by = bound_ms(*downdate_work(D, m, True), fma_per_s)
                 kern_ms = float(np.mean(tm["kernel"]))
                 tm.update(kernel_device_us=device_us_per_call(fns["kernel"]),
-                          tile=covariance.downdate_config(D)[0],
+                          addmm_device_us=device_us_per_call(fns["addmm"]),
+                          config=config_report(covariance, D, torch.float32),
                           bound_ms=b_ms, bound_by=b_by,
                           pct_of_bound=100.0 * b_ms / kern_ms)
                 dd_times[f"{D}x{m}"] = tm
@@ -2655,6 +2703,8 @@ def main() -> int:
             max(dd64_main["kernel"]) < min(dd64_main["addmm"])
             and dd64_main["graph_ms"]["kernel"] < dd64_main["graph_ms"]["addmm"]),
         "f64_max_rel_fro": max(c["rel_fro"] for c in dd64_cases),
+        "small": small_report(dd_times["{}x{}".format(*DOWNDATE_TIMED[0])],
+                              bdd_main),
         "batched": {
             "entry_points": ["symmetric_downdate_f32_batched",
                              "symmetric_downdate_f64_batched"],

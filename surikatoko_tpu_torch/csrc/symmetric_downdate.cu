@@ -16,13 +16,41 @@
 // What the design does about it:
 // * one thread block per LOWER-triangle TILE x TILE output tile, found from
 //   blockIdx.x by inverting the triangular numbering: half the FMAs of a
-//   full GEMM. TILE is 128 for large D (8x8 register tiles, 64 FMAs per
-//   four 16-byte shared loads) and 32 for small D, where 128-wide tiles
-//   would leave most SMs idle; the caller picks it from D
-//   (ops/covariance.py:downdate_config).
-// * each thread's rows are 4 ty .. 4 ty + 3 (and 64 more for TILE = 128),
-//   its columns 4 tx .. likewise; a warp spans 4 ty by 8 tx, so an operand
-//   read touches 4 or 8 consecutive float4s, broadcast across the warp.
+//   full GEMM. The tile, the register tile, the threads and the ring are a
+//   form (Form below); the caller picks one from D and the batch B
+//   (ops/covariance.py:f32_form). For large D, 128-wide tiles (8x8
+//   register tiles, 64 FMAs per four 16-byte shared loads). For small D,
+//   where 128-wide tiles would leave most SMs idle, PR 4 kept 32-wide tiles
+//   of 4x4, 64 threads. A sweep on an H100 (tools/probe_downdate.py
+//   --small: B 1-128, D 43-2317, m 32-192) showed what holds those back,
+//   and three forms for it (PR 14):
+//   - a call of few tiles is latency-bound: a block of 2 warps runs ~1 warp
+//     a scheduler, and each output waits on its own 192-long fmaf chain
+//     behind shared loads. More, smaller register tiles put more warps on
+//     the card: Small16 (16-wide tiles of 2x2, 64 threads, 8 blocks an SM)
+//     while the grid holds at most 2 blocks an SM, 2x faster than PR 4's at
+//     D <= 301; Small32 (32-wide of 4x2, 128 threads, the epilogue's P loads
+//     all in flight at once) while it holds at most 3, 1.14x at (589,192).
+//   - a large batch is bound by its k-loop and by the blocks' memory phases,
+//     which overlap little (a block of (32,589,192) spends 5 us waiting on
+//     its first panels, 8 us in its k-loop and 8 us in its epilogue:
+//     tools/probe_downdate.py --timeline): Batch32 (PR 4's tiles with
+//     16-row panels: half the ring, so 12 blocks an SM instead of 9) gains
+//     4-6% on grids of many waves such as (32,589,192), though each of a
+//     block's phases takes longer. No faster there, in variant builds:
+//     64-wide tiles of 8x4 (half the L2 reads of M), P's tile prefetched
+//     into shared memory or registers, double-buffered operands, a
+//     persistent kernel copying the next tile during this one's epilogue,
+//     8x8 register tiles at 8 blocks an SM, the padded 16-byte loads,
+//     deeper rings (PERF.md).
+//   - the new forms idle the warps of a tile that write nothing: rows past
+//     D (D = 13 + 6K leaves ragged last tiles) or above a diagonal tile's
+//     diagonal (SKIP).
+// * each thread's rows are VM ty .. VM ty + VM - 1 (VM = 4, or 2 for a
+//   2-row register tile; and 64 more for TILE = 128),
+//   its columns VN tx .. likewise; a warp spans 4 ty by 8 tx, so an
+//   operand read touches 4 or 8 consecutive vectors, broadcast across the
+//   warp.
 // * the contraction over m runs in panels of KP rows. The two [KP, TILE]
 //   column strips of M are staged through a STAGES-deep cp.async ring in
 //   dynamic shared memory, committed and waited on by group, so the next
@@ -33,16 +61,18 @@
 //   (Dp = D rounded up to 4, zero columns past D) and the strips load from
 //   it in 16-byte cp.async.cg copies, faster by about a tenth at the
 //   flagship shape, the copy included. A call at TILE = 128 is thus two
-//   launches. The small tiles, whose launches are short and
-//   host-bound, load M directly in 4-byte copies (coalesced across the
-//   warp) and skip the extra launch. src-size 0 zero-fills past the D and m
-//   edges.
+//   launches. The small-D forms load M directly in 4-byte copies
+//   (coalesced across the warp) and skip the extra launch: in the sweep the
+//   padded copy cost more than the 16-byte loads saved at every small-D
+//   form. src-size 0 zero-fills past the D and m edges.
 // * summation order: one f32 accumulator per output, from 0, fmaf over
 //   a = 0 .. m-1 in increasing order, then (P_ij - acc) k_i k_j; rows past m
-//   are zero-filled and add fmaf(0, 0, acc) = acc up to m rounded up to 16
-//   (the second half of a 32-row panel runs only below that). No split-K,
-//   no atomics: the output repeats bit for bit from run to run, and equals
-//   the earlier 16-row-panel kernel's.
+//   are zero-filled and add fmaf(0, 0, acc) = acc up to m rounded up to half
+//   a panel (the second half of a panel runs only below that). No split-K,
+//   no atomics: the output repeats bit for bit from run to run, and an
+//   element's bits do not depend on the form or tile that computes it
+//   (every form equals every other, the batched call its unbatched calls
+//   and a row slab the full call's rows, bit for bit).
 // * the epilogue reuses the ring as a padded [TILE][TILE + 1] tile: the
 //   accumulators go in, then coalesced passes read P's lower half, apply
 //   the keep mask, store (i, j) and, from the same values, the mirror
@@ -139,29 +169,57 @@
 
 namespace {
 
-constexpr int KP = 32;       // rows of M per panel
-constexpr int STAGES = 3;    // panels in the cp.async ring
 constexpr int EPI_LOADS = 4; // loads of P in flight per thread in the epilogue
 
-template <int TILE>
-struct Cfg {
-  static constexpr int H = TILE >= 128 ? 2 : 1;     // row groups of 4 per thread
-  static constexpr int RT = 4 * H;                  // register tile edge
-  static constexpr int TS = TILE / RT;              // threads along a tile edge
-  static constexpr int THREADS = TS * TS;
-  static constexpr int HALF = TILE / H;             // offset between row groups
-  static constexpr bool PADDED = TILE >= 128;       // loads from the scratch
+// A float32 form of the tile kernel. TILE x TILE output tiles; a thread
+// holds a TM x TN register tile in row groups of VM and column groups of VN
+// consecutive values (4, or the whole edge below 4), the groups HALF_M
+// (HALF_N) apart; a warp spans 4 threads down by 8 across. M's two strips
+// go through a STAGES-deep cp.async ring, KP rows a panel, in 4-byte copies
+// straight from M or (PADDED) 16-byte copies from the row-padded scratch.
+// SKIP: a warp none of whose outputs the tile writes (all its rows past D,
+// or all above a diagonal tile's diagonal) copies but runs no FMA. EPI:
+// loads of P in flight a thread in the epilogue.
+template <int TILE_, int TM_, int TN_, int KP_, int STAGES_, bool PADDED_,
+          int MIN_BLOCKS_, bool SKIP_ = false, int EPI_ = EPI_LOADS>
+struct Form {
+  static constexpr int TILE = TILE_, TM = TM_, TN = TN_;
+  static constexpr int KP = KP_, STAGES = STAGES_;
+  static constexpr bool PADDED = PADDED_, SKIP = SKIP_;
+  static constexpr int MIN_BLOCKS = MIN_BLOCKS_, EPI = EPI_;
+  static constexpr int VM = TM < 4 ? TM : 4, VN = TN < 4 ? TN : 4;
+  static constexpr int GM = TM / VM, GN = TN / VN;  // groups a thread
+  static constexpr int TSM = TILE / TM;             // threads down a tile
+  static constexpr int TSN = TILE / TN;             // and across
+  static constexpr int THREADS = TSM * TSN;
+  static constexpr int HALF_M = TILE / GM, HALF_N = TILE / GN;
   static constexpr int VEC = PADDED ? 4 : 1;        // floats per copy
   static constexpr int STRIP = KP * TILE;           // floats per strip
   static constexpr int ROW_CHUNKS = TILE / VEC;     // copies per strip row
   static constexpr int ROW_STEP = THREADS / ROW_CHUNKS;  // strip rows per pass
   static constexpr int LOADS = STRIP / VEC / THREADS;    // passes per strip
   static constexpr int RING = STAGES * 2 * STRIP * 4;
-  static constexpr int EPI = TILE * (TILE + 1) * 4;
-  static constexpr int SMEM = RING > EPI ? RING : EPI;
-  static constexpr int MIN_BLOCKS = TILE >= 128 ? 2 : 4;
-  static_assert(TS % 8 == 0 && THREADS % ROW_CHUNKS == 0, "layout");
+  static constexpr int EPI_TILE = TILE * (TILE + 1) * 4;
+  static constexpr int SMEM = RING > EPI_TILE ? RING : EPI_TILE;
+  static_assert(TSN % 8 == 0 && TSM % 4 == 0 && TM % VM == 0 &&
+                    TN % VN == 0 && THREADS % ROW_CHUNKS == 0 &&
+                    ROW_STEP * LOADS == KP && KP % 2 == 0,
+                "layout");
 };
+
+// PR 4's forms: 128-wide tiles of 8 x 8 register tiles, 256 threads, M
+// from the padded copy; 32-wide of 4 x 4, 64 threads, M read directly
+using Tile128 = Form<128, 8, 8, 32, 3, true, 2>;
+using Tile32 = Form<32, 4, 4, 32, 3, false, 4>;
+// The small-D forms (PR 14), M read directly, warps past D or above the
+// diagonal idle: 16-wide tiles of 2 x 2 (64 threads, 8 blocks an SM) for
+// grids of at most two blocks an SM; 32-wide of 4 x 2 (128 threads, all of
+// P's tile in flight in one pass of the epilogue) for a single wave; PR 4's
+// 32-wide tiles with 16-row panels (half the ring: up to 14 blocks
+// an SM) for grids of many waves
+using Small16 = Form<16, 2, 2, 32, 3, false, 8, true>;
+using Small32 = Form<32, 4, 2, 32, 3, false, 4, true, 8>;
+using Batch32 = Form<32, 4, 4, 16, 3, false, 8, true>;
 
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
@@ -184,6 +242,19 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src,
 __device__ __forceinline__ void load4(const float* p, float* v) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+// N = 4, 2 or 1 consecutive values from shared memory (N-float aligned)
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float* v) {
+  if constexpr (N == 4) {
+    load4(p, v);
+  } else if constexpr (N == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = *p;
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -222,16 +293,17 @@ __device__ __forceinline__ void tile_of_block(long long t, long long& bi,
 // j, only the lower half of P read, EPI_LOADS of its loads in flight a
 // thread; then from the same values its mirror (j, i), consecutive threads
 // on consecutive i. A diagonal tile writes its lower half and mirrors it.
-template <int TILE, int THREADS, bool HAS_KEEP, typename T>
+template <int TILE, int THREADS, bool HAS_KEEP, typename T,
+          int LOADS = EPI_LOADS>
 __device__ __forceinline__ void write_tile(T* tile, const T* __restrict__ P,
                                            const T* __restrict__ keep,
                                            T* __restrict__ out, int D, int i0,
                                            int j0, bool diag, int tid) {
-  static_assert(TILE * TILE % (EPI_LOADS * THREADS) == 0, "epilogue passes");
-  for (int e0 = tid; e0 < TILE * TILE; e0 += EPI_LOADS * THREADS) {
-    T pv[EPI_LOADS], kv[EPI_LOADS];
+  static_assert(TILE * TILE % (LOADS * THREADS) == 0, "epilogue passes");
+  for (int e0 = tid; e0 < TILE * TILE; e0 += LOADS * THREADS) {
+    T pv[LOADS], kv[LOADS];
 #pragma unroll
-    for (int u = 0; u < EPI_LOADS; ++u) {
+    for (int u = 0; u < LOADS; ++u) {
       const int e = e0 + u * THREADS;
       const int i = i0 + e / TILE, j = j0 + e % TILE;
       const bool ok = i < D && j < D && (!diag || i >= j);
@@ -239,7 +311,7 @@ __device__ __forceinline__ void write_tile(T* tile, const T* __restrict__ P,
       if (HAS_KEEP) kv[u] = ok ? keep[i] * keep[j] : T(0);
     }
 #pragma unroll
-    for (int u = 0; u < EPI_LOADS; ++u) {
+    for (int u = 0; u < LOADS; ++u) {
       const int e = e0 + u * THREADS;
       const int r = e / TILE, c = e % TILE;
       const int i = i0 + r, j = j0 + c;
@@ -384,13 +456,13 @@ __device__ __forceinline__ void write_rows(const T* tile,
 // b D^2 floats on; a single problem (SINGLE) takes the kernel without that
 // addressing (on an H100 it cost the flagship shape's call 4% of its
 // device time). ROWS: a row slab (`rows`), P its rows and out [R,D].
-template <int TILE, bool HAS_KEEP, int MODE>
-__global__ void __launch_bounds__(Cfg<TILE>::THREADS, Cfg<TILE>::MIN_BLOCKS)
+template <class C, bool HAS_KEEP, int MODE>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
 downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
                 const float* __restrict__ keep, float* __restrict__ out,
                 int D, int ld, int m, long long sP, long long sM,
                 long long sK, Rows rows) {
-  using C = Cfg<TILE>;
+  constexpr int TILE = C::TILE, KP = C::KP, STAGES = C::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   if constexpr (MODE == BATCHED) {
@@ -419,8 +491,16 @@ downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
-  const int tx = (warp % (C::TS / 8)) * 8 + lane % 8;   // columns 4 tx ..
-  const int ty = (warp / (C::TS / 8)) * 4 + lane / 8;   // rows    4 ty ..
+  const int tx0 = (warp % (C::TSN / 8)) * 8, ty0 = (warp / (C::TSN / 8)) * 4;
+  const int tx = tx0 + lane % 8;   // columns VN tx ..
+  const int ty = ty0 + lane / 8;   // rows    VM ty ..
+  // whether this warp holds an output that the tile writes (see Form)
+  bool busy = true;
+  if constexpr (C::SKIP && MODE != ROWS) {
+    const int last_row = (C::GM - 1) * C::HALF_M + C::VM * (ty0 + 4) - 1;
+    busy = i0 + C::VM * ty0 < D && j0 + C::VN * tx0 < D &&
+           (bi != bj || last_row >= C::VN * tx0);
+  }
 
   // M's rows, ld floats apart (D, or Dp in the scratch); this thread's
   // copies: strip columns col .. col + VEC - 1, rows row0 + ROW_STEP r (a
@@ -447,18 +527,18 @@ downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
     }
   };
 
-  float acc[C::RT][C::RT];
+  float acc[C::TM][C::TN];
 #pragma unroll
-  for (int p = 0; p < C::RT; ++p)
+  for (int p = 0; p < C::TM; ++p)
 #pragma unroll
-    for (int q = 0; q < C::RT; ++q) acc[p][q] = 0.f;
+    for (int q = 0; q < C::TN; ++q) acc[p][q] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < n_panels) load_panel(s);
     cp_async_commit();
   }
-  // the k-loop over QH of the H column groups of the register tile
+  // the k-loop over QH of the GN column groups of the register tile
   auto k_loop = [&](auto qh) {
     constexpr int QH = decltype(qh)::value;
     for (int panel = 0; panel < n_panels; ++panel) {
@@ -468,46 +548,50 @@ downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
       __syncthreads();
       if (panel + STAGES - 1 < n_panels) load_panel(panel + STAGES - 1);
       cp_async_commit();
+      if (!busy) continue;
       const float* si = smem + (panel % STAGES) * 2 * C::STRIP;
       const float* sj = si + C::STRIP;
-      // rows past m rounded up to 16 are skipped (see the summation order)
+      // rows past m, rounded up to half a panel, are skipped (see the
+      // summation order)
       const bool second_half = panel * KP + KP / 2 < m;
 #pragma unroll
       for (int kk = 0; kk < KP; ++kk) {
         if (kk == KP / 2 && !second_half) break;
-        float a[C::RT], b[C::RT];
+        float a[C::TM], b[C::TN];
 #pragma unroll
-        for (int h = 0; h < C::H; ++h)
-          load4(si + kk * TILE + h * C::HALF + 4 * ty, a + 4 * h);
+        for (int h = 0; h < C::GM; ++h)
+          load_n<C::VM>(si + kk * TILE + h * C::HALF_M + C::VM * ty,
+                        a + C::VM * h);
 #pragma unroll
         for (int h = 0; h < QH; ++h)
-          load4(sj + kk * TILE + h * C::HALF + 4 * tx, b + 4 * h);
+          load_n<C::VN>(sj + kk * TILE + h * C::HALF_N + C::VN * tx,
+                        b + C::VN * h);
 #pragma unroll
-        for (int p = 0; p < C::RT; ++p)
+        for (int p = 0; p < C::TM; ++p)
 #pragma unroll
-          for (int q = 0; q < 4 * QH; ++q)
+          for (int q = 0; q < C::VN * QH; ++q)
             acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
       }
     }
   };
-  if constexpr (MODE == ROWS && C::H == 2) {
+  if constexpr (MODE == ROWS && C::GN == 2) {
     if (half >= 0)
       k_loop(IntC<1>{});
     else
-      k_loop(IntC<C::H>{});
+      k_loop(IntC<C::GN>{});
   } else {
-    k_loop(IntC<C::H>{});
+    k_loop(IntC<C::GN>{});
   }
   cp_async_wait<0>();
   __syncthreads();   // the ring is free: it becomes the epilogue tile
 
   float* tile = smem;   // [TILE][TILE + 1]
 #pragma unroll
-  for (int p = 0; p < C::RT; ++p) {
-    const int r = (p / 4) * C::HALF + 4 * ty + p % 4;
+  for (int p = 0; p < C::TM; ++p) {
+    const int r = (p / C::VM) * C::HALF_M + C::VM * ty + p % C::VM;
 #pragma unroll
-    for (int q = 0; q < C::RT; ++q) {
-      const int c = (q / 4) * C::HALF + 4 * tx + q % 4;
+    for (int q = 0; q < C::TN; ++q) {
+      const int c = (q / C::VN) * C::HALF_N + C::VN * tx + q % C::VN;
       tile[r * (TILE + 1) + c] = acc[p][q];
     }
   }
@@ -521,8 +605,8 @@ downdate_kernel(const float* __restrict__ P, const float* __restrict__ Ms,
                                              sj, si, rows, tid, bi != sj, 0,
                                              TILE);
   } else
-    write_tile<TILE, C::THREADS, HAS_KEEP>(tile, P, keep, out, D, i0, j0,
-                                           bi == bj, tid);
+    write_tile<TILE, C::THREADS, HAS_KEEP, float, C::EPI>(
+        tile, P, keep, out, D, i0, j0, bi == bj, tid);
 }
 
 // ---- float64 on the FP64 tensor cores ----
@@ -895,11 +979,10 @@ cudaError_t set_smem(Kernel kernel, int smem, unsigned long long& ready,
 }
 
 
-template <int TILE, bool HAS_KEEP, int MODE>
+template <class C, bool HAS_KEEP, int MODE>
 cudaError_t prepare() {
   static unsigned long long ready = 0;
-  return set_smem(downdate_kernel<TILE, HAS_KEEP, MODE>, Cfg<TILE>::SMEM,
-                  ready);
+  return set_smem(downdate_kernel<C, HAS_KEEP, MODE>, C::SMEM, ready);
 }
 
 template <bool HAS_KEEP, int MODE>
@@ -909,15 +992,15 @@ cudaError_t prepare_dmma() {
 }
 
 // the kernel of a launch in mode MODE: with or without the keep mask
-template <int TILE, int MODE>
-decltype(&downdate_kernel<TILE, false, MODE>) pick(bool has_keep,
-                                                   cudaError_t& err) {
+template <class C, int MODE>
+decltype(&downdate_kernel<C, false, MODE>) pick(bool has_keep,
+                                                cudaError_t& err) {
   if (has_keep) {
-    err = prepare<TILE, true, MODE>();
-    return downdate_kernel<TILE, true, MODE>;
+    err = prepare<C, true, MODE>();
+    return downdate_kernel<C, true, MODE>;
   }
-  err = prepare<TILE, false, MODE>();
-  return downdate_kernel<TILE, false, MODE>;
+  err = prepare<C, false, MODE>();
+  return downdate_kernel<C, false, MODE>;
 }
 
 template <int MODE>
@@ -963,17 +1046,16 @@ bool slab_of(int D, int r0, int R, int tile, int lp, int split, Rows& rows,
 }
 
 // B problems (MODE SINGLE or BATCHED: one lower-triangle tile a block) or
-// a row slab of one (MODE ROWS, `rows` and its `blocks`)
-template <int TILE, int MODE>
+// a row slab of one (MODE ROWS, `rows` and its `blocks`) in form C
+template <class C, int MODE>
 int launch(const float* P, const float* M, const float* keep, float* Mp,
            float* out, int B, int D, int m, long long sP, long long sM,
            long long sK, const Rows& rows, unsigned int blocks,
            cudaStream_t stream) {
-  using C = Cfg<TILE>;
   if (C::PADDED && Mp == nullptr) return (int)cudaErrorInvalidValue;
   if (bad_batch(B, sP, sM, sK)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  auto kernel = pick<TILE, MODE>(keep != nullptr, err);
+  auto kernel = pick<C, MODE>(keep != nullptr, err);
   if (err != cudaSuccess) return (int)err;
   int ld = D;
   if (C::PADDED) {
@@ -986,7 +1068,7 @@ int launch(const float* P, const float* M, const float* keep, float* Mp,
     sM = sMp;
   }
   if (MODE != ROWS) {
-    const unsigned int nt = (D + TILE - 1) / TILE;
+    const unsigned int nt = (D + C::TILE - 1) / C::TILE;
     blocks = nt * (nt + 1) / 2;
   }
   kernel<<<dim3(blocks, B), C::THREADS, C::SMEM, stream>>>(
@@ -994,15 +1076,15 @@ int launch(const float* P, const float* M, const float* keep, float* Mp,
   return (int)cudaGetLastError();
 }
 
-// the full call of B problems in TILE-wide tiles
-template <int TILE>
+// the full call of B problems in form C
+template <class C>
 int launch_full(const float* P, const float* M, const float* keep, float* Mp,
                 float* out, int B, int D, int m, long long sP, long long sM,
                 long long sK, cudaStream_t stream) {
-  return B > 1 ? launch<TILE, BATCHED>(P, M, keep, Mp, out, B, D, m, sP, sM,
-                                       sK, Rows{}, 0, stream)
-               : launch<TILE, SINGLE>(P, M, keep, Mp, out, B, D, m, sP, sM,
-                                      sK, Rows{}, 0, stream);
+  return B > 1 ? launch<C, BATCHED>(P, M, keep, Mp, out, B, D, m, sP, sM, sK,
+                                    Rows{}, 0, stream)
+               : launch<C, SINGLE>(P, M, keep, Mp, out, B, D, m, sP, sM, sK,
+                                   Rows{}, 0, stream);
 }
 
 int launch_dmma(const double* P, const double* M, const double* keep,
@@ -1071,6 +1153,24 @@ int thin_slab(const T* P_rows, const T* M, const T* keep, T* out, int D, int m,
   }
 }
 
+// The float32 forms by index, the `form` argument of the entry points
+// (ops/covariance.py:F32_FORMS lists them in the same order)
+int launch_form(int form, const float* P, const float* M, const float* keep,
+                float* Mp, float* out, int B, int D, int m, long long sP,
+                long long sM, long long sK, cudaStream_t stream) {
+#define FULL(C) \
+  launch_full<C>(P, M, keep, Mp, out, B, D, m, sP, sM, sK, stream)
+  switch (form) {
+    case 0: return FULL(Tile32);
+    case 1: return FULL(Tile128);
+    case 2: return FULL(Small16);
+    case 3: return FULL(Small32);
+    case 4: return FULL(Batch32);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FULL
+}
+
 }  // namespace
 
 // out[b] = k_b k_b^T o (P_b - M_b^T M_b) for B problems: P_b [D,D] (lower
@@ -1078,30 +1178,23 @@ int thin_slab(const T* P_rows, const T* M, const T* keep, T* out, int D, int m,
 // NULL for all ones) at keep + b sK (a stride of 0 shares one tensor between
 // the problems), out [B,D,D]; all f32 row-major on the device. Mp is scratch
 // of Bp x m x Dp floats (Dp = D rounded up to 4; Bp = 1 if sM = 0, else B)
-// for TILE = 128 (else unused, may be NULL). TILE x TILE output tiles (32 or
-// 128), one thread block per lower-triangle tile and problem; each problem's
-// output is bit for bit that of its own unbatched call. Launches on
-// `stream`; returns a cudaError_t (0 = launched).
+// for a form that loads M from the padded copy (else unused, may be NULL).
+// One thread block per lower-triangle tile of the form and problem; each
+// problem's output is bit for bit that of its own unbatched call, in any
+// form. Launches on `stream`; returns a cudaError_t (0 = launched).
 extern "C" int symmetric_downdate_f32_batched(
     const float* P, const float* M, const float* keep, float* Mp, float* out,
-    int B, int D, int m, int tile, long long sP, long long sM, long long sK,
+    int B, int D, int m, int form, long long sP, long long sM, long long sK,
     cudaStream_t stream) {
-  switch (tile) {
-    case 32:
-      return launch_full<32>(P, M, keep, Mp, out, B, D, m, sP, sM, sK, stream);
-    case 128:
-      return launch_full<128>(P, M, keep, Mp, out, B, D, m, sP, sM, sK,
-                              stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_form(form, P, M, keep, Mp, out, B, D, m, sP, sM, sK, stream);
 }
 
 // One problem: P [D,D], M [m,D], keep [D] or NULL, out [D,D]; Mp m x Dp.
 extern "C" int symmetric_downdate_f32(const float* P, const float* M,
                                       const float* keep, float* Mp, float* out,
-                                      int D, int m, int tile,
+                                      int D, int m, int form,
                                       cudaStream_t stream) {
-  return symmetric_downdate_f32_batched(P, M, keep, Mp, out, 1, D, m, tile, 0,
+  return symmetric_downdate_f32_batched(P, M, keep, Mp, out, 1, D, m, form, 0,
                                         0, 0, stream);
 }
 
@@ -1125,7 +1218,8 @@ extern "C" int symmetric_downdate_f64(const double* P, const double* M,
 // Rows [r0, r0 + R) of symmetric_downdate_f32's output for P, M and keep,
 // each element bit for bit the full call's when P is exactly symmetric:
 // P_rows [R,D] (rows r0 .. r0 + R - 1 of P, all read), M [m,D], keep [D] or
-// NULL, out [R,D]; TILE 32 or 128 (whatever the full call's). At TILE =
+// NULL, out [R,D]; TILE 32 or 128 (PR 4's tiles, whatever the full call's
+// form: an element's bits do not depend on the form). At TILE =
 // 128 the tile grid starts at row r0 (lp = (128 - r0 % 128) % 128 columns
 // of zeros lead M's in the scratch; Mp is m x Dp floats, Dp = D + lp
 // rounded up to 4) and the last `split` of its cross tiles are computed in
@@ -1143,11 +1237,11 @@ extern "C" int symmetric_downdate_rows_f32(const float* P_rows, const float* M,
     return (int)cudaErrorInvalidValue;
   switch (tile) {
     case 32:
-      return launch<32, ROWS>(P_rows, M, keep, Mp, out, 1, D, m, 0, 0, 0, rows,
-                              blocks, stream);
+      return launch<Tile32, ROWS>(P_rows, M, keep, Mp, out, 1, D, m, 0, 0, 0,
+                                  rows, blocks, stream);
     default:
-      return launch<128, ROWS>(P_rows, M, keep, Mp, out, 1, D, m, 0, 0, 0,
-                               rows, blocks, stream);
+      return launch<Tile128, ROWS>(P_rows, M, keep, Mp, out, 1, D, m, 0, 0, 0,
+                                   rows, blocks, stream);
   }
 }
 

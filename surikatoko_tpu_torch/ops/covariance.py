@@ -9,9 +9,11 @@ tensors on the CPU it runs :func:`symmetric_downdate_ref` (the tests' path);
 for CUDA tensors it launches ``csrc/symmetric_downdate.cu`` or raises: there
 is no fallback. Both versions read only the lower triangle of P and mirror
 it, so the result is exactly symmetric. The tile edge comes from D and the
-type (:func:`downdate_config`). float32 runs on the FP32 lanes; for its
-128-wide tiles the wrapper also allocates the scratch into which a first
-kernel copies M with padded rows, so such a call is two device launches.
+type and, in float32, from the batch (:func:`downdate_config`, whose rule
+comes from a sweep on an H100). float32 runs on the FP32 lanes in one of
+the forms of F32_FORMS; for its 128-wide tiles the wrapper also allocates
+the scratch into which a first kernel copies M with padded rows, so such a
+call is two device launches.
 float64 runs on the FP64 tensor cores (``mma.sync`` m16n8k16 in 64-wide
 tiles, DMMA: the rate its bound assumes, 0.49 ms at the flagship's D =
 4621, m = 1536), loading M directly, one launch a call. A batch of B
@@ -35,7 +37,7 @@ wave split in halves (:func:`rows_config`).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -80,14 +82,64 @@ _LIB_THIN = KernelLibrary("symmetric_downdate.cu",
 _LIB_THIN64 = KernelLibrary("symmetric_downdate.cu",
                             "symmetric_downdate_rows_thin_f64", _THIN_ARGS)
 
-# Output tile edge by D: D <= TILE_32_MAX_D takes 32, larger D 128. Wider
-# tiles reuse each loaded value more but give fewer blocks. In a sweep of
-# device time at D = 13 + 6K, m = 2K (tools/probe_downdate.py on an H100;
-# PERF.md), 32 was the faster edge at every D up to 1933 but 1549 (4%
-# slower there) and 128 at every D from 2317 on.
+class F32Form(NamedTuple):
+    """A float32 form of the tile kernel (csrc/symmetric_downdate.cu:Form,
+    its template arguments in order): tile x tile output tiles, a thread's
+    tm x tn register tile, kp rows of M a panel through a ring of
+    ``stages``, M from the row-padded copy (``padded``: 16-byte loads, one
+    launch more) or straight from M, ``min_blocks`` blocks an SM (launch
+    bounds), ``skip``: a warp with no output of its tile runs no FMA, and
+    ``epi`` loads of P in flight a thread in the epilogue."""
+    name: str
+    tile: int
+    tm: int
+    tn: int
+    kp: int
+    stages: int
+    padded: bool
+    min_blocks: int
+    skip: bool = False
+    epi: int = 4
+
+    @property
+    def threads(self) -> int:
+        return (self.tile // self.tm) * (self.tile // self.tn)
+
+
+# The float32 forms by the index the library's entry points take, in the
+# order of csrc/symmetric_downdate.cu:launch_form: PR 4's 32- and 128-wide
+# tiles, and PR 14's small-D forms
+F32_FORMS = (
+    F32Form("Tile32", 32, 4, 4, 32, 3, False, 4),
+    F32Form("Tile128", 128, 8, 8, 32, 3, True, 2),
+    F32Form("Small16", 16, 2, 2, 32, 3, False, 8, True),
+    F32Form("Small32", 32, 4, 2, 32, 3, False, 4, True, 8),
+    F32Form("Batch32", 32, 4, 4, 16, 3, False, 8, True),
+)
+TILE32, TILE128, SMALL16, SMALL32, BATCH32 = range(len(F32_FORMS))
+
+# The tile edge up to which float32 takes 32-wide tiles (and 16-wide), 128
+# above: PR 4's rule for one problem (in a sweep of device time at
+# D = 13 + 6K, m = 2K, 32 was the faster edge at every D up to 1933 but
+# 1549, 128 from 2317 on). It holds for the full call and the row slab; a
+# slab's element equals the full call's whatever the full call's form: one
+# fmaf chain an element.
 TILE_32_MAX_D = 1933
-# float64 takes the DMMA kernel's 64-wide tiles at every D
-F64_TILE = 64
+# The float32 rule up to TILE_32_MAX_D (f32_form), read off a sweep of B
+# problems of [D,D] for B in 1 .. 128, D in 43 .. 2317, m in 32 .. 192
+# (tools/probe_downdate.py --small on an H100; PERF.md): Small16 while its
+# grid is at most SMALL16_BLOCKS_PER_SM blocks an SM (up to ~2x faster than
+# Tile32 there), else Small32 while its grid is at most
+# SMALL32_BLOCKS_PER_SM blocks an SM (up to 1.3x; at 4 blocks an SM, one
+# problem of D = 1000, it lost to Tile32 at m = 192), else Batch32 when its
+# grid is at least BATCH32_BLOCKS_PER_SM blocks an SM (up to 1.17x), else
+# Tile32.
+SMALL16_BLOCKS_PER_SM = 2
+SMALL32_BLOCKS_PER_SM = 3
+BATCH32_BLOCKS_PER_SM = 8
+# float64 takes the DMMA kernel's 64-wide tiles at every D, 128 threads, a
+# ring of 4 panels (csrc/symmetric_downdate.cu:Cfg64)
+F64_TILE, F64_THREADS, F64_STAGES = 64, 128, 4
 
 # Row slabs (rows_config). A slab of at most THIN_MAX_R rows takes the thin
 # kernel: a block 16 of its rows against thin_width columns. In the sweeps
@@ -103,18 +155,60 @@ TILE128_BLOCKS_PER_SM = 2
 H100_SMS = 132
 
 
-def downdate_config(D: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
-    """(tile edge, thread blocks) of the kernel for a [D,D] output of
-    ``dtype``: one block per lower-triangle tile, the grid the kernel's entry
-    point launches."""
-    if D < 1:
-        raise ValueError(f"D must be >= 1, got {D}")
-    if dtype == torch.float64:
-        tile = F64_TILE
-    else:
-        tile = 32 if D <= TILE_32_MAX_D else 128
+class DowndateConfig(NamedTuple):
+    """The kernel of a call: its tile edge, thread blocks (one a
+    lower-triangle tile and problem), float32 form (an index of F32_FORMS;
+    None for float64, the DMMA kernel), threads a block and ring stages."""
+    tile: int
+    blocks: int
+    form: Optional[int]
+    threads: int
+    stages: int
+
+
+def _tiles(D: int, tile: int) -> int:
+    """Lower-triangle tiles of a [D,D] output in tile x tile tiles."""
     nt = -(-D // tile)
-    return tile, nt * (nt + 1) // 2
+    return nt * (nt + 1) // 2
+
+
+def f32_form(D: int, B: int = 1, sms: int = H100_SMS) -> int:
+    """The float32 form (an index of F32_FORMS) for B problems of [D,D] on a
+    card of ``sms`` SMs (the rule above F32_FORMS)."""
+    if D > TILE_32_MAX_D:
+        return TILE128
+    if B * _tiles(D, 16) <= SMALL16_BLOCKS_PER_SM * sms:
+        return SMALL16
+    if B * _tiles(D, 32) <= SMALL32_BLOCKS_PER_SM * sms:
+        return SMALL32
+    if B * _tiles(D, 32) >= BATCH32_BLOCKS_PER_SM * sms:
+        return BATCH32
+    return TILE32
+
+
+def slab_tile(D: int, dtype: torch.dtype = torch.float32) -> int:
+    """The tile edge of a row slab of a [D,D] output of ``dtype``: PR 4's
+    float32 edge (32 up to TILE_32_MAX_D, else 128), the DMMA kernel's in
+    float64."""
+    if dtype == torch.float64:
+        return F64_TILE
+    return 32 if D <= TILE_32_MAX_D else 128
+
+
+def downdate_config(D: int, dtype: torch.dtype = torch.float32, B: int = 1,
+                    sms: int = H100_SMS) -> DowndateConfig:
+    """The kernel's configuration for B problems of a [D,D] output of
+    ``dtype`` on a card of ``sms`` SMs: the form and the grid and block its
+    entry point launches."""
+    if D < 1 or B < 1:
+        raise ValueError(f"D and B must be >= 1, got D={D}, B={B}")
+    if dtype == torch.float64:
+        return DowndateConfig(F64_TILE, B * _tiles(D, F64_TILE), None,
+                              F64_THREADS, F64_STAGES)
+    form = f32_form(D, B, sms)
+    f = F32_FORMS[form]
+    return DowndateConfig(f.tile, B * _tiles(D, f.tile), form, f.threads,
+                          f.stages)
 
 
 def symmetric_downdate_ref(P: torch.Tensor, M: torch.Tensor,
@@ -210,15 +304,15 @@ def _launch(P: torch.Tensor, M: torch.Tensor, keep: torch.Tensor | None,
             rc = _LIB64.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
                              out.data_ptr(), B, D, m, sP, sM, sK, stream)
         else:
-            tile = downdate_config(D)[0]
-            # 128-wide tiles load M from a copy whose rows are padded to a
+            form = f32_form(D, B, sm_count(P.device))
+            # a padded form loads M from a copy whose rows are padded to a
             # multiple of 4 floats (16-byte loads); a shared M is padded once
             scratch = (torch.empty((1 if sM == 0 else B, m, -(-D // 4) * 4),
                                    dtype=P.dtype, device=P.device)
-                       if tile == 128 else None)
+                       if F32_FORMS[form].padded else None)
             rc = _LIB.fn()(P.data_ptr(), M.data_ptr(), keep_ptr,
                            None if scratch is None else scratch.data_ptr(),
-                           out.data_ptr(), B, D, m, tile, sP, sM, sK, stream)
+                           out.data_ptr(), B, D, m, form, sP, sM, sK, stream)
     if rc != 0:
         raise RuntimeError(f"symmetric_downdate kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -432,15 +526,16 @@ def rows_config(D: int, R: int, r0: int, dtype: torch.dtype = torch.float32,
                 sms: int = H100_SMS) -> tuple[str, int, int, int]:
     """(form, width, thread blocks, split) of a row slab on a card of
     ``sms`` SMs: ("thin", :func:`thin_width`, ceil(D / width) ceil(R / 16)
-    blocks, 0) for at most THIN_MAX_R rows; else ("tiles", the full call's
-    tile edge, :func:`tile_grid` + split, split). A float32 grid of 128-wide
+    blocks, 0) for at most THIN_MAX_R rows; else ("tiles", :func:`slab_tile`
+    (whatever the full call's form: an element's bits do not depend on its
+    tile), :func:`tile_grid` + split, split). A float32 grid of 128-wide
     tiles whose last wave would hold at most ``sms`` tiles, one alone on an
     SM, takes those as two half tiles each (split: a float32 element's bits
     do not depend on the tile)."""
     if R <= THIN_MAX_R[dtype]:
         cw = thin_width(D, R, dtype, sms)
         return "thin", cw, -(-D // cw) * -(-R // 16), 0
-    tile = downdate_config(D, dtype)[0]
+    tile = slab_tile(D, dtype)
     units = tile_grid(D, R, r0, tile)
     split = 0
     if tile == 128:

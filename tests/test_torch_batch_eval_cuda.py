@@ -105,6 +105,40 @@ def test_torch_batched_downdate_kernel_under_vmap(dtype, D):
                            covariance.symmetric_downdate(P[b], M[0], keep[b]))
 
 
+# (B, D, m, form): both sides of each edge in B of the float32 rule (132
+# SMs) at D = 589 (Small32 | Tile32 | Batch32), 301 (Small16 | Small32 |
+# Tile32 | Batch32), 864 (Small32 | Tile32) and 1000 (Tile32 | Batch32):
+# the batch's form differs from its problems' own
+B_EDGES = [(2, 589, 48, "Small32"), (3, 589, 48, "Tile32"),
+           (5, 589, 24, "Tile32"), (6, 589, 24, "Batch32"),
+           (2, 301, 33, "Small32"), (7, 301, 33, "Small32"),
+           (8, 301, 33, "Tile32"), (19, 301, 17, "Tile32"),
+           (20, 301, 17, "Batch32"), (2, 1000, 24, "Batch32"),
+           (7, 1000, 24, "Batch32"), (2, 864, 24, "Tile32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,m,form", B_EDGES)
+def test_torch_batched_downdate_equals_unbatched_across_the_batch_rule(
+        B, D, m, form):
+    """A batch whose size puts it in another float32 form than its
+    problems alone (one problem of D <= 864 takes Small16 or Small32, of
+    D = 1000 Tile32)
+    still equals, slice by slice, the unbatched calls bit for bit, and
+    vmap equals the batched call."""
+    dev = _card()
+    if covariance.sm_count(dev) == covariance.H100_SMS:
+        assert covariance.F32_FORMS[covariance.f32_form(D, B)].name == form
+    P, M, keep = _batch(B, D, m, dev, torch.float32)
+    got = covariance.symmetric_downdate(P, M, keep)
+    vmapped = torch.func.vmap(covariance.symmetric_downdate)(P, M, keep)
+    torch.cuda.synchronize()
+    assert torch.equal(vmapped, got)
+    for b in range(B):
+        assert torch.equal(got[b], covariance.symmetric_downdate(
+            P[b], M[b], keep[b]))
+
+
 @pytest.mark.cuda
 def test_torch_batched_downdate_kernel_rejects_what_it_cannot_take():
     dev = _card()

@@ -108,47 +108,139 @@ def test_torch_downdate_wrapper_cpu_path_and_checks():
 
 
 def test_torch_downdate_config_covers_every_width():
-    """Every D from 1 to 5000 gets a tile edge the kernel has (32 or 128),
-    one block per lower-triangle tile, and the edge grows with D, switching
-    just past the measured threshold."""
+    """Every D from 1 to 5000 gets, for one problem, a float32 form the
+    kernel has (16-, 32- or 128-wide tiles), one block per lower-triangle
+    tile, and the tile edge grows with D, switching at the rule's edges:
+    Small16 while its grid is at most 2 blocks an SM (D <= 352 on 132 SMs),
+    Small32 while at most 3 (D <= 864), PR 4's Tile32 while under 8 (D <=
+    1440), Batch32 up to PR 4's edge (1933), Tile128 above."""
     last = 0
     for D in range(1, 5001):
-        tile, blocks = covariance.downdate_config(D)
-        assert tile in (32, 128) and tile >= last
+        tile, blocks = covariance.downdate_config(D)[:2]
+        assert tile in (16, 32, 128) and tile >= last
         nt = len(range(0, D, tile))
         assert blocks == sum(1 for bi in range(nt) for bj in range(bi + 1))
         last = tile
-    assert covariance.downdate_config(covariance.TILE_32_MAX_D)[0] == 32
-    assert covariance.downdate_config(covariance.TILE_32_MAX_D + 1)[0] == 128
+    names = {D: covariance.F32_FORMS[covariance.f32_form(D)].name
+             for D in (352, 353, 864, 865, 1000, 1440, 1441, 1933, 1934,
+                       2317)}
+    assert names == {352: "Small16", 353: "Small32", 864: "Small32",
+                     865: "Tile32", 1000: "Tile32", 1440: "Tile32",
+                     1441: "Batch32", 1933: "Batch32", 1934: "Tile128",
+                     2317: "Tile128"}
     with pytest.raises(ValueError):
         covariance.downdate_config(0)
+    with pytest.raises(ValueError):
+        covariance.downdate_config(43, B=0)
 
 
 @pytest.mark.parametrize("D", [1, 43, 589, 1933, 2317, 4621])
 def test_torch_downdate_config_float32_is_the_default(D):
-    """The type is a keyword that defaults to float32, whose rule is the
-    one D alone gave: 32 up to TILE_32_MAX_D, 128 above."""
-    want = 32 if D <= covariance.TILE_32_MAX_D else 128
+    """The type is a keyword that defaults to float32, and the batch to one
+    problem: the forms of one problem (Small16 below 353, 32-wide tiles up
+    to 1933, Tile128 above)."""
+    want = {1: 16, 43: 16, 589: 32, 1933: 32, 2317: 128, 4621: 128}[D]
     nt = -(-D // want)
-    assert covariance.downdate_config(D) == (want, nt * (nt + 1) // 2)
+    assert covariance.downdate_config(D)[:2] == (want, nt * (nt + 1) // 2)
     assert covariance.downdate_config(D, torch.float32) == covariance.downdate_config(D)
-    assert covariance.downdate_config(D, dtype=torch.float32) == covariance.downdate_config(D)
+    assert covariance.downdate_config(D, dtype=torch.float32, B=1) == covariance.downdate_config(D)
 
 
 def test_torch_downdate_config_float64_rule():
-    """float64: every D from 1 to 5000 gets the DMMA kernel's 64-wide tile,
-    one block per lower-triangle tile."""
+    """float64: every D from 1 to 5000 and every batch gets the DMMA
+    kernel's 64-wide tile, one block per lower-triangle tile and problem,
+    128 threads, a ring of 4 panels, no float32 form."""
     for D in range(1, 5001):
-        tile, blocks = covariance.downdate_config(D, torch.float64)
+        tile, blocks = covariance.downdate_config(D, torch.float64)[:2]
         assert tile == covariance.F64_TILE == 64
         nt = len(range(0, D, tile))
         assert blocks == sum(1 for bi in range(nt) for bj in range(bi + 1))
-    assert covariance.downdate_config(1, torch.float64) == (64, 1)
-    assert covariance.downdate_config(109, torch.float64) == (64, 2 * 3 // 2)
-    assert covariance.downdate_config(589, torch.float64) == (64, 10 * 11 // 2)
-    assert covariance.downdate_config(4621, torch.float64) == (64, 73 * 74 // 2)
+    assert covariance.downdate_config(1, torch.float64) == (64, 1, None, 128, 4)
+    assert covariance.downdate_config(109, torch.float64) == (64, 2 * 3 // 2, None, 128, 4)
+    assert covariance.downdate_config(589, torch.float64) == (64, 10 * 11 // 2, None, 128, 4)
+    assert covariance.downdate_config(4621, torch.float64) == (64, 73 * 74 // 2, None, 128, 4)
+    assert covariance.downdate_config(589, torch.float64, B=32) == (64, 32 * 55, None, 128, 4)
     with pytest.raises(ValueError):
         covariance.downdate_config(0, torch.float64)
+
+
+def _tiles(D, tile):
+    nt = -(-D // tile)
+    return nt * (nt + 1) // 2
+
+
+# (B, D, form): the rule's picks at the main paths' shapes and at both
+# sides of its edges in B (132 SMs): scenario03 and the host loop (589, one
+# problem), batch_eval's scan (32 x 589), the image loop (K=48: 301), the
+# flagship (4621), the batch edges at D = 43, 301, 589 and 1000, and the
+# edges in D of Small32 for one problem and of Tile128 for a batch
+RULE_CASES = [(1, 589, "Small32"), (32, 589, "Batch32"), (1, 301, "Small16"),
+              (1, 4621, "Tile128"), (32, 4621, "Tile128"),
+              (2, 589, "Small32"), (3, 589, "Tile32"),
+              (1, 301, "Small16"), (2, 301, "Small32"), (7, 301, "Small32"),
+              (8, 301, "Tile32"), (1, 1000, "Tile32"), (2, 1000, "Batch32"),
+              (7, 1000, "Batch32"), (128, 1933, "Batch32"), (128, 43, "Small32"),
+              (44, 43, "Small16"), (45, 43, "Small32"), (1, 1440, "Tile32"),
+              (1, 1932, "Batch32"), (128, 1934, "Tile128"),
+              (128, 2318, "Tile128"), (5, 589, "Tile32"), (6, 589, "Batch32"),
+              (19, 301, "Tile32"), (20, 301, "Batch32"), (128, 109, "Batch32"),
+              (4, 589, "Tile32"), (1, 864, "Small32"), (1, 865, "Tile32")]
+
+
+@pytest.mark.parametrize("B,D,form", RULE_CASES)
+def test_torch_downdate_config_batch_rule(B, D, form):
+    """downdate_config(D, float32, B): the form of the rule read off the
+    probe's --small sweep (Tile128 past D = 1933, else Small16 while B x
+    16-wide tiles <= 2 x 132, Small32 while B x 32-wide tiles <= 3 x 132,
+    Batch32 when B x 32-wide tiles >= 8 x 132, else Tile32), with its tile,
+    threads, stages and one block a tile and problem."""
+    cfg = covariance.downdate_config(D, torch.float32, B)
+    f = covariance.F32_FORMS[cfg.form]
+    assert f.name == form
+    assert cfg == (f.tile, B * _tiles(D, f.tile), cfg.form, f.threads, f.stages)
+    assert f.threads == {"Tile32": 64, "Tile128": 256, "Small16": 64,
+                         "Small32": 128, "Batch32": 64}[form]
+    # the rule scales with the SMs: half the card halves the grid edges
+    if form == "Small16" and B * _tiles(D, 16) > 132:
+        assert covariance.F32_FORMS[covariance.f32_form(D, B, sms=66)].name != form
+
+
+@pytest.mark.parametrize("D", [1, 589, 1933, 1934, 4621])
+def test_torch_slab_tile_is_pr4s_edge(D):
+    """A row slab's tile edge: PR 4's float32 rule (32 up to D = 1933, 128
+    above), where the full call also turns to 128-wide tiles; the DMMA
+    kernel's 64 in float64."""
+    want = 32 if D <= 1933 else 128
+    assert covariance.slab_tile(D) == covariance.slab_tile(D, torch.float32) == want
+    assert covariance.slab_tile(D, torch.float64) == 64
+    assert (covariance.f32_form(D, 1) == covariance.TILE128) == (want == 128)
+    assert (covariance.f32_form(D, 128) == covariance.TILE128) == (want == 128)
+
+
+def test_torch_f32_forms_match_the_kernel_source():
+    """F32_FORMS lists, in the order of the entry point's form index
+    (csrc/symmetric_downdate.cu:launch_form), each form's template
+    arguments Form<TILE, TM, TN, KP, STAGES, PADDED, MIN_BLOCKS, SKIP,
+    EPI> as the source declares them, and the module's form indices name
+    them."""
+    import re
+    src = covariance._LIB.source.read_text()
+    forms = {}
+    for name, args in re.findall(r"using (\w+) = Form<([^>]*)>;", src):
+        vals = [a.strip() for a in args.split(",")]
+        vals += ["false", "EPI_LOADS"][len(vals) - 7:]
+        conv = {"true": True, "false": False, "EPI_LOADS": 4}
+        forms[name] = tuple(conv.get(v, None) if v in conv else int(v)
+                            for v in vals)
+    cases = dict(re.findall(r"case (\d+): return FULL\((\w+)\);", src))
+    assert len(cases) == len(covariance.F32_FORMS)
+    for i, f in enumerate(covariance.F32_FORMS):
+        assert cases[str(i)] == f.name
+        assert forms[f.name] == tuple(f[1:]), f.name
+    assert [covariance.F32_FORMS[i].name for i in (
+        covariance.TILE32, covariance.TILE128, covariance.SMALL16,
+        covariance.SMALL32, covariance.BATCH32)] == [
+        "Tile32", "Tile128", "Small16", "Small32", "Batch32"]
 
 
 def test_torch_kernel_libraries_keyed_by_their_own_source():

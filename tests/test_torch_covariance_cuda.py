@@ -116,19 +116,34 @@ def test_torch_downdate_kernel_repeats_bitwise(with_keep):
     assert torch.equal(first, covariance.symmetric_downdate(P, M, keep))
 
 
+# the last D of each float32 form of one problem on 132 SMs and the form
+# after it: Small16 | Small32 | Tile32 | Batch32 | Tile128 (128-wide with
+# the padded 16-byte loads, from PR 4's edge on)
+FORM_EDGES = [(352, "Small16", "Small32"), (864, "Small32", "Tile32"),
+              (1440, "Tile32", "Batch32"),
+              (covariance.TILE_32_MAX_D, "Batch32", "Tile128")]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("edge,before,after", FORM_EDGES)
 @pytest.mark.parametrize("side", [0, 1])
-def test_torch_downdate_kernel_at_tile_thresholds(side):
-    """Both sides of the tile-edge threshold (32-wide tiles with 4-byte
-    loads, then 128-wide with the padded 16-byte loads), with a ragged m."""
+def test_torch_downdate_kernel_at_tile_thresholds(edge, before, after, side):
+    """Both sides of each edge of the float32 rule for one problem, with a
+    ragged m: within tolerance of the plain version, bitwise symmetric, and
+    the emulated fmaf chain bit for bit."""
     dev = _card()
-    D = covariance.TILE_32_MAX_D + side
+    D = edge + side
+    name = covariance.F32_FORMS[covariance.f32_form(
+        D, 1, covariance.sm_count(dev))].name
+    if covariance.sm_count(dev) == covariance.H100_SMS:
+        assert name == (after if side else before)
     P, M, keep = _inputs(D, 48, True, dev)
     got = covariance.symmetric_downdate(P, M, keep)
     want = covariance.symmetric_downdate_ref(P, M, keep)
     torch.cuda.synchronize()
     assert torch.equal(got, got.T)
     assert within_tolerance(got, want, P, M, keep)
+    assert torch.equal(got, fmaf_chain(P, M, keep))
 
 
 @pytest.mark.cuda
@@ -139,6 +154,7 @@ def test_torch_downdate_kernel_takes_many_rows():
     which lie past row 65535."""
     dev = _card()
     D = covariance.TILE_32_MAX_D + 1
+    assert covariance.f32_form(D) == covariance.TILE128
     P, tail, keep = _inputs(D, 40, True, dev)
     M = torch.zeros((70_000, D), device=dev)
     M[-40:] = tail
@@ -238,16 +254,72 @@ def test_torch_downdate_kernel_f64_repeats_bitwise(with_keep):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,m", [(43, 10), (129, 1), (130, 7), (300, 64),
-                                 (2000, 17)])
+@pytest.mark.parametrize("D,m,B", [(43, 10, 1), (129, 1, 1), (130, 7, 1),
+                                   (300, 64, 1), (2000, 17, 1),
+                                   (352, 33, 1), (353, 33, 1), (589, 192, 1),
+                                   (864, 20, 1), (865, 20, 1), (1933, 9, 1),
+                                   (1934, 9, 1), (2318, 9, 1),
+                                   (589, 47, 3), (301, 33, 10),
+                                   (589, 33, 12), (1000, 17, 8)])
 @pytest.mark.parametrize("with_keep", [False, True])
-def test_torch_downdate_kernel_f32_is_its_fmaf_chain(D, m, with_keep):
-    """The float32 kernel keeps its summation order bit for bit (32-wide
-    tiles, and 128-wide at D = 2000): it equals the emulated fmaf chain."""
+def test_torch_downdate_kernel_f32_is_its_fmaf_chain(D, m, B, with_keep):
+    """The float32 kernel keeps its summation order bit for bit in every
+    form the rule picks (one problem: Small16 to D = 352, Small32 to 864,
+    Tile32, Batch32 from 1441, Tile128 past 1933; batches of 3 x 589 and
+    10 x 301 in Tile32, 12 x 589 and 8 x 1000 in Batch32): each problem
+    equals the emulated fmaf chain."""
     dev = _card()
-    P, M, keep = _inputs(D, m, with_keep, dev)
-    got = covariance.symmetric_downdate(P, M, keep)
-    assert torch.equal(got, fmaf_chain(P, M, keep))
+    if B == 1:
+        P, M, keep = _inputs(D, m, with_keep, dev)
+        got = covariance.symmetric_downdate(P, M, keep)
+        assert torch.equal(got, fmaf_chain(P, M, keep))
+        return
+    cases = [_inputs(D, m + b, with_keep, dev) for b in range(B)]
+    Ms = torch.stack([c[1][:m] for c in cases])
+    P = torch.stack([c[0] for c in cases])
+    keep = None if not with_keep else torch.stack([c[2] for c in cases])
+    got = covariance.symmetric_downdate(P, Ms, keep)
+    for b in range(B):
+        assert torch.equal(got[b], fmaf_chain(
+            P[b], Ms[b], None if keep is None else keep[b]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,D,m", [(1, 43, 10), (1, 301, 33), (1, 589, 192),
+                                   (3, 130, 7), (2, 1000, 40), (4, 589, 17)])
+def test_torch_downdate_forms_equal_bitwise(B, D, m):
+    """Every float32 form of the library's entry point, launched directly,
+    gives the same bits as every other and as the emulated fmaf chain: an
+    element's bits do not depend on the form that computes it."""
+    from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
+    dev = _card()
+    fn = KernelLibrary(covariance._LIB.source.name,
+                       "symmetric_downdate_f32_batched",
+                       covariance._LIB.argtypes).fn()
+    cases = [_inputs(D, m, True, dev) for _ in range(B)]
+    P = torch.stack([c[0] for c in cases])
+    M = torch.stack([c[1] * (b + 1) for b, c in enumerate(cases)])
+    keep = torch.stack([c[2] for c in cases])
+    outs = []
+    for form, f in enumerate(covariance.F32_FORMS):
+        out = torch.empty_like(P)
+        scratch = (torch.empty((B, m, -(-D // 4) * 4), device=dev)
+                   if f.padded else None)
+        rc = fn(P.data_ptr(), M.data_ptr(), keep.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                out.data_ptr(), B, D, m, form, D * D, m * D, D,
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, (f.name, rc)
+        outs.append(out)
+    torch.cuda.synchronize()
+    for f, out in zip(covariance.F32_FORMS, outs):
+        assert torch.equal(out, outs[0]), f.name
+    for b in range(B):
+        assert torch.equal(outs[0][b], fmaf_chain(P[b], M[b], keep[b]))
+    bad = fn(P.data_ptr(), M.data_ptr(), keep.data_ptr(), None,
+             outs[0].data_ptr(), B, D, m, len(covariance.F32_FORMS),
+             D * D, m * D, D, torch.cuda.current_stream().cuda_stream)
+    assert bad != 0     # no form past the table
 
 
 @pytest.mark.cuda

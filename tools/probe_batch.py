@@ -5,11 +5,13 @@
     python3 tools/probe_batch.py tree DIR LABEL [--out FILE]
     python3 tools/probe_batch.py host FILE [--out FILE]
 
-``tiles``: the batched float32 entry point with 32- and 128-wide tiles over
-B = 1 .. 128 at D = 589 (m = 192, scenario03's shape), D = 109 (m = 32) and
-D = 1549 (m = 512, B <= 32): graph-replay time of each beside the bound,
-and whether the two tiles agree bit for bit (their summation order is the
-same fmaf chain). ``downdate_config`` picks the tile from D alone.
+``tiles``: the batched float32 entry point in PR 4's forms, 32- and
+128-wide tiles (``covariance.TILE32``, ``TILE128``), over B = 1 .. 128 at
+D = 589 (m = 192, scenario03's shape), D = 109 (m = 32) and D = 1549
+(m = 512, B <= 32): graph-replay time of each beside the bound, and whether
+the two agree bit for bit (their summation order is the same fmaf chain),
+beside the form ``downdate_config`` picks from D and B.
+``tools/probe_downdate.py --small`` times every form.
 
 ``tree``: one checkout's unbatched B2 and flagship loop, to compare two
 checkouts on one card in turns (e.g. the parent commit unpacked with ``git
@@ -58,14 +60,14 @@ def tiles(out) -> None:
     rate = n_sm * c.F32_LANES_PER_SM * float(
         c.nvidia_smi("clocks.max.sm", units=False)) * 1e6
 
-    def call(P, M, keep, tile):
+    def call(P, M, keep, form):
         B, m, D = M.shape
         res = torch.empty((B, D, D), device=dev)
         scratch = (torch.empty((B, m, -(-D // 4) * 4), device=dev)
-                   if tile == 128 else None)
+                   if cov.F32_FORMS[form].padded else None)
         rc = cov._LIB.fn()(P.data_ptr(), M.data_ptr(), keep.data_ptr(),
                             None if scratch is None else scratch.data_ptr(),
-                            res.data_ptr(), B, D, m, tile, D * D, m * D, D,
+                            res.data_ptr(), B, D, m, form, D * D, m * D, D,
                             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed: CUDA error {rc}")
@@ -76,13 +78,17 @@ def tiles(out) -> None:
                           (1549, 512, (1, 2, 4, 8, 16, 32))):
         for B in batches:
             P, M, keep = c.batch_downdate_case(B, D, m, dev, torch.float32)
-            equal = torch.equal(call(P, M, keep, 32), call(P, M, keep, 128))
+            forms = {32: cov.TILE32, 128: cov.TILE128}
+            equal = torch.equal(call(P, M, keep, cov.TILE32),
+                                call(P, M, keep, cov.TILE128))
             fma, nbytes = c.downdate_work(D, m, True)
             b_ms, b_by = c.bound_ms(B * fma, B * nbytes, rate)
-            g = {t: c.cuda_graph_ms(lambda t=t: call(P, M, keep, t), 20)
-                 for t in (32, 128)}
+            g = {t: c.cuda_graph_ms(lambda f=f: call(P, M, keep, f), 20)
+                 for t, f in forms.items()}
+            config = cov.downdate_config(D, B=B, sms=n_sm)
             emit({"probe": "tiles", "D": D, "m": m, "B": B,
-                  "tile_of_config": cov.downdate_config(D)[0],
+                  "tile_of_config": config.tile,
+                  "form_of_config": cov.F32_FORMS[config.form].name,
                   "bitwise_equal": equal, "graph_ms_32": g[32],
                   "graph_ms_128": g[128], "bound_ms": b_ms, "bound_by": b_by,
                   "pct_of_bound_32": 100 * b_ms / g[32],
