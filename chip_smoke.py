@@ -259,7 +259,17 @@ import numpy as np
 
 from surikatoko_tpu_torch.demos.ba_at_scale import run_at_scale
 from surikatoko_tpu_torch.demos.bundle_adj_dinosaur import run_dino
-from surikatoko_tpu_torch.utils.profiling import cuda_ms, device_profile
+from surikatoko_tpu_torch.utils.profiling import (counts, cuda_ms,
+                                                  device_profile)
+
+
+def launches_since(c0: dict) -> dict:
+    """Host calls of kernels B1 and B2 since ``c0 = counts()`` (the port's
+    "b1.calls" and "b2.calls"), under this script's names."""
+    c = counts()
+    return {"ncc_search": c.get("b1.calls", 0) - c0.get("b1.calls", 0),
+            "symmetric_downdate": (c.get("b2.calls", 0)
+                                   - c0.get("b2.calls", 0))}
 
 K_FLAGSHIP = 768
 # (K, T, S): the CPU tests' shapes and the main path's, then the image
@@ -1075,7 +1085,6 @@ def precision_run(device, dtype, mitigations: bool, profile: bool = False) -> di
     import torch
     from surikatoko_tpu_torch.geom.align import aligned_rmse
     from surikatoko_tpu_torch.models.monoslam import init_state
-    from surikatoko_tpu_torch.ops import covariance, ncc_cuda
     from surikatoko_tpu_torch.world.device_runner import (
         init_with_gt_landmarks, make_scan_runner)
     params, sc = oscillating_world(device, dtype, PK_K,
@@ -1088,12 +1097,12 @@ def precision_run(device, dtype, mitigations: bool, profile: bool = False) -> di
                                                        device=device), noise0)
     run = make_scan_runner(params, 1)
     torch.cuda.synchronize()
+    c0 = counts()
     t0 = time.perf_counter()
     st2, errs, n, pos, info = run(st, sc, PK_FRAMES, noise)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"ncc_search": ncc_cuda.LAUNCHES,
-                "symmetric_downdate": covariance.LAUNCHES}
+    launches = launches_since(c0)
     finite = bool(torch.isfinite(st2.x).all() and torch.isfinite(pos).all())
     out = {"dtype": str(dtype).replace("torch.", ""),
            "mitigations": mitigations, "frames": len(PK_FRAMES), "s": dt,
@@ -1540,7 +1549,7 @@ def batch_scan_noise(device, dtype, ate_noise):
                       torch.as_tensor(rest, dtype=dtype, device=device)])
 
 
-def batch_scan_phase(ncc, cov, device) -> dict:
+def batch_scan_phase(cov, device) -> dict:
     """The scan runner over noise seeds (scenario03's world, impl 1):
     BATCH_SCAN_B instances in float32 over frames 1-300 as one batch, the
     same instances one after another over frames 1-30, one profiled frame
@@ -1557,12 +1566,12 @@ def batch_scan_phase(ncc, cov, device) -> dict:
     run_1 = make_scan_runner(params, 1)
     run_b(state, sc, range(1, 4), noise[:, :3])        # warm-up
     torch.cuda.synchronize()
-    ncc.LAUNCHES = cov.LAUNCHES = 0
+    c0 = counts()
     t0 = time.perf_counter()
     st_b, errs_b, n_b, pos_b, info_b = run_b(state, sc, BATCH_SCAN_FRAMES, noise)
     torch.cuda.synchronize()
     t_batched = time.perf_counter() - t0
-    launches = {"ncc_search": ncc.LAUNCHES, "symmetric_downdate": cov.LAUNCHES}
+    launches = launches_since(c0)
     n_seq = len(BATCH_SEQ_FRAMES)
     run_1(state, sc, range(1, 4), noise[0, :3])          # warm-up
     torch.cuda.synchronize()
@@ -2052,10 +2061,9 @@ def main() -> int:
     slab = slab_phase(covariance, device, fma_per_s, f64_fma_per_s)
 
     # ---- flagship slice: the main path ----
-    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    c0 = counts()
     run, res, t_init, dt, _ = run_loop(params, sc, True, device)
-    launches = {"ncc_search": ncc_cuda.LAUNCHES,
-                "symmetric_downdate": covariance.LAUNCHES}
+    launches = launches_since(c0)
     st2, tm2, (err, n, pos, nrec, nact, info) = res
     fr = list(TIMED_FRAMES)
     gt_pos = gt_positions(sc, fr)
@@ -2113,10 +2121,9 @@ def main() -> int:
     del st2, tm2, res
 
     # ---- no-recruit control on the same world ----
-    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    c0 = counts()
     run_c, res_c, t_init_c, dt_c, tm_c = run_loop(params, sc, False, device)
-    launches_c = {"ncc_search": ncc_cuda.LAUNCHES,
-                  "symmetric_downdate": covariance.LAUNCHES}
+    launches_c = launches_since(c0)
     st_c, (err_c, n_c, pos_c, info_c) = res_c
     frame_without_host_sync(run_c, st_c, tm_c, sc, [241])
     ate_c = float(aligned_rmse(pos_c.double(), gt_pos.double()))
@@ -2136,7 +2143,7 @@ def main() -> int:
     params3, sc3, st3_0, ate_noise, timed_noise = scenario03_setup(
         device, torch.float32)
     run3 = make_scan_runner(params3, 1)
-    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    c0 = counts()
     t0 = time.perf_counter()
     st3, errs3, n3, pos3, info3 = run3(st3_0, sc3, SC03_ATE_FRAMES, ate_noise)
     torch.cuda.synchronize()
@@ -2158,8 +2165,7 @@ def main() -> int:
                             and torch.isfinite(cur.P).all()
                             and torch.isfinite(errs_r).all()))
         sym3.append(bool(torch.equal(cur.P, cur.P.T)))
-    launches3 = {"ncc_search": ncc_cuda.LAUNCHES,
-                 "symmetric_downdate": covariance.LAUNCHES}
+    launches3 = launches_since(c0)
     frames3 = len(SC03_ATE_FRAMES) + 3 * SC03_CHUNK
     t_med = sorted(times)[1]
     busy3, nlaunch3, top3, by_kernel3 = device_profile(
@@ -2202,7 +2208,7 @@ def main() -> int:
     noise30 = ate_noise[:len(SC03_IMPL_FRAMES)]
     for impl, per_frame in ((2, 0), (3, 0), (4, 2)):
         run_i = make_scan_runner(params3, impl)
-        covariance.LAUNCHES = 0
+        c0 = counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st_i, errs_i, n_i, pos_i, info_i = run_i(st3_0, sc3, SC03_IMPL_FRAMES,
@@ -2214,15 +2220,18 @@ def main() -> int:
                        "errs_finite": bool(torch.isfinite(errs_i).all()),
                        "matched_med": float(np.median(n_i.cpu().numpy())),
                        "chol_info_nonzero": int(torch.count_nonzero(info_i)),
-                       "downdate_launches": covariance.LAUNCHES}
+                       "downdate_launches":
+                           launches_since(c0)["symmetric_downdate"]}
         want = per_frame * len(SC03_IMPL_FRAMES)
         if not impls[impl]["errs_finite"]:
             raise AssertionError(f"impl {impl}: non-finite residuals")
         if not impls[impl]["max_cam_err"] < 0.5:
             raise AssertionError(f"impl {impl}: camera off GT by "
                                  f"{impls[impl]['max_cam_err']}")
-        if covariance.LAUNCHES != want:
-            raise AssertionError(f"impl {impl}: {covariance.LAUNCHES} downdate "
+        if impls[impl]["downdate_launches"] != want:
+            raise AssertionError(f"impl {impl}: "
+                                 f"{impls[impl]['downdate_launches']} "
+                                 f"downdate "
                                  f"launches, want {want}")
         if impl == 4:
             frame_without_host_sync(run_i, st_i, sc3, [31], noise30[:1])
@@ -2240,7 +2249,7 @@ def main() -> int:
         run_h, tracker_h = hostloop_runner(device, dtype)
         run_h(HOSTLOOP_WARM)
         torch.cuda.synchronize()
-        ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+        c0 = counts()
         t0 = time.perf_counter()
         res_h = run_h(HOSTLOOP_FRAMES)
         torch.cuda.synchronize()
@@ -2248,8 +2257,7 @@ def main() -> int:
         name = str(dtype).replace("torch.", "")
         host[name] = {**hostloop_summary(res_h), "s": dt_h,
                       "fps": HOSTLOOP_FRAMES / dt_h,
-                      "launches": {"ncc_search": ncc_cuda.LAUNCHES,
-                                   "symmetric_downdate": covariance.LAUNCHES}}
+                      "launches": launches_since(c0)}
         if dtype == torch.float32:
             # one more step with every slot matched at its predicted pixel
             # and no recruit, with host syncs raising: the step reads nothing
@@ -2315,11 +2323,10 @@ def main() -> int:
         imageseq_run(imseq_dir, device, dtype, IMSEQ_WARM)     # warm-up
         runs = []
         for _ in range(2):
-            ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+            c0 = counts()
             st_i, stats_i, _, native_i, dt_i = imageseq_run(imseq_dir, device,
                                                             dtype)
-            runs.append((dt_i, {"ncc_search": ncc_cuda.LAUNCHES,
-                                "symmetric_downdate": covariance.LAUNCHES},
+            runs.append((dt_i, launches_since(c0),
                          imageseq_summary(st_i, stats_i), native_i))
         dt_i, launches_i, summ, native_i = min(runs, key=lambda r: r[0])
         t0 = time.perf_counter()
@@ -2375,13 +2382,12 @@ def main() -> int:
     vs_cpu["cpu_s"] = cpu[4]
     del card, cpu
     # the KLT matcher over 60 frames, float32
-    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    c0 = counts()
     st_k, stats_k, _, native_k, dt_k = imageseq_run(
         imseq_dir, device, torch.float32, IMSEQ_KLT, klt=True)
     klt = {**imageseq_summary(st_k, stats_k), "native": native_k, "s": dt_k,
            "fps": IMSEQ_KLT / dt_k, **IMSEQ_KLT_KW,
-           "launches": {"ncc_search": ncc_cuda.LAUNCHES,
-                        "symmetric_downdate": covariance.LAUNCHES}}
+           "launches": launches_since(c0)}
     del st_k, stats_k
     imseq_bound = 2 * imseq["float64"]["ate"] + 0.02
     emit({"phase": "imageseq_hostloop", "K": IMSEQ_K, "D": 13 + 6 * IMSEQ_K,
@@ -2408,13 +2414,12 @@ def main() -> int:
     pos64 = {}
     for dev in (device, torch.device("cpu")):
         p64, sc64, st64, noise64, _ = scenario03_setup(dev, torch.float64)
-        covariance.LAUNCHES = ncc_cuda.LAUNCHES = 0
+        c0 = counts()
         out64 = make_scan_runner(p64, 1)(st64, sc64, SC03_F64_FRAMES,
                                          noise64[:len(SC03_F64_FRAMES)])
         pos64[dev.type] = out64[3].cpu()
         if dev.type == "cuda":
-            launches64 = {"ncc_search": ncc_cuda.LAUNCHES,
-                          "symmetric_downdate": covariance.LAUNCHES}
+            launches64 = launches_since(c0)
             card64 = {"P_exactly_symmetric": bool(torch.equal(out64[0].P,
                                                                out64[0].P.T)),
                       "chol_info_nonzero": int(torch.count_nonzero(out64[4])),
@@ -2434,7 +2439,6 @@ def main() -> int:
     # ---- the K=768 f32-vs-f64 pin ----
     pk = {}
     for dtype, mit in ((torch.float64, False), (torch.float32, True)):
-        covariance.LAUNCHES = ncc_cuda.LAUNCHES = 0
         r = precision_run(device, dtype, mit, profile=dtype == torch.float64)
         pk[r["dtype"]] = r
     pk_bound = 2 * pk["float64"]["ate"] + 0.02
@@ -2455,7 +2459,7 @@ def main() -> int:
 
     # ---- bundle adjustment: the dino shape, then the 10k x 500 problem ----
     def ba_phase(name, fn):
-        ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+        c0 = counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -2463,8 +2467,7 @@ def main() -> int:
         torch.cuda.synchronize()
         out = {"phase": name, "phase_s": time.perf_counter() - t0, **out,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "launches": {"ncc_search": ncc_cuda.LAUNCHES,
-                            "symmetric_downdate": covariance.LAUNCHES}}
+               "launches": launches_since(c0)}
         emit(out)
         if not out["finite"]:
             raise AssertionError(f"{name}: non-finite output")
@@ -2492,12 +2495,11 @@ def main() -> int:
 
     # ---- multi-view factorization: the demo's world, then the 10k x 512
     # pipeline ----
-    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    c0 = counts()
     t0 = time.perf_counter()
     mvf_cases = [mvf_demo_case(device, noise, closure)
                  for noise, closure in MVF_DEMO_CASES]
-    mvf_demo_launches = {"ncc_search": ncc_cuda.LAUNCHES,
-                         "symmetric_downdate": covariance.LAUNCHES}
+    mvf_demo_launches = launches_since(c0)
     emit({"phase": "mvf_demo", "phase_s": time.perf_counter() - t0,
           "frames": MVF_DEMO_FRAMES, "cases": mvf_cases,
           "launches": mvf_demo_launches})
@@ -2509,13 +2511,12 @@ def main() -> int:
     if any(mvf_demo_launches.values()):
         raise AssertionError(f"mvf_demo: launches {mvf_demo_launches}")
 
-    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    c0 = counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mvf = run_mvf_at_scale(device, torch.float32)
-    mvf_free_launches = {"ncc_search": ncc_cuda.LAUNCHES,   # full size alone
-                         "symmetric_downdate": covariance.LAUNCHES}
+    mvf_free_launches = launches_since(c0)      # full size alone
     mvf_keys = ("map_ate_rmse", "traj_ate_rmse", "traj_ate_pre_closure",
                 "traj_ate_post_closure", "frames_per_s_integration",
                 "frames_per_s_end_to_end")
@@ -2533,8 +2534,7 @@ def main() -> int:
                            "closure_pairs_total", "closure_pairs_correct",
                            "place_recognition", "loop_closed",
                            "localization_failures")}}
-    mvf_scale_launches = {"ncc_search": ncc_cuda.LAUNCHES,     # all three runs
-                          "symmetric_downdate": covariance.LAUNCHES}
+    mvf_scale_launches = launches_since(c0)     # all three runs
     bo, bf = bench["oracle_pairs"], bench["oracle_free"]
     bf_pr = bf["place_recognition"]
     mvf_checks = {
@@ -2570,7 +2570,7 @@ def main() -> int:
         raise AssertionError(f"mvf_at_scale: {bad}")
 
     # ---- the two-view toolbox: F, E, pose, correction, calibration ----
-    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    c0 = counts()
     t0 = time.perf_counter()
     tv_inp = two_view_inputs()
     tv = {}
@@ -2580,8 +2580,7 @@ def main() -> int:
     tv_cpu = two_view_host(two_view_run(tv_inp, "cpu", torch.float64)[0])
     tv_diff = two_view_diff(tv["torch.float64"]["host"], tv_cpu)
     tv_quality = {k: two_view_quality(tv_inp, v["host"]) for k, v in tv.items()}
-    two_view_launches = {"ncc_search": ncc_cuda.LAUNCHES,
-                         "symmetric_downdate": covariance.LAUNCHES}
+    two_view_launches = launches_since(c0)
     tv_checks = {
         "f64_card_vs_cpu_within_tol": all(
             v == 0 if k.endswith("inliers") else v <= TWO_VIEW_F64_TOL
@@ -2602,11 +2601,10 @@ def main() -> int:
     # ---- batched evaluation: B2's batch axis, the scan runner over noise
     # seeds, batch BA ----
     t0 = time.perf_counter()
-    bscan = batch_scan_phase(ncc_cuda, covariance, device)
-    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    bscan = batch_scan_phase(covariance, device)
+    c0 = counts()
     bba = batch_ba_phase(device)
-    bba_launches = {"ncc_search": ncc_cuda.LAUNCHES,
-                    "symmetric_downdate": covariance.LAUNCHES}
+    bba_launches = launches_since(c0)
     batch_checks = {
         **{f"scan_{k}": v for k, v in bscan["checks"].items()},
         **{f"ba_f64_same_decisions_as_alone_B{B}": v for B, v in

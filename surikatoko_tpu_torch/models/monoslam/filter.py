@@ -41,6 +41,7 @@ from surikatoko_tpu_torch.models.monoslam.state import (
     MonoSlamState,
     init_state,
 )
+from surikatoko_tpu_torch.utils.profiling import span
 
 _N = CAM_STATE_COMPS
 
@@ -106,8 +107,10 @@ class MonoSlamFilter:
             new_gt_inv_dist = torch.full((new_pix.shape[0],), float("nan"),
                                          dtype=state.x.dtype,
                                          device=state.x.device)
-        return _process_frame(self.params, self.update_impl, state, obs,
-                              obs_mask, new_pix, new_mask, new_gt_inv_dist)
+        with span("frame"):
+            return _process_frame(self.params, self.update_impl, state, obs,
+                                  obs_mask, new_pix, new_mask,
+                                  new_gt_inv_dist)
 
     def predicted_pixels(self, state: MonoSlamState) -> torch.Tensor:
         return measure.project_all(self.params, state.x)
@@ -204,17 +207,20 @@ def _process_frame(params: MonoSlamParams, update_impl: int,
     P = torch.where(any_obs, P_u, P)
 
     # ---- self-healing (reference :1118-1125) ----
-    x, P = health.normalize_quat_and_covar(x, P)
-    P = health.ensure_nonneg_variance(P)
-    if params.sal_pnt_repres != REPRES_XYZ:     # rho is spherical-only
-        x, _ = health.substitute_negative_inv_rho(
-            x, params.sal_pnt_negative_inv_rho_substitute, state.capacity)
-    bad = health.bad_uncertainty_mask(
-        x, P, state.capacity, params.sal_pnt_negative_inv_rho_substitute,
-        params.sal_pnt_repres) & state.lm_active
-    remove = stale | bad
-    deleted_count = (remove & state.lm_active).sum(dtype=torch.int32)
-    state = landmarks.remove_landmarks(state._replace(x=x, P=P), remove)
+    with span("frame.health"):
+        x, P = health.normalize_quat_and_covar(x, P)
+        P = health.ensure_nonneg_variance(P)
+        rho_sub = params.sal_pnt_negative_inv_rho_substitute
+        if params.sal_pnt_repres != REPRES_XYZ:     # rho is spherical-only
+            x, _ = health.substitute_negative_inv_rho(x, rho_sub,
+                                                      state.capacity)
+        bad = health.bad_uncertainty_mask(
+            x, P, state.capacity, rho_sub,
+            params.sal_pnt_repres) & state.lm_active
+        remove = stale | bad
+        deleted_count = (remove & state.lm_active).sum(dtype=torch.int32)
+        state = landmarks.remove_landmarks(state._replace(x=x, P=P),
+                                           remove)
 
     # ---- post-update residual (optimized reprojection error) ----
     h_after = measure.project_all(params, state.x)

@@ -45,6 +45,7 @@ from surikatoko_tpu_torch.models.monoslam.state import (
     MonoSlamParams,
 )
 from surikatoko_tpu_torch.ops.covariance import symmetric_downdate
+from surikatoko_tpu_torch.utils.profiling import span
 
 _N = CAM_STATE_COMPS
 
@@ -88,10 +89,12 @@ def camera_epilogue(params: MonoSlamParams, x1: torch.Tensor, Kcap: int
                     ) -> EpilogueResult:
     """Negative-inverse-depth substitution, quaternion renorm with its
     Jacobian folded in, and the kinematic predict of the camera."""
-    if params.sal_pnt_repres == REPRES_SPHERICAL:
-        x1, _ = health_mod.substitute_negative_inv_rho(
-            x1, params.sal_pnt_negative_inv_rho_substitute, Kcap)
-    return EpilogueResult(*predict_mod.renormalize_and_transition(params, x1))
+    with span("frame.predict"):
+        if params.sal_pnt_repres == REPRES_SPHERICAL:
+            x1, _ = health_mod.substitute_negative_inv_rho(
+                x1, params.sal_pnt_negative_inv_rho_substitute, Kcap)
+        return EpilogueResult(
+            *predict_mod.renormalize_and_transition(params, x1))
 
 
 def fused_update_health_predict(
@@ -118,49 +121,52 @@ def _fused_update_core(params, x, P, obs, obs_mask, precomputed,
                        deactivate_mask):
     """Stacked update + keep-mask head of the fused step. Returns (x1, B
     whitened gain precursor [2K,D], keep [D], resid [K,2], chol_info)."""
-    dtype, dev = x.dtype, x.device
-    Kcap = obs_mask.shape[0]
-    r_var = params.measurm_noise_var.to(dtype)
-    eye2k = torch.eye(2 * Kcap, dtype=dtype, device=dev)
-    if precomputed is None:
-        h, Hcam, Hlm, use = update_mod._masked_jacobians(params, x, obs_mask)
-        resid = torch.where(use[:, None], obs - h, 0.0)
-        A2 = update_mod.hp_auto(Hcam, Hlm, P)
-        S2 = update_mod.aht_auto(A2, Hcam, Hlm) + r_var * eye2k
-    else:
-        h, A_un, T_un = precomputed
-        resid = (obs - h) * obs_mask[:, None].to(dtype)
-        m2 = torch.repeat_interleave(obs_mask, 2).to(dtype)
-        A2 = A_un * m2[:, None]
-        S2 = T_un * (m2[:, None] * m2[None, :]) + r_var * eye2k
-    C, info = torch.linalg.cholesky_ex(S2)
-    # one triangular solve for the whitened gain and the whitened residual
-    By = torch.linalg.solve_triangular(
-        C, torch.cat([A2, resid.reshape(2 * Kcap, 1)], dim=1), upper=False)
-    B, y = By[:, :-1], By[:, -1]
-    x1 = x + B.T @ y
+    with span("frame.update"):
+        dtype, dev = x.dtype, x.device
+        Kcap = obs_mask.shape[0]
+        r_var = params.measurm_noise_var.to(dtype)
+        eye2k = torch.eye(2 * Kcap, dtype=dtype, device=dev)
+        if precomputed is None:
+            h, Hcam, Hlm, use = update_mod._masked_jacobians(params, x,
+                                                             obs_mask)
+            resid = torch.where(use[:, None], obs - h, 0.0)
+            A2 = update_mod.hp_auto(Hcam, Hlm, P)
+            S2 = update_mod.aht_auto(A2, Hcam, Hlm) + r_var * eye2k
+        else:
+            h, A_un, T_un = precomputed
+            resid = (obs - h) * obs_mask[:, None].to(dtype)
+            m2 = torch.repeat_interleave(obs_mask, 2).to(dtype)
+            A2 = A_un * m2[:, None]
+            S2 = T_un * (m2[:, None] * m2[None, :]) + r_var * eye2k
+        C, info = torch.linalg.cholesky_ex(S2)
+        # one triangular solve for the whitened gain and the whitened residual
+        By = torch.linalg.solve_triangular(
+            C, torch.cat([A2, resid.reshape(2 * Kcap, 1)], dim=1), upper=False)
+        B, y = By[:, :-1], By[:, -1]
+        x1 = x + B.T @ y
 
-    keep = ((torch.diagonal(P) - torch.sum(B * B, dim=0)) >= 0).to(dtype)
-    if deactivate_mask is not None:
-        lm_zero = torch.repeat_interleave(deactivate_mask, 6)
-        keep = torch.cat([keep[:_N], keep[_N:] * (~lm_zero).to(dtype)])
-        zero = torch.cat([torch.zeros(_N, dtype=torch.bool, device=dev),
-                          lm_zero])
-        x1 = torch.where(zero, 0.0, x1)
-    return x1, B, keep, resid, info
+        keep = ((torch.diagonal(P) - torch.sum(B * B, dim=0)) >= 0).to(dtype)
+        if deactivate_mask is not None:
+            lm_zero = torch.repeat_interleave(deactivate_mask, 6)
+            keep = torch.cat([keep[:_N], keep[_N:] * (~lm_zero).to(dtype)])
+            zero = torch.cat([torch.zeros(_N, dtype=torch.bool, device=dev),
+                              lm_zero])
+            x1 = torch.where(zero, 0.0, x1)
+        return x1, B, keep, resid, info
 
 
 def _fused_covariance_predict(params, P, B, keep, Cp, G):
     """P+ = V P V^T - (B V^T)^T (B V^T) + G Q G^T as one masked symmetric
     downdate plus camera-stripe overwrites, then the optional diagonal
     inflation of live variances."""
-    D1 = symmetric_downdate(P, B.contiguous(), keep)
-    predict_mod.camera_congruence_(params, D1, Cp, G)
-    if params.covar_diag_inflation is not None:
-        infl = params.covar_diag_inflation.to(P.dtype)
-        dg = torch.diagonal(D1)
-        dg.add_(torch.where(dg > 0, infl * keep, 0.0))
-    return D1
+    with span("frame.predict"):
+        D1 = symmetric_downdate(P, B.contiguous(), keep)
+        predict_mod.camera_congruence_(params, D1, Cp, G)
+        if params.covar_diag_inflation is not None:
+            infl = params.covar_diag_inflation.to(P.dtype)
+            dg = torch.diagonal(D1)
+            dg.add_(torch.where(dg > 0, infl * keep, 0.0))
+        return D1
 
 
 def _clipped_median_or_prior(vals: torch.Tensor, ok: torch.Tensor,
@@ -291,14 +297,15 @@ def fused_update_health_recruit_predict(
         params, x, P, obs, obs_mask, precomputed, deactivate_mask)
     epi = camera_epilogue(params, x1, Kcap)
 
-    kc = keep[:_N]
-    rows7 = (P[:7, :] - B[:, :7].T @ B) * (kc[:7, None] * keep[None, :])
-    rows7[3:7, :] = epi.Jq @ rows7[3:7, :]
-    rows7[:, 3:7] = rows7[:, 3:7] @ epi.Jq.T
-    P77 = 0.5 * (rows7[:, :7] + rows7[:, :7].T)
-    y_m, Rt, slots, valid, idx, idx_safe, v6 = recruit_rows(
-        params, epi.x2[:7], rows7, P77, free_mask, new_pix, new_valid, rho0,
-        epi.F)
+    with span("frame.recruit"):
+        kc = keep[:_N]
+        rows7 = (P[:7, :] - B[:, :7].T @ B) * (kc[:7, None] * keep[None, :])
+        rows7[3:7, :] = epi.Jq @ rows7[3:7, :]
+        rows7[:, 3:7] = rows7[:, 3:7] @ epi.Jq.T
+        P77 = 0.5 * (rows7[:, :7] + rows7[:, :7].T)
+        y_m, Rt, slots, valid, idx, idx_safe, v6 = recruit_rows(
+            params, epi.x2[:7], rows7, P77, free_mask, new_pix, new_valid,
+            rho0, epi.F)
 
     P_next = _fused_covariance_predict(params, P, B, keep, epi.Cp, epi.G)
     _write_sym_stripes(P_next, idx, v6, Rt)

@@ -23,6 +23,7 @@ from surikatoko_tpu_torch.models.monoslam.state import (
     MonoSlamParams,
     MonoSlamState,
 )
+from surikatoko_tpu_torch.utils.profiling import span
 
 _N = CAM_STATE_COMPS
 
@@ -155,22 +156,24 @@ def add_landmarks(params: MonoSlamParams, state: MonoSlamState,
     M = new_pix.shape[0]
     if M == 0:
         return state, torch.zeros(0, dtype=torch.int32, device=dev)
-    rho0 = params.sal_pnt_init_inv_dist.to(dtype)
-    rho = (None if gt_inv_dist is None else
-           torch.where(torch.isnan(gt_inv_dist), rho0, gt_inv_dist.to(dtype)))
-    y, rows, slots, valid, idx, idx_safe, v6 = recruit_rows(
-        params, state.x[:7], state.P[:7, :], state.P[:7, :7], ~state.lm_active,
-        new_pix, new_mask, rho)
-    P = state.P.clone()
-    _write_sym_stripes(P, idx, v6, rows)
-    x = scatter_drop(state.x, idx_safe, y.reshape(6 * M))
-    claimed = scatter_drop(torch.zeros_like(state.lm_active),
-                           torch.where(valid, slots, Kcap).long(),
-                           torch.ones_like(valid))
-    return state._replace(
-        x=x, P=P, lm_active=state.lm_active | claimed,
-        lm_unobserved=torch.where(claimed, 0, state.lm_unobserved),
-        lm_generation=state.lm_generation + claimed.to(torch.int32)), slots
+    with span("frame.recruit"):
+        rho0 = params.sal_pnt_init_inv_dist.to(dtype)
+        rho = (None if gt_inv_dist is None else
+               torch.where(torch.isnan(gt_inv_dist), rho0,
+                           gt_inv_dist.to(dtype)))
+        y, rows, slots, valid, idx, idx_safe, v6 = recruit_rows(
+            params, state.x[:7], state.P[:7, :], state.P[:7, :7],
+            ~state.lm_active, new_pix, new_mask, rho)
+        P = state.P.clone()
+        _write_sym_stripes(P, idx, v6, rows)
+        x = scatter_drop(state.x, idx_safe, y.reshape(6 * M))
+        claimed = scatter_drop(torch.zeros_like(state.lm_active),
+                               torch.where(valid, slots, Kcap).long(),
+                               torch.ones_like(valid))
+        return state._replace(
+            x=x, P=P, lm_active=state.lm_active | claimed,
+            lm_unobserved=torch.where(claimed, 0, state.lm_unobserved),
+            lm_generation=state.lm_generation + claimed.to(torch.int32)), slots
 
 
 def remove_landmarks(state: MonoSlamState, remove_mask: torch.Tensor

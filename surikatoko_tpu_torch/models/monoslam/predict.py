@@ -16,6 +16,7 @@ from surikatoko_tpu_torch.models.monoslam.state import (
     MonoSlamParams,
     MonoSlamState,
 )
+from surikatoko_tpu_torch.utils.profiling import span
 
 
 def predict_camera(params: MonoSlamParams, cam13: torch.Tensor,
@@ -106,11 +107,12 @@ def predict(params: MonoSlamParams, state: MonoSlamState) -> MonoSlamState:
     """Predict on the full state: only the camera block of x and the camera
     rows/cols of P change."""
     n = CAM_STATE_COMPS
-    cam13 = state.x[:n]
-    F, G = camera_transition_jacobians(params, cam13)
-    P = state.P.clone()
-    camera_congruence_(params, P, F, G)
-    x_new = torch.cat([predict_camera(params, cam13), state.x[n:]])
+    with span("frame.predict"):
+        cam13 = state.x[:n]
+        F, G = camera_transition_jacobians(params, cam13)
+        P = state.P.clone()
+        camera_congruence_(params, P, F, G)
+        x_new = torch.cat([predict_camera(params, cam13), state.x[n:]])
     return state._replace(x=x_new, P=P)
 
 
@@ -139,7 +141,8 @@ def normalize_and_predict(params: MonoSlamParams, state: MonoSlamState
     """Quaternion renormalization composed with the kinematic predict as one
     camera-stripe transform of P: both are congruences touching only the 13
     camera variables, so C = F J_q is applied in a single [13,D] pass."""
-    x_next, C, G = renormalize_and_transition(params, state.x)[:3]
-    P = state.P.clone()
-    camera_congruence_(params, P, C, G)
+    with span("frame.predict"):
+        x_next, C, G = renormalize_and_transition(params, state.x)[:3]
+        P = state.P.clone()
+        camera_congruence_(params, P, C, G)
     return state._replace(x=x_next, P=P)

@@ -42,6 +42,7 @@ from surikatoko_tpu_torch.models.monoslam.state import (
     MonoSlamParams,
 )
 from surikatoko_tpu_torch.ops.covariance import symmetric_downdate
+from surikatoko_tpu_torch.utils.profiling import span
 
 _N = CAM_STATE_COMPS
 _CHI2_99_2DOF = 9.21034
@@ -149,19 +150,20 @@ def stacked_update(params: MonoSlamParams, x: torch.Tensor, P: torch.Tensor,
     residual [K,2], Cholesky info)."""
     Kcap = obs_mask.shape[0]
     dtype = x.dtype
-    h, Hcam, Hlm, use = _masked_jacobians(params, x, obs_mask)
-    resid = torch.where(use[:, None], obs - h, 0.0)
-    A2 = hp_auto(Hcam, Hlm, P)                       # [2K, D] = H P
-    r_var = params.measurm_noise_var.to(dtype)
-    S2 = aht_auto(A2, Hcam, Hlm) + r_var * torch.eye(2 * Kcap, dtype=dtype,
-                                                     device=x.device)
-    C, info = torch.linalg.cholesky_ex(S2)
-    # one triangular solve for the whitened gain and the whitened residual
-    By = torch.linalg.solve_triangular(
-        C, torch.cat([A2, resid.reshape(2 * Kcap, 1)], dim=1), upper=False)
-    B, y = By[:, :-1], By[:, -1]
-    x_new = x + B.T @ y                              # = P H^T S^-1 r
-    P_new = symmetric_downdate(P, B.contiguous())    # = P - K S K^T
+    with span("frame.update"):
+        h, Hcam, Hlm, use = _masked_jacobians(params, x, obs_mask)
+        resid = torch.where(use[:, None], obs - h, 0.0)
+        A2 = hp_auto(Hcam, Hlm, P)                       # [2K, D] = H P
+        r_var = params.measurm_noise_var.to(dtype)
+        S2 = aht_auto(A2, Hcam, Hlm) + r_var * torch.eye(
+            2 * Kcap, dtype=dtype, device=x.device)
+        C, info = torch.linalg.cholesky_ex(S2)
+        # one triangular solve for the whitened gain and the whitened residual
+        By = torch.linalg.solve_triangular(
+            C, torch.cat([A2, resid.reshape(2 * Kcap, 1)], dim=1), upper=False)
+        B, y = By[:, :-1], By[:, -1]
+        x_new = x + B.T @ y                              # = P H^T S^-1 r
+        P_new = symmetric_downdate(P, B.contiguous())    # = P - K S K^T
     return x_new, P_new, resid, info
 
 

@@ -42,17 +42,17 @@ from typing import NamedTuple, Optional
 import torch
 
 from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
+from surikatoko_tpu_torch.utils.profiling import count, span
 
-# Wrapper calls in this process that launched a CUDA kernel, float32 or
-# float64 (the plain version never counts). A float32 call with 128-wide
-# tiles is two device launches, the row padding copy and the downdate; it
-# counts once. A batch of problems is one call and counts once.
-LAUNCHES = 0
+# The counters (``utils.profiling.count``): "b2.calls", host calls that
+# launched the kernel, float32 or float64 (the plain version never counts;
+# a float32 call with 128-wide tiles is two device launches, the row
+# padding copy and the downdate, and a batch of problems is one call: each
+# counts once), and "b2.rows_calls", the row-slab calls
+# (symmetric_downdate_rows) that launched it, counted alike.
+
 # problems a launch: the grid's y extent
 MAX_BATCH = 65535
-# Row-slab calls (symmetric_downdate_rows) that launched a CUDA kernel; a
-# float32 slab at 128-wide tiles is two device launches and counts once
-ROWS_LAUNCHES = 0
 
 # The library's entry points, float32 and float64, for B problems: (P, M,
 # keep, Mp, out, B, D, m, tile, sP, sM, sK, stream) and (P, M, keep, out, B,
@@ -285,7 +285,6 @@ def _launch(P: torch.Tensor, M: torch.Tensor, keep: torch.Tensor | None,
     """One launch of the kernel over B problems: P [B,D,D], M [B,m,D], keep
     [B,D] or None (checked), or for B = 1 also P [D,D], M [m,D], keep [D];
     returns out of P's shape."""
-    global LAUNCHES
     D, m = P.shape[-1], M.shape[-2]
     if B > MAX_BATCH:
         raise ValueError(f"batch of {B} problems: at most {MAX_BATCH} a launch")
@@ -315,7 +314,7 @@ def _launch(P: torch.Tensor, M: torch.Tensor, keep: torch.Tensor | None,
                            out.data_ptr(), B, D, m, form, sP, sM, sK, stream)
     if rc != 0:
         raise RuntimeError(f"symmetric_downdate kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    count("b2.calls")
     return out
 
 
@@ -324,22 +323,24 @@ def _downdate(P: torch.Tensor, M: torch.Tensor,
     """The plain version for tensors on the CPU, the kernel for CUDA ones:
     one launch for P [D,D] and for a batch P [*L,D,D] (its leading dims L
     flattened into one). M and keep may leave out leading dims of P's (one
-    shared by every problem)."""
-    if P.device.type == "cpu":
-        return symmetric_downdate_ref(P, M, keep)
-    if P.device.type != "cuda":
-        raise ValueError(f"no downdate kernel for device {P.device}")
-    if P.dim() == 2:
-        # one problem: a batch of one, without the batch's expand and
-        # reshapes (host time that the flagship's frame would pay)
-        _check(P, M, keep)
-        if not (P.is_contiguous() and M.is_contiguous()
-                and (keep is None or keep.is_contiguous())):
-            raise ValueError("P, M and keep of one problem must be contiguous")
-        return _launch(P, M, keep, 1)
-    lead = P.shape[:-2]
-    P, M, keep = _flat(P, M, keep)
-    return _launch(P, M, keep, P.shape[0]).reshape(*lead, *P.shape[-2:])
+    shared by every problem). The span "b2" names the call."""
+    with span("b2"):
+        if P.device.type == "cpu":
+            return symmetric_downdate_ref(P, M, keep)
+        if P.device.type != "cuda":
+            raise ValueError(f"no downdate kernel for device {P.device}")
+        if P.dim() == 2:
+            # one problem: a batch of one, without the batch's expand and
+            # reshapes (host time that the flagship's frame would pay)
+            _check(P, M, keep)
+            if not (P.is_contiguous() and M.is_contiguous()
+                    and (keep is None or keep.is_contiguous())):
+                raise ValueError(
+                    "P, M and keep of one problem must be contiguous")
+            return _launch(P, M, keep, 1)
+        lead = P.shape[:-2]
+        P, M, keep = _flat(P, M, keep)
+        return _launch(P, M, keep, P.shape[0]).reshape(*lead, *P.shape[-2:])
 
 
 @torch.library.custom_op("surikatoko::symmetric_downdate", mutates_args=())
@@ -421,58 +422,62 @@ def symmetric_downdate_rows(P_rows: torch.Tensor, M: torch.Tensor,
     symmetric. P_rows [R,D], M [m,D], keep [D] 0/1 or None, contiguous, one
     float type, one CUDA device, 0 <= r0 <= D - R (r0 need not be aligned
     to the tile). The form and its grid come from :func:`rows_config`. The
-    plain version for tensors on the CPU."""
-    global ROWS_LAUNCHES
-    R, D = P_rows.shape[-2], P_rows.shape[-1]
-    if (P_rows.dim() != 2 or M.dim() != 2 or M.shape[-1] != D
-            or M.shape[0] < 1 or R < 1 or not 0 <= r0 <= D - R
-            or (keep is not None and tuple(keep.shape) != (D,))):
-        raise ValueError(f"bad slab: P_rows {tuple(P_rows.shape)}, M "
-                         f"{tuple(M.shape)}, r0 {r0}")
-    if P_rows.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"no downdate kernel for {P_rows.dtype}")
-    for name, t in (("M", M), ("keep", keep)):
-        if t is not None and (t.dtype != P_rows.dtype
-                              or t.device != P_rows.device):
-            raise ValueError(f"{name} must be a {P_rows.dtype} tensor on "
-                             f"{P_rows.device}")
-    if P_rows.device.type == "cpu":
-        return symmetric_downdate_rows_ref(P_rows, M, keep, r0)
-    if P_rows.device.type != "cuda":
-        raise ValueError(f"no downdate kernel for device {P_rows.device}")
-    if not (P_rows.is_contiguous() and M.is_contiguous()
-            and (keep is None or keep.is_contiguous())):
-        raise ValueError("P_rows, M and keep must be contiguous")
-    m = M.shape[0]
-    out = torch.empty_like(P_rows)
-    keep_ptr = None if keep is None else keep.data_ptr()
-    form, width, _, split = rows_config(D, R, r0, P_rows.dtype,
-                                        sm_count(P_rows.device))
-    f64 = P_rows.dtype == torch.float64
-    with torch.cuda.device(P_rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if form == "thin":
-            rc = (_LIB_THIN64 if f64 else _LIB_THIN).fn()(
-                P_rows.data_ptr(), M.data_ptr(), keep_ptr, out.data_ptr(), D,
-                m, r0, R, width, stream)
-        elif f64:
-            rc = _LIB_ROWS64.fn()(P_rows.data_ptr(), M.data_ptr(), keep_ptr,
-                                  out.data_ptr(), D, m, r0, R, stream)
-        else:
-            # 128-wide tiles load M from a padded copy whose rows start with
-            # the grid origin's zero columns
-            scratch = (torch.empty((m, -(-(D + grid_origin(r0, width)) // 4) * 4),
-                                   dtype=M.dtype, device=M.device)
-                       if width == 128 else None)
-            rc = _LIB_ROWS.fn()(P_rows.data_ptr(), M.data_ptr(), keep_ptr,
-                                None if scratch is None else scratch.data_ptr(),
-                                out.data_ptr(), D, m, r0, R, width, split,
-                                stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"symmetric_downdate_rows kernel launch failed: CUDA error {rc}")
-    ROWS_LAUNCHES += 1
-    return out
+    plain version for tensors on the CPU. The span "b2" names the call."""
+    with span("b2"):
+        R, D = P_rows.shape[-2], P_rows.shape[-1]
+        if (P_rows.dim() != 2 or M.dim() != 2 or M.shape[-1] != D
+                or M.shape[0] < 1 or R < 1 or not 0 <= r0 <= D - R
+                or (keep is not None and tuple(keep.shape) != (D,))):
+            raise ValueError(f"bad slab: P_rows {tuple(P_rows.shape)}, M "
+                             f"{tuple(M.shape)}, r0 {r0}")
+        if P_rows.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"no downdate kernel for {P_rows.dtype}")
+        for name, t in (("M", M), ("keep", keep)):
+            if t is not None and (t.dtype != P_rows.dtype
+                                  or t.device != P_rows.device):
+                raise ValueError(f"{name} must be a {P_rows.dtype} tensor on "
+                                 f"{P_rows.device}")
+        if P_rows.device.type == "cpu":
+            return symmetric_downdate_rows_ref(P_rows, M, keep, r0)
+        if P_rows.device.type != "cuda":
+            raise ValueError(f"no downdate kernel for device {P_rows.device}")
+        if not (P_rows.is_contiguous() and M.is_contiguous()
+                and (keep is None or keep.is_contiguous())):
+            raise ValueError("P_rows, M and keep must be contiguous")
+        m = M.shape[0]
+        out = torch.empty_like(P_rows)
+        keep_ptr = None if keep is None else keep.data_ptr()
+        form, width, _, split = rows_config(D, R, r0, P_rows.dtype,
+                                            sm_count(P_rows.device))
+        f64 = P_rows.dtype == torch.float64
+        with torch.cuda.device(P_rows.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if form == "thin":
+                rc = (_LIB_THIN64 if f64 else _LIB_THIN).fn()(
+                    P_rows.data_ptr(), M.data_ptr(), keep_ptr,
+                    out.data_ptr(), D, m, r0, R, width, stream)
+            elif f64:
+                rc = _LIB_ROWS64.fn()(
+                    P_rows.data_ptr(), M.data_ptr(), keep_ptr,
+                    out.data_ptr(), D, m, r0, R, stream)
+            else:
+                # 128-wide tiles load M from a padded copy whose rows start
+                # with the grid origin's zero columns
+                cols = -(-(D + grid_origin(r0, width)) // 4) * 4
+                scratch = (torch.empty((m, cols), dtype=M.dtype,
+                                       device=M.device)
+                           if width == 128 else None)
+                rc = _LIB_ROWS.fn()(P_rows.data_ptr(), M.data_ptr(), keep_ptr,
+                                    None if scratch is None
+                                    else scratch.data_ptr(),
+                                    out.data_ptr(), D, m, r0, R, width, split,
+                                    stream)
+        if rc != 0:
+            raise RuntimeError(
+                "symmetric_downdate_rows kernel launch failed: CUDA error "
+                f"{rc}")
+        count("b2.rows_calls")
+        return out
 
 
 _SMS: dict[int, int] = {}

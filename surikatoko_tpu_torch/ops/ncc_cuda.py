@@ -17,10 +17,11 @@ from pathlib import Path
 import torch
 
 from surikatoko_tpu_torch.ops.cuda_build import KernelLibrary
+from surikatoko_tpu_torch.utils.profiling import count, span
 from surikatoko_tpu_torch.vision import templ_match
 
-# Launches of the CUDA kernel in this process (the plain version never counts).
-LAUNCHES = 0
+# "b1.calls" (``utils.profiling.count``): host calls that launched the CUDA
+# kernel (the plain version never counts).
 
 _LIB = KernelLibrary(
     "ncc_search.cu", "ncc_surface_argmax_f32",
@@ -60,45 +61,49 @@ def ncc_surface_argmax(patches: torch.Tensor, templates: torch.Tensor,
     S = P - T + 1, all contiguous and on one device. The kernel forms each
     template's mean and norm itself (csrc/ncc_search.cu), so on the card
     ``templ_stats`` is checked for shape and not used; on the CPU the plain
-    surface takes it."""
-    global LAUNCHES
-    if patches.device.type == "cpu":
-        return ncc_surface_argmax_ref(patches, templates, gate, with_neigh,
-                                      templ_stats)
-    if patches.device.type != "cuda":
-        raise ValueError(f"no NCC kernel for device {patches.device}")
-    K, P, P2 = patches.shape
-    T = templates.shape[-1]
-    S = P - T + 1
-    if (P != P2 or S < 1 or templates.shape != (K, T, T)
-            or gate.shape != (K, S, S)):
-        raise ValueError(f"bad shapes: patches {tuple(patches.shape)}, "
-                         f"templates {tuple(templates.shape)}, "
-                         f"gate {tuple(gate.shape)}")
-    if templ_stats is not None and any(t.shape != (K,) for t in templ_stats):
-        raise ValueError(f"templ_stats must hold two [K] tensors, K = {K}")
-    for name, t, dt in (("patches", patches, torch.float32),
-                        ("templates", templates, torch.float32),
-                        ("gate", gate, torch.bool)):
-        if t.dtype != dt or not t.is_contiguous() or t.device != patches.device:
-            raise ValueError(f"{name} must be a contiguous {dt} tensor on "
-                             f"{patches.device}")
-    launch = _LIB.fn()
-    corr = torch.empty(K, dtype=torch.float32, device=patches.device)
-    idx = torch.empty(K, dtype=torch.int32, device=patches.device)
-    neigh = (torch.empty((K, 4), dtype=torch.float32, device=patches.device)
-             if with_neigh else None)
-    with torch.cuda.device(patches.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = launch(
-            patches.data_ptr(), templates.data_ptr(), gate.data_ptr(),
-            corr.data_ptr(), idx.data_ptr(),
-            neigh.data_ptr() if with_neigh else None,
-            K, P, T, int(with_neigh), stream)
-    if rc != 0:
-        raise RuntimeError(f"ncc_search kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
-    return (corr, idx) if not with_neigh else (corr, idx, neigh)
+    surface takes it. The span "b1" names the call."""
+    with span("b1"):
+        if patches.device.type == "cpu":
+            return ncc_surface_argmax_ref(patches, templates, gate, with_neigh,
+                                          templ_stats)
+        if patches.device.type != "cuda":
+            raise ValueError(f"no NCC kernel for device {patches.device}")
+        K, P, P2 = patches.shape
+        T = templates.shape[-1]
+        S = P - T + 1
+        if (P != P2 or S < 1 or templates.shape != (K, T, T)
+                or gate.shape != (K, S, S)):
+            raise ValueError(f"bad shapes: patches {tuple(patches.shape)}, "
+                             f"templates {tuple(templates.shape)}, "
+                             f"gate {tuple(gate.shape)}")
+        if templ_stats is not None and any(t.shape != (K,)
+                                           for t in templ_stats):
+            raise ValueError(f"templ_stats must hold two [K] tensors, K = {K}")
+        for name, t, dt in (("patches", patches, torch.float32),
+                            ("templates", templates, torch.float32),
+                            ("gate", gate, torch.bool)):
+            if (t.dtype != dt or not t.is_contiguous()
+                    or t.device != patches.device):
+                raise ValueError(f"{name} must be a contiguous {dt} tensor on "
+                                 f"{patches.device}")
+        launch = _LIB.fn()
+        corr = torch.empty(K, dtype=torch.float32, device=patches.device)
+        idx = torch.empty(K, dtype=torch.int32, device=patches.device)
+        neigh = (torch.empty((K, 4), dtype=torch.float32,
+                             device=patches.device)
+                 if with_neigh else None)
+        with torch.cuda.device(patches.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = launch(
+                patches.data_ptr(), templates.data_ptr(), gate.data_ptr(),
+                corr.data_ptr(), idx.data_ptr(),
+                neigh.data_ptr() if with_neigh else None,
+                K, P, T, int(with_neigh), stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"ncc_search kernel launch failed: CUDA error {rc}")
+        count("b1.calls")
+        return (corr, idx) if not with_neigh else (corr, idx, neigh)
 
 
 def build() -> Path:

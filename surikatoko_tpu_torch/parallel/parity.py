@@ -48,13 +48,14 @@ from surikatoko_tpu_torch.models.ba import sparse as sp
 from surikatoko_tpu_torch.models.monoslam import fused_step
 from surikatoko_tpu_torch.models.monoslam.state import (CAM_STATE_COMPS,
                                                         init_state, make_params)
-from surikatoko_tpu_torch.ops import covariance, ncc_cuda
+from surikatoko_tpu_torch.ops import covariance
 from surikatoko_tpu_torch.parallel import dryrun, launch
 from surikatoko_tpu_torch.parallel import sharded_ekf as se
 from surikatoko_tpu_torch.parallel.sharded_imageseq import (
     make_sharded_imageseq_runner)
 from surikatoko_tpu_torch.parallel.sharded_schur import (
     make_sharded_sparse_schur_solver)
+from surikatoko_tpu_torch.utils import profiling
 from surikatoko_tpu_torch.world.ba_scene import build_at_scale_problem
 from surikatoko_tpu_torch.world.device_runner import (
     build_imageseq_scenario, init_imageseq, make_imageseq_scan_runner)
@@ -150,15 +151,16 @@ def _imageseq(group, device, capacity: int, n_points: int, frames, timed,
                                           **IMAGESEQ_KW)
     run_1 = make_imageseq_scan_runner(params, **IMAGESEQ_KW)
     _sync(device)
-    ncc_cuda.LAUNCHES = covariance.LAUNCHES = covariance.ROWS_LAUNCHES = 0
+    c0 = profiling.counts()
     t0 = time.perf_counter()
     res = run_sh(st.x, st.P, tm, st.lm_active, st.lm_unobserved,
                  st.lm_generation, sc, frames)
     _sync(device)
     t_first = time.perf_counter() - t0
-    launches = {"ncc_search": ncc_cuda.LAUNCHES,
-                "symmetric_downdate": covariance.LAUNCHES,
-                "symmetric_downdate_rows": covariance.ROWS_LAUNCHES}
+    c1 = profiling.counts()
+    launches = {name: c1.get(k, 0) - c0.get(k, 0) for name, k in (
+        ("ncc_search", "b1.calls"), ("symmetric_downdate", "b2.calls"),
+        ("symmetric_downdate_rows", "b2.rows_calls"))}
     _, _, (_, n_1, pos_1, nrec_1, _, _) = run_1(st, tm, sc, frames)
     err_s, n_s, pos_s, nrec_s, nact_s, info_s = res[6]
     t0 = time.perf_counter()

@@ -1,71 +1,145 @@
-"""Profiling hooks: per-frame wall clock and device tracing.
+"""The port's tracing: named spans at the layer boundaries of a frame, call
+counters, and device timing.
 
-Port of ``surikatoko_tpu/utils/profiling.py``: the reference's chrono
-timers around ProcessFrame (demo-davison-mono-slam.cpp:1736-1741, the
-"track=..ms | ..fps" line), and ``torch.profiler`` traces (Chrome trace
-JSON, viewable in Perfetto or TensorBoard) in place of ``jax.profiler``'s.
+``span(name)`` marks a region of the program. It is on exactly while a
+``torch.profiler`` session records, and costs one global read and one
+branch otherwise (a shared no-op context). While on, it enters
+``record_function(name)``, so the region shows on the trace's host and
+device timelines, and appends a :class:`Span` to an in-memory record whose
+clock is the profiler events' own (``time.time_ns()``, the Unix clock that
+kineto stamps its events with), so a span lines up with the kernels of the
+same trace. Each profiler session starts a new record; :func:`window`
+returns the latest one. Spans of the MonoSlam frame:
+
+  ``frame``                 one frame of a loop (one batched step under
+                            ``torch.func.vmap``): the scan runners' frame
+                            bodies and ``MonoSlamFilter.process_frame``
+  ``frame.match``           the GT matcher's projection (scan runner)
+  ``frame.update``          Jacobians, H P, the innovation, its Cholesky
+                            and triangular solve, the correction
+                            (``fused_step._fused_update_core``,
+                            ``update.stacked_update``)
+  ``frame.predict``         the camera epilogue and the covariance predict
+  ``frame.health``          ``process_frame``'s self-healing and removal
+  ``frame.recruit``         new landmarks (``landmarks.add_landmarks``, the
+                            image loop's recruit rows)
+  ``frame.render``, ``frame.search``   the image loop's frame and NCC search
+  ``b1``, ``b2``            a call of kernel B1 (NCC) or B2 (downdate),
+                            plain version included
+  ``matcher.match``, ``matcher.recruit``, ``matcher.book``   the host
+                            matchers' calls
+  ``host_read``             a transfer that makes the host wait for the
+                            card: a device-to-host read, or a copy of a
+                            pageable host array to the card (which
+                            synchronizes the stream)
+
+``count(name, n)`` adds to an always-on total that :func:`counts` reads:
+``b1.calls``, ``b2.calls`` and ``b2.rows_calls`` count host calls of the
+kernels (a replayed CUDA graph calls nothing).
+
+``device_trace`` writes a Chrome trace of a block; ``cuda_ms`` and
+``device_profile`` time a call on the card.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
 
-@dataclass
-class FrameTimer:
-    """Streaming frame-duration stats (the 'track=..ms | ..fps' line)."""
+class Span(NamedTuple):
+    name: str
+    parent: int      # index in the window of the innermost enclosing span, -1
+    start_ns: int    # on the profiler's clock
+    end_ns: int      # -1 while the span is open
 
-    durations: list = field(default_factory=list)
-    _t0: float = 0.0
 
+_NOOP = contextlib.nullcontext()
+_record: list = []   # the latest session's spans: [name, parent, start, end]
+_open: list = []     # indices of its open spans, innermost last
+_counts: dict = {}
+
+
+class _On:
+    __slots__ = ("name", "rec", "stack", "i", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    # The range's event is stamped inside its opening and closing calls,
+    # which take microseconds: a span's start and end are those calls'
+    # middles, still before and after any work inside the span.
     def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
+        # the session's lists, kept: a span may close after a new one began
+        rec, stack = self.rec, self.stack = _record, _open
+        self.i = len(rec)
+        rec.append([self.name, stack[-1] if stack else -1, 0, -1])
+        stack.append(self.i)
+        t0 = time.time_ns()
+        self.rf = record_function(self.name)
+        self.rf.__enter__()
+        rec[self.i][2] = (t0 + time.time_ns()) // 2
 
     def __exit__(self, *exc):
-        self.durations.append(time.perf_counter() - self._t0)
+        t0 = time.time_ns()
+        self.rf.__exit__(*exc)
+        self.rec[self.i][3] = (t0 + time.time_ns()) // 2
+        if self.stack and self.stack[-1] == self.i:
+            self.stack.pop()
         return False
 
-    @property
-    def last_ms(self) -> float:
-        return self.durations[-1] * 1e3 if self.durations else 0.0
 
-    @property
-    def avg_ms(self) -> float:
-        return (sum(self.durations) / len(self.durations) * 1e3
-                if self.durations else 0.0)
+def span(name: str):
+    """A context that records the region ``name`` while a profiler session
+    records; otherwise a shared no-op."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NOOP
+    return _On(name)
 
-    @property
-    def fps(self) -> float:
-        return 1e3 / self.last_ms if self.last_ms > 0 else 0.0
 
-    def format_line(self) -> str:
-        return f"track={self.last_ms:.1f}ms | {self.fps:.1f}fps"
+def window() -> list[Span]:
+    """The spans of the latest profiler session, in the order they opened
+    (a parent before its children)."""
+    return [Span(*s) for s in _record]
+
+
+def _new_session(start=_autograd_profiler._run_on_profiler_start):
+    """Runs where torch turns the profiler's flag on, once a session."""
+    global _record, _open
+    _record, _open = [], []
+    start()
+
+
+_autograd_profiler._run_on_profiler_start = _new_session
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the total ``name``."""
+    _counts[name] = _counts.get(name, 0) + n
+
+
+def counts() -> dict[str, int]:
+    """A copy of every total (a name never counted is absent)."""
+    return dict(_counts)
 
 
 @contextlib.contextmanager
 def device_trace(log_dir: str, device: torch.device | str = "cuda"):
     """A ``torch.profiler`` trace of everything inside the block (the host
     and, for a CUDA ``device``, the card), written to ``log_dir`` as a
-    Chrome trace when the block ends."""
+    Chrome trace when the block ends; the program's spans are in it, and
+    in :func:`window` afterwards."""
     acts = [ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts,
                  on_trace_ready=torch.profiler.tensorboard_trace_handler(
                      log_dir)):
-        yield
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """Named region in device traces (``record_function``)."""
-    with record_function(name):
         yield
 
 
@@ -88,16 +162,20 @@ def device_profile(fn, host_ops: bool = True):
     """(device busy us, device launches, top kernels, {kernel: [us,
     launches]} of all) of one call of ``fn`` under torch.profiler. The
     device-side events are the kernels and copies themselves; the aten rows
-    of key_averages() repeat their time, so only these are summed. Without
-    ``host_ops`` the profiler records the device alone, which costs the
-    host far less over runs of many small launches."""
+    of key_averages() repeat their time, so only these are summed; a span
+    (a ``record_function`` range) shows on the device's timeline too and is
+    left out. Without ``host_ops`` the profiler records the device alone,
+    which costs the host far less over runs of many small launches."""
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
     with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
+    evs = prof.events()
+    ranges = {e.name for e in evs if e.is_user_annotation}
     kernels: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    for e in evs:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation and e.name not in ranges):
             k = kernels.setdefault(e.name, [0.0, 0])
             k[0] += e.time_range.elapsed_us()
             k[1] += 1

@@ -33,6 +33,7 @@ from surikatoko_tpu_torch.geom import ellipse as ell_mod
 from surikatoko_tpu_torch.models.monoslam.filter import MonoSlamFilter
 from surikatoko_tpu_torch.models.monoslam.state import MonoSlamState
 from surikatoko_tpu_torch.ops import ncc as ncc_mod
+from surikatoko_tpu_torch.utils.profiling import span
 from surikatoko_tpu_torch.vision import features, klt
 
 
@@ -176,15 +177,18 @@ class ImageTemplCornersMatcher:
         valid, templates = self._send(self.templ_valid, self.templates,
                                       dtype=np.float32)
         active = valid.to(torch.bool) & state.lm_active
-        res = self._search(
-            self._image, centers.to(torch.float32), templates, active,
-            sigma_inv=sigma_inv.to(torch.float32))
+        with span("frame.search"):
+            res = self._search(
+                self._image, centers.to(torch.float32), templates, active,
+                sigma_inv=sigma_inv.to(torch.float32))
         # one read for everything the host needs at this stage
         packed = torch.cat([
             res.matched.to(torch.float64), active.to(torch.float64),
             res.n_gated.to(torch.float64), res.in_ellipse.to(torch.float64),
             res.best_center.to(torch.float64).reshape(-1),
-            (~state.lm_active).sum()[None].to(torch.float64)]).cpu().numpy()
+            (~state.lm_active).sum()[None].to(torch.float64)])
+        with span("host_read"):
+            packed = packed.cpu().numpy()
         matched, act_np, n_gated_np, in_ell_np = (
             packed[i * K:(i + 1) * K].astype(int if i == 2 else bool)
             for i in range(4))
@@ -234,7 +238,9 @@ class ImageTemplCornersMatcher:
         parts = [corners.to(torch.float64).reshape(-1), valid.to(torch.float64)]
         if cached_frame != self.frames_analyzed:
             parts.append((~state.lm_active).sum()[None].to(torch.float64))
-        packed = torch.cat(parts).cpu().numpy()
+        packed = torch.cat(parts)
+        with span("host_read"):
+            packed = packed.cpu().numpy()
         N = valid.shape[0]
         corners_np = packed[:2 * N].reshape(N, 2).astype(np.float32)
         valid_np = packed[2 * N:3 * N].astype(bool)
@@ -258,7 +264,10 @@ class ImageTemplCornersMatcher:
         """Host copy of ``new_pix``: the one kept from recruitment if
         ``new_pix`` is the tensor recruitment returned, else a read."""
         kept, host = self._new_pix
-        return host if new_pix is kept else new_pix.cpu().numpy()
+        if new_pix is kept:
+            return host
+        with span("host_read"):
+            return new_pix.cpu().numpy()
 
     # ---- template store ----
     def on_landmarks_added(self, slots: np.ndarray, new_pix: np.ndarray,
@@ -287,7 +296,8 @@ class ImageTemplCornersMatcher:
         """Drop the templates of deactivated slots; pass ``lm_active_np``
         when the caller has read the mask already."""
         if lm_active_np is None:
-            lm_active_np = state.lm_active.cpu().numpy()
+            with span("host_read"):
+                lm_active_np = state.lm_active.cpu().numpy()
         self.templ_valid &= lm_active_np
 
 
@@ -341,7 +351,9 @@ class KltCornersMatcher(ImageTemplCornersMatcher):
         packed = torch.cat([
             matched.to(torch.float64), res.points.to(torch.float64).reshape(-1),
             active.sum()[None].to(torch.float64),
-            (~state.lm_active).sum()[None].to(torch.float64)]).cpu().numpy()
+            (~state.lm_active).sum()[None].to(torch.float64)])
+        with span("host_read"):
+            packed = packed.cpu().numpy()
         matched = packed[:K].astype(bool)
         best = packed[K:3 * K].reshape(K, 2).astype(np.float32)
         self._n_free_cache = (self.frames_analyzed, int(packed[-1]))

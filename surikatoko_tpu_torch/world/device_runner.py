@@ -36,6 +36,7 @@ from surikatoko_tpu_torch.models.monoslam.state import (
     MonoSlamState,
 )
 from surikatoko_tpu_torch.ops.ncc import ncc_search
+from surikatoko_tpu_torch.utils.profiling import span
 from surikatoko_tpu_torch.vision import features
 from surikatoko_tpu_torch.world import scene_gen
 from surikatoko_tpu_torch.world.runner import gt_poses_in_tracker_frame
@@ -151,13 +152,14 @@ def _project_gt(params: MonoSlamParams, sc: DeviceScenario, f: int,
     """GT matcher: (pixels [K,2] of the GT points at frame ``f`` plus
     ``noise`` (already scaled), visible [K]: in front of the camera, inside
     the image and finite)."""
-    xc = sc.gt_points @ sc.gt_cfw_R[f].T + sc.gt_cfw_t[f]
-    dist = params.dist if params.enable_distortion else None
-    pix = cam_mod.project_camera_point(params.cam, dist, xc) + noise
-    w, h = sc.image_size[0], sc.image_size[1]
-    vis = ((xc[:, 2] > 1e-6) & (pix[:, 0] >= 0) & (pix[:, 0] < w)
-           & (pix[:, 1] >= 0) & (pix[:, 1] < h)
-           & torch.isfinite(pix).all(dim=-1))
+    with span("frame.match"):
+        xc = sc.gt_points @ sc.gt_cfw_R[f].T + sc.gt_cfw_t[f]
+        dist = params.dist if params.enable_distortion else None
+        pix = cam_mod.project_camera_point(params.cam, dist, xc) + noise
+        w, h = sc.image_size[0], sc.image_size[1]
+        vis = ((xc[:, 2] > 1e-6) & (pix[:, 0] >= 0) & (pix[:, 0] < w)
+               & (pix[:, 1] >= 0) & (pix[:, 1] < h)
+               & torch.isfinite(pix).all(dim=-1))
     return pix, vis
 
 
@@ -241,7 +243,8 @@ def make_scan_runner(params: MonoSlamParams, update_impl: int = 1):
         noise = sc.noise_std * noise
         outs = []
         for t, f in enumerate(frames):
-            state, out = frame_body(sc, state, int(f), noise[t])
+            with span("frame"):
+                state, out = frame_body(sc, state, int(f), noise[t])
             outs.append(out)
         return (state, *(torch.stack(o) for o in zip(*outs)))
 
@@ -279,22 +282,23 @@ def render_frame(params: MonoSlamParams, sc: ImageSeqDeviceScenario,
     """One [H,W] frame: static background + a gaussian blob at every visible
     GT point's projection. The separable splat sum is one [H,K] @ [K,W]
     matmul."""
-    H, W = sc.background.shape
-    dtype, dev = sc.background.dtype, sc.background.device
-    xc = sc.gt_points @ sc.gt_cfw_R[f].T + sc.gt_cfw_t[f]
-    dist = params.dist if params.enable_distortion else None
-    pix = cam_mod.project_camera_point(params.cam, dist, xc)
-    finite = torch.isfinite(pix)
-    vis = (xc[:, 2] > 1e-6) & finite.all(dim=-1)
-    pix = torch.where(finite, pix, -1e6)
-    inv2s2 = 1.0 / (2.0 * sc.splat_sigma * sc.splat_sigma)
-    xs = torch.arange(W, dtype=dtype, device=dev)
-    ys = torch.arange(H, dtype=dtype, device=dev)
-    ex = torch.exp(-(xs[None, :] - pix[:, 0:1]) ** 2 * inv2s2)    # [K,W]
-    ey = torch.exp(-(ys[None, :] - pix[:, 1:2]) ** 2 * inv2s2)    # [K,H]
-    a = sc.splat_amp * vis.to(dtype)
-    img = sc.background + (ey * a[:, None]).T @ ex
-    return torch.clamp(img, 0.0, 255.0)
+    with span("frame.render"):
+        H, W = sc.background.shape
+        dtype, dev = sc.background.dtype, sc.background.device
+        xc = sc.gt_points @ sc.gt_cfw_R[f].T + sc.gt_cfw_t[f]
+        dist = params.dist if params.enable_distortion else None
+        pix = cam_mod.project_camera_point(params.cam, dist, xc)
+        finite = torch.isfinite(pix)
+        vis = (xc[:, 2] > 1e-6) & finite.all(dim=-1)
+        pix = torch.where(finite, pix, -1e6)
+        inv2s2 = 1.0 / (2.0 * sc.splat_sigma * sc.splat_sigma)
+        xs = torch.arange(W, dtype=dtype, device=dev)
+        ys = torch.arange(H, dtype=dtype, device=dev)
+        ex = torch.exp(-(xs[None, :] - pix[:, 0:1]) ** 2 * inv2s2)    # [K,W]
+        ey = torch.exp(-(ys[None, :] - pix[:, 1:2]) ** 2 * inv2s2)    # [K,H]
+        a = sc.splat_amp * vis.to(dtype)
+        img = sc.background + (ey * a[:, None]).T @ ex
+        return torch.clamp(img, 0.0, 255.0)
 
 
 def _gather_templates(image: torch.Tensor, centers: torch.Tensor, T: int
@@ -404,10 +408,12 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
             torch.stack([S2[:, 1, 1], -S2[:, 0, 1]], -1),
             torch.stack([-S2[:, 1, 0], S2[:, 0, 0]], -1)], -2) / det[:, None, None]
 
-        res = ncc_search(img, h, templates, state.lm_active,
-                         search_radius=search_radius,
-                         min_corr_coeff=min_corr_coeff, sigma_inv=sigma_inv,
-                         chi2_gate=chi2_gate, subpixel=subpixel)
+        with span("frame.search"):
+            res = ncc_search(img, h, templates, state.lm_active,
+                             search_radius=search_radius,
+                             min_corr_coeff=min_corr_coeff,
+                             sigma_inv=sigma_inv, chi2_gate=chi2_gate,
+                             subpixel=subpixel)
         obs = res.best_center
         obs_mask = res.matched & state.lm_active & row_ok
 
@@ -434,29 +440,32 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
             return state, templates, (err, n, x_upd[:3], info)
 
         active_after = state.lm_active
-        cand_xy, cand_ok = features.detect_corners(
-            img, max_corners=detector_corners, nms_radius=detector_nms_radius,
-            border=templ_width, quality_level=detector_quality)
-        cur_pos = torch.where(res.matched[:, None], obs, h)
-        cand_ok = features.filter_out_closest(cand_xy, cand_ok, cur_pos,
-                                              active_after, recruit_min_dist)
-        sel = torch.argsort((~cand_ok).to(torch.int32), stable=True)[:recruit_max]
-        new_pix = cand_xy[sel].to(dtype)
-        new_valid = cand_ok[sel]
-        if target_active is not None:
-            budget = torch.clamp(target_active - active_after.sum(), 0,
-                                 recruit_max)
-            new_valid = new_valid & (torch.arange(new_valid.shape[0],
-                                                  device=new_valid.device)
-                                     < budget)
-        if recruit_depth == "median":
-            rho0 = fused_mod.median_tracked_inv_depth(params, state.x,
-                                                      active_after, Kcap)
-        elif recruit_depth == "local":
-            rho0 = fused_mod.local_tracked_inv_depth(
-                params, state.x, active_after, Kcap, new_pix, cur_pos)
-        else:
-            rho0 = None
+        with span("frame.recruit"):
+            cand_xy, cand_ok = features.detect_corners(
+                img, max_corners=detector_corners,
+                nms_radius=detector_nms_radius, border=templ_width,
+                quality_level=detector_quality)
+            cur_pos = torch.where(res.matched[:, None], obs, h)
+            cand_ok = features.filter_out_closest(
+                cand_xy, cand_ok, cur_pos, active_after, recruit_min_dist)
+            sel = torch.argsort((~cand_ok).to(torch.int32),
+                                stable=True)[:recruit_max]
+            new_pix = cand_xy[sel].to(dtype)
+            new_valid = cand_ok[sel]
+            if target_active is not None:
+                budget = torch.clamp(target_active - active_after.sum(), 0,
+                                     recruit_max)
+                new_valid = new_valid & (torch.arange(new_valid.shape[0],
+                                                      device=new_valid.device)
+                                         < budget)
+            if recruit_depth == "median":
+                rho0 = fused_mod.median_tracked_inv_depth(params, state.x,
+                                                          active_after, Kcap)
+            elif recruit_depth == "local":
+                rho0 = fused_mod.local_tracked_inv_depth(
+                    params, state.x, active_after, Kcap, new_pix, cur_pos)
+            else:
+                rho0 = None
         x_next, P_next, resid, x_upd, slots, info = (
             fused_mod.fused_update_health_recruit_predict(
                 params, state.x, state.P, obs, obs_mask, new_pix, new_valid,
@@ -481,7 +490,9 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
             sc: ImageSeqDeviceScenario, frames):
         outs = []
         for f in frames:
-            state, templates, out = frame_body(sc, state, templates, int(f))
+            with span("frame"):
+                state, templates, out = frame_body(sc, state, templates,
+                                                   int(f))
             outs.append(out)
         out = tuple(torch.stack(o) for o in zip(*outs))
         if recruit:

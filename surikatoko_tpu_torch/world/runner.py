@@ -20,6 +20,7 @@ from surikatoko_tpu_torch.geom import quat as quat_mod
 from surikatoko_tpu_torch.geom.se3 import SE3
 from surikatoko_tpu_torch.models.monoslam.filter import MonoSlamFilter
 from surikatoko_tpu_torch.models.monoslam.state import MonoSlamState
+from surikatoko_tpu_torch.utils.profiling import span
 
 
 class ScenarioResult(NamedTuple):
@@ -102,7 +103,10 @@ def _new_pix_host(matcher, new_pix) -> np.ndarray:
     the matcher's own copy of that very tensor where it keeps one
     (``host_new_pix``), else a read."""
     host = getattr(matcher, "host_new_pix", None)
-    return host(new_pix) if host is not None else new_pix.cpu().numpy()
+    if host is not None:
+        return host(new_pix)
+    with span("host_read"):
+        return new_pix.cpu().numpy()
 
 
 def run_image_sequence(tracker: MonoSlamFilter, matcher, images,
@@ -121,8 +125,10 @@ def run_image_sequence(tracker: MonoSlamFilter, matcher, images,
         new_pix, new_mask = matcher.recruit_new_salient_points(state, f, obs_mask)
         state, stats = tracker.process_frame(state, obs, obs_mask, new_pix,
                                              new_mask)
-        matcher.on_landmarks_added(stats.new_slots.cpu().numpy(),
-                                   _new_pix_host(matcher, new_pix), state)
+        with span("host_read"):
+            new_slots = stats.new_slots.cpu().numpy()
+        matcher.on_landmarks_added(new_slots, _new_pix_host(matcher, new_pix),
+                                   state)
         matcher.sync_removed(state)
         stats_list.append(stats)
     return state, stats_list
@@ -167,7 +173,9 @@ def run_image_sequence_pipelined(tracker: MonoSlamFilter, matcher, images,
         # one read for the frame's bookkeeping
         K = state.lm_active.shape[0]
         packed = torch.cat([stats.new_slots.to(torch.int64),
-                            state.lm_active.to(torch.int64)]).cpu().numpy()
+                            state.lm_active.to(torch.int64)])
+        with span("host_read"):
+            packed = packed.cpu().numpy()
         matcher.on_landmarks_added(packed[:-K], _new_pix_host(matcher, new_pix),
                                    state)
         matcher.sync_removed(state, packed[-K:].astype(bool))

@@ -47,6 +47,7 @@ from surikatoko_tpu_torch.models.ba import lm_device as tlmd
 from surikatoko_tpu_torch.models.ba import problem as tp
 from surikatoko_tpu_torch.models.ba import schur as ts
 from surikatoko_tpu_torch.ops import covariance
+from surikatoko_tpu_torch.utils.profiling import counts
 from surikatoko_tpu_torch.world import ba_scene
 from surikatoko_tpu_torch.world import device_runner as tdr
 from surikatoko_tpu_torch.world import test_data_builder as ttdb
@@ -112,7 +113,7 @@ def test_torch_downdate_operator_under_vmap_equals_batched_plain():
     P, M, keep = (torch.as_tensor(a) for a in _downdate_case(
         np.random.default_rng(2), B, D, m, np.float64))
     want = covariance.symmetric_downdate_ref(P, M, keep)
-    before = covariance.LAUNCHES
+    before = counts().get("b2.calls", 0)
     vmap = torch.func.vmap
     assert torch.equal(vmap(covariance.symmetric_downdate)(P, M, keep), want)
     assert torch.equal(vmap(covariance.symmetric_downdate,
@@ -125,7 +126,7 @@ def test_torch_downdate_operator_under_vmap_equals_batched_plain():
     nested = vmap(vmap(covariance.symmetric_downdate))(
         P.reshape(2, 2, D, D), M.reshape(2, 2, m, D), keep.reshape(2, 2, D))
     assert torch.equal(nested.reshape(B, D, D), want)
-    assert covariance.LAUNCHES == before
+    assert counts().get("b2.calls", 0) == before
     op = torch.ops.surikatoko.symmetric_downdate
     assert torch.equal(op(P, M, keep), want)
 

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from surikatoko_tpu_torch.ops import covariance
+from surikatoko_tpu_torch.utils.profiling import counts
 
 
 def _card():
@@ -62,10 +63,10 @@ def test_torch_batched_downdate_kernel_matches_plain_and_unbatched(
     dev = _card()
     P, M, keep = _batch(B, D, m, dev, dtype)
     keep = keep if with_keep else None
-    before = covariance.LAUNCHES
+    before = counts().get("b2.calls", 0)
     got = covariance.symmetric_downdate(P, M, keep)
     torch.cuda.synchronize()
-    assert covariance.LAUNCHES == before + 1
+    assert counts().get("b2.calls", 0) == before + 1
     assert got.shape == (B, D, D) and got.dtype == dtype
     assert torch.equal(got, got.mT) and bool(torch.isfinite(got).all())
     assert _within(got, covariance.symmetric_downdate_ref(P, M, keep), P, M,
@@ -89,10 +90,10 @@ def test_torch_batched_downdate_kernel_under_vmap(dtype, D):
     B, m = 4, 64
     P, M, keep = _batch(B, D, m, dev, dtype)
     vmap = torch.func.vmap
-    before = covariance.LAUNCHES
+    before = counts().get("b2.calls", 0)
     got = vmap(covariance.symmetric_downdate)(P, M, keep)
     torch.cuda.synchronize()
-    assert covariance.LAUNCHES == before + 1
+    assert counts().get("b2.calls", 0) == before + 1
     assert torch.equal(got, covariance.symmetric_downdate(P, M, keep))
     shared = vmap(covariance.symmetric_downdate, in_dims=(None, 0, None))(
         P[0], M, keep[0])
@@ -181,10 +182,10 @@ def test_torch_batched_scan_runner_f64_on_card_matches_cpu():
         make_batched_scan_runner, make_scan_runner)
     dev = _card()
     params, sc, st, noise = _scenario03(dev, torch.float64)
-    before = covariance.LAUNCHES
+    before = counts().get("b2.calls", 0)
     out = make_batched_scan_runner(params, 1)(st, sc, range(1, 31), noise)
     torch.cuda.synchronize()
-    assert covariance.LAUNCHES == before + 30
+    assert counts().get("b2.calls", 0) == before + 30
     assert torch.equal(out[0].P, out[0].P.mT) and not out[4].any()
     cpu = _scenario03(torch.device("cpu"), torch.float64)
     run = make_scan_runner(cpu[0], 1)

@@ -14,6 +14,7 @@ import torch
 
 from surikatoko_tpu.ops.covariance import symmetric_downdate as j_downdate
 from surikatoko_tpu_torch.ops import covariance, cuda_build, ncc_cuda
+from surikatoko_tpu_torch.utils.profiling import counts
 
 torch.set_num_threads(2)
 
@@ -99,9 +100,9 @@ def test_torch_downdate_wrapper_cpu_path_and_checks():
     device without a kernel raises (no fallback)."""
     P = torch.eye(5, dtype=torch.float32)
     M = torch.ones((2, 5), dtype=torch.float32)
-    before = covariance.LAUNCHES
+    before = counts().get("b2.calls", 0)
     out = covariance.symmetric_downdate(P, M)
-    assert covariance.LAUNCHES == before
+    assert counts().get("b2.calls", 0) == before
     assert torch.equal(out, torch.eye(5) - 2.0)
     with pytest.raises(ValueError, match="no downdate kernel"):
         covariance.symmetric_downdate(P.to("meta"), M.to("meta"))
@@ -282,10 +283,10 @@ def test_torch_downdate_rows_plain_equals_full_rows(rng, D, m, r0, R, dtype,
     Pr = P[r0:r0 + R].contiguous()
     assert torch.equal(covariance.symmetric_downdate_rows_ref(Pr, M, keep, r0),
                        full[r0:r0 + R])
-    before = covariance.ROWS_LAUNCHES
+    before = counts().get("b2.rows_calls", 0)
     assert torch.equal(covariance.symmetric_downdate_rows(Pr, M, keep, r0),
                        full[r0:r0 + R])
-    assert covariance.ROWS_LAUNCHES == before
+    assert counts().get("b2.rows_calls", 0) == before
 
 
 @pytest.mark.parametrize("D,m,r0,R", THIN_SLABS)

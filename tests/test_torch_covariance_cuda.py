@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from surikatoko_tpu_torch.ops import covariance
+from surikatoko_tpu_torch.utils.profiling import counts
 
 # (D, m): tests, scenario03, the flagship, and ragged edges (D just past a
 # tile edge, m not a multiple of 16)
@@ -96,11 +97,11 @@ def within_tolerance(got, want, P, M, keep):
 def test_torch_downdate_kernel_matches_plain_on_card(D, m, with_keep):
     dev = _card()
     P, M, keep = _inputs(D, m, with_keep, dev)
-    before = covariance.LAUNCHES
+    before = counts().get("b2.calls", 0)
     got = covariance.symmetric_downdate(P, M, keep)
     want = covariance.symmetric_downdate_ref(P, M, keep)
     torch.cuda.synchronize()
-    assert covariance.LAUNCHES == before + 1
+    assert counts().get("b2.calls", 0) == before + 1
     assert torch.equal(got, got.T)
     assert within_tolerance(got, want, P, M, keep)
 
@@ -184,12 +185,12 @@ def f64_checked(P, M, keep):
     """Two float64 wrapper calls against the plain version: both counted,
     bitwise symmetric, bitwise equal to each other, finite, and within 1e-12
     of the plain version in the relative Frobenius norm."""
-    before = covariance.LAUNCHES
+    before = counts().get("b2.calls", 0)
     got = covariance.symmetric_downdate(P, M, keep)
     again = covariance.symmetric_downdate(P, M, keep)
     want = covariance.symmetric_downdate_ref(P, M, keep)
     torch.cuda.synchronize()
-    assert covariance.LAUNCHES == before + 2
+    assert counts().get("b2.calls", 0) == before + 2
     assert got.dtype == torch.float64
     assert torch.equal(got, got.T) and torch.equal(got, again)
     assert bool(torch.isfinite(got).all())
@@ -346,10 +347,10 @@ def test_torch_scan_runner_f64_on_card_matches_cpu():
         sc = build_oscillating_scenario(96, dtype=torch.float64, device=d)
         st = init_with_gt_landmarks(params, sc, init_state(
             96, dtype=torch.float64, device=d), t(noise0))
-        before = covariance.LAUNCHES
+        before = counts().get("b2.calls", 0)
         out = make_scan_runner(params, 1)(st, sc, range(1, 31), t(noise))
         if d.type == "cuda":
-            assert covariance.LAUNCHES == before + 30
+            assert counts().get("b2.calls", 0) == before + 30
             assert torch.equal(out[0].P, out[0].P.T)
         pos[d.type] = out[3].cpu()
     assert float((pos["cuda"] - pos["cpu"]).abs().max()) <= 1e-9
@@ -383,11 +384,11 @@ def test_torch_downdate_rows_kernel_equals_full_kernel(D, m, r0, R, dtype,
     P, M, keep = _inputs(D, m, with_keep, dev, dtype)
     Pr = P[r0:r0 + R].contiguous()
     full = covariance.symmetric_downdate(P, M, keep)
-    before = covariance.ROWS_LAUNCHES
+    before = counts().get("b2.rows_calls", 0)
     got = covariance.symmetric_downdate_rows(Pr, M, keep, r0)
     again = covariance.symmetric_downdate_rows(Pr, M, keep, r0)
     torch.cuda.synchronize()
-    assert covariance.ROWS_LAUNCHES == before + 2
+    assert counts().get("b2.rows_calls", 0) == before + 2
     assert torch.equal(got, full[r0:r0 + R])
     assert torch.equal(got, again)
     if dtype == torch.float32:

@@ -27,12 +27,13 @@ FRAMES = 10
 def test_torch_image_sequence_on_card_matches_cpu(tmp_path, pipelined):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: kernel B1 has no CPU mode")
-    from surikatoko_tpu_torch.ops import covariance, ncc_cuda
+    from surikatoko_tpu_torch.utils.profiling import counts
     chip_smoke.write_imageseq(str(tmp_path), FRAMES)
-    ncc_cuda.LAUNCHES = covariance.LAUNCHES = 0
+    c0 = counts()
     card = chip_smoke.imageseq_run(str(tmp_path), "cuda", torch.float64,
                                    pipelined=pipelined)
-    assert (ncc_cuda.LAUNCHES, covariance.LAUNCHES) == (FRAMES, FRAMES)
+    assert chip_smoke.launches_since(c0) == {"ncc_search": FRAMES,
+                                             "symmetric_downdate": FRAMES}
     cpu = chip_smoke.imageseq_run(str(tmp_path), "cpu", torch.float64,
                                   pipelined=pipelined)
     assert card[3] and cpu[3]

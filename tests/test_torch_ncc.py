@@ -24,6 +24,7 @@ from surikatoko_tpu.world import device_runner as jdr
 from surikatoko_tpu_torch import interop
 from surikatoko_tpu_torch.ops import ncc as tncc
 from surikatoko_tpu_torch.ops import ncc_cuda
+from surikatoko_tpu_torch.utils.profiling import counts
 from surikatoko_tpu_torch.vision import features as tfeat
 from surikatoko_tpu_torch.vision import templ_match as ttm
 from surikatoko_tpu_torch.world import device_runner as tdr
@@ -136,10 +137,10 @@ def test_torch_ncc_wrapper_device_dispatch(rng):
     """CPU tensors take the plain version and launch nothing; any other
     non-CUDA device is refused rather than computed."""
     p, t, g = (torch.as_tensor(a) for a in _case(rng, 4, 9, 7))
-    before = ncc_cuda.LAUNCHES
+    before = counts().get("b1.calls", 0)
     got = ncc_cuda.ncc_surface_argmax(p, t, g, with_neigh=True)
     want = ncc_cuda.ncc_surface_argmax_ref(p, t, g, with_neigh=True)
-    assert ncc_cuda.LAUNCHES == before
+    assert counts().get("b1.calls", 0) == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     with pytest.raises(ValueError):

@@ -9,7 +9,7 @@ the JAX package on the CPU, float64.
   with the same ``ok`` flag; ``rand`` given the
   JAX package's normal draws: the samples and the Monte-Carlo covariance
   within 1e-12, the Jacobian propagation within 1e-15; ``profiling``'s
-  timer, trace and annotation.
+  span, counter, window and trace.
 - ``io/checkpoint``: a ``MonoSlamState`` the JAX package saved loads into
   the port's equal, the port's own files round-trip, and a wrong structure
   is refused.
@@ -195,20 +195,26 @@ def test_torch_rand_own_generator():
 
 
 def test_torch_profiling_hooks(tmp_path):
-    t = tprof.FrameTimer()
-    assert t.last_ms == 0.0 and t.avg_ms == 0.0 and t.fps == 0.0
-    for _ in range(3):
-        with t:
-            time.sleep(0.002)
-    assert len(t.durations) == 3 and t.last_ms >= 2.0 and t.avg_ms >= 2.0
-    assert t.format_line().startswith("track=") and t.fps > 0
+    before = tprof.counts().get("test.calls", 0)
+    tprof.count("test.calls")
+    tprof.count("test.calls", 2)
+    assert tprof.counts()["test.calls"] == before + 3
     with tprof.device_trace(str(tmp_path), device="cpu"):
-        with tprof.annotate("frame_0"):
-            torch.ones(8).sum()
+        with tprof.span("frame_0"):
+            with tprof.span("frame_0.part"):
+                time.sleep(0.002)
+                torch.ones(8).sum()
+    (outer, inner), = [tprof.window()]
+    assert (outer.name, outer.parent, inner.name, inner.parent) == (
+        "frame_0", -1, "frame_0.part", 0)
+    assert (outer.start_ns <= inner.start_ns
+            and inner.end_ns - inner.start_ns >= 2_000_000
+            and inner.end_ns <= outer.end_ns)
     traces = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
     assert traces
     with open(os.path.join(tmp_path, traces[0])) as fh:
-        assert "frame_0" in fh.read()
+        text = fh.read()
+    assert "frame_0" in text and "frame_0.part" in text
 
 
 def _jax_state():
