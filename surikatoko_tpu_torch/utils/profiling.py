@@ -14,6 +14,10 @@ returns the latest one. Spans of the MonoSlam frame:
   ``frame``                 one frame of a loop (one batched step under
                             ``torch.func.vmap``): the scan runners' frame
                             bodies and ``MonoSlamFilter.process_frame``
+  ``frame.graph``           a replay of the CUDA graph of one frame (the
+                            scan runners' one-frame calls on a card),
+                            inside ``frame``; the spans below do not run
+                            in a replay
   ``frame.match``           the GT matcher's projection (scan runner)
   ``frame.update``          Jacobians, H P, the innovation, its Cholesky
                             and triangular solve, the correction
@@ -35,7 +39,9 @@ returns the latest one. Spans of the MonoSlam frame:
 
 ``count(name, n)`` adds to an always-on total that :func:`counts` reads:
 ``b1.calls``, ``b2.calls`` and ``b2.rows_calls`` count host calls of the
-kernels (a replayed CUDA graph calls nothing).
+kernels (a replayed CUDA graph calls nothing; its capture calls once);
+``frame.graph_captures`` and ``frame.graph_replays`` count the scan
+runners' frame graphs captured and replayed.
 
 ``device_trace`` writes a Chrome trace of a block; ``cuda_ms`` and
 ``device_profile`` time a call on the card.

@@ -7,8 +7,10 @@ with the reference's four update strategies.
 Port of ``surikatoko_tpu/world/device_runner.py``. JAX runs the frames as
 one ``lax.scan``; here the scan is a Python loop over frames whose body keeps
 the reference's fixed shapes and masks (no ``.item()``, no ``nonzero()``, no
-data-dependent shapes), so it never waits for the card and can be captured
-as a CUDA graph later. Scenario data come from numpy ``default_rng(seed)``
+data-dependent shapes, the frame index a device tensor), so it never waits
+for the card. A one-frame call of the GT-matcher runners on a card replays
+a CUDA graph of the whole frame (:class:`_FrameGraph`): the ~400 launches
+of a frame become one. Scenario data come from numpy ``default_rng(seed)``
 exactly as in the reference. The loops draw no random numbers: the GT
 matcher's detection noise is passed in as standard-normal draws (JAX draws
 them from a key), so both packages can be fed the same noise.
@@ -36,7 +38,7 @@ from surikatoko_tpu_torch.models.monoslam.state import (
     MonoSlamState,
 )
 from surikatoko_tpu_torch.ops.ncc import ncc_search
-from surikatoko_tpu_torch.utils.profiling import span
+from surikatoko_tpu_torch.utils.profiling import count, span
 from surikatoko_tpu_torch.vision import features
 from surikatoko_tpu_torch.world import scene_gen
 from surikatoko_tpu_torch.world.runner import gt_poses_in_tracker_frame
@@ -147,13 +149,23 @@ def build_imageseq_scenario(capacity: int = 96,
         splat_amp=t(splat_amp), splat_sigma=t(splat_sigma))
 
 
-def _project_gt(params: MonoSlamParams, sc: DeviceScenario, f: int,
+def _frame_index(f: int, device: torch.device) -> torch.Tensor:
+    """Frame ``f`` as :func:`_project_gt` takes it: a one-element int64
+    tensor, filled on the device (no copy from the host)."""
+    return torch.full((1,), int(f), dtype=torch.int64, device=device)
+
+
+def _project_gt(params: MonoSlamParams, sc: DeviceScenario, f: torch.Tensor,
                 noise: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """GT matcher: (pixels [K,2] of the GT points at frame ``f`` plus
     ``noise`` (already scaled), visible [K]: in front of the camera, inside
-    the image and finite)."""
+    the image and finite). ``f`` is a one-element int64 tensor on the
+    scenario's device (:func:`_frame_index`), read on the device, so that a
+    CUDA graph of the frame takes its frame from a buffer."""
     with span("frame.match"):
-        xc = sc.gt_points @ sc.gt_cfw_R[f].T + sc.gt_cfw_t[f]
+        R = sc.gt_cfw_R.index_select(0, f)[0]
+        t = sc.gt_cfw_t.index_select(0, f)[0]
+        xc = sc.gt_points @ R.T + t
         dist = params.dist if params.enable_distortion else None
         pix = cam_mod.project_camera_point(params.cam, dist, xc) + noise
         w, h = sc.image_size[0], sc.image_size[1]
@@ -169,7 +181,8 @@ def init_with_gt_landmarks(params: MonoSlamParams, sc: DeviceScenario,
     """Bootstrap: every GT point visible at frame 0 becomes a landmark with
     GT inverse depth (slot k <-> point k), then one predict. ``noise`` is
     standard-normal [K,2] detection noise, scaled by ``sc.noise_std``."""
-    pix, vis = _project_gt(params, sc, 0, sc.noise_std * noise)
+    pix, vis = _project_gt(params, sc, _frame_index(0, noise.device),
+                           sc.noise_std * noise)
     xc0 = sc.gt_points @ sc.gt_cfw_R[0].T + sc.gt_cfw_t[0]
     rho = 1.0 / torch.clamp(torch.linalg.norm(xc0, dim=-1), min=1e-9)
     state, _ = lm_mod.add_landmarks(params, state, pix, vis, rho)
@@ -208,21 +221,143 @@ def _check_update_impl(update_impl: int) -> None:
         raise ValueError(f"unknown update_impl {update_impl}")
 
 
-def make_scan_runner(params: MonoSlamParams, update_impl: int = 1):
-    """Scenario03 closed loop with the GT projection matcher: project the GT
-    points, gate by the image, add detection noise, update with
-    ``update_impl`` (1 = the fused congruence; 2-4 as in
-    :func:`_sequential_update`), predict.
+class _FrameGraph:
+    """A runner's one-frame call on a card, replayed as one CUDA graph.
 
-    Returns run(state, sc, frames, noise) -> (state, errs [T], n_matched
-    [T], cam_pos [T,3] after each update, chol_info [T]), with ``noise``
-    standard-normal [T,K,2], scaled by ``sc.noise_std`` inside (JAX draws it
-    from a key). ``chol_info`` is the innovation Cholesky's info per frame
-    (0 = factorized): the fused step's for impl 1, the stacked updates' for
-    impl 4, zeros for impls 2 and 3."""
+    ``body(state, sc, frames, noise)`` is the runner's eager loop over
+    ``frames``, one-element frame index tensors. :meth:`engages` says from
+    the inputs alone whether a call may take the graph: one frame, CUDA
+    tensors, none requiring grad or wrapped by ``torch.func``, no capture
+    under way. The capture key is the shapes, dtypes and device of the state
+    and the noise and the identity (data pointer, shape, dtype) of each
+    tensor of the scenario, which the graph reads in place. The first call
+    with a new key runs ``body`` on a side stream (warming up cuBLAS,
+    cuSOLVER and the allocator, as ``torch.cuda.graphs`` asks); the next
+    call with that key captures one frame on that stream into a graph with
+    its own memory pool, reading static input buffers (the state's six
+    tensors, the noise draw, the frame index), and replays it. Every later
+    call with the key copies the caller's state and noise into the buffers
+    (device to device), fills the index, replays, and returns clones of the
+    graph's outputs, so nothing returned is overwritten by a later replay.
+    Only the latest graph is kept. Counters ``frame.graph_captures`` and
+    ``frame.graph_replays``; span ``frame.graph`` (inside ``frame``) around
+    each replay."""
+
+    def __init__(self, body):
+        self.body = body
+        self.key = None        # the captured graph's key
+        self.seen = None       # the key of the last warm-up
+        self.graph = self.static_in = self.static_out = self.sc = None
+        self.stream = None
+
+    @staticmethod
+    def engages(state: MonoSlamState, sc, frames: list,
+                noise: torch.Tensor) -> bool:
+        wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+        return (len(frames) == 1
+                and all(t.is_cuda and not t.requires_grad and not wrapped(t)
+                        for t in (*state, *sc, noise))
+                and not torch.cuda.is_current_stream_capturing())
+
+    @staticmethod
+    def _key(state: MonoSlamState, sc, noise: torch.Tensor) -> tuple:
+        return (tuple((t.shape, t.dtype, t.device) for t in (*state, noise)),
+                tuple((t.data_ptr(), t.shape, t.dtype) for t in sc))
+
+    def __call__(self, state: MonoSlamState, sc, f: int, noise: torch.Tensor):
+        dev = noise.device
+        key = self._key(state, sc, noise)
+        with torch.cuda.device(dev):
+            if key != self.key:
+                if key != self.seen:
+                    self.seen = key
+                    return self._warm_up(state, sc, f, noise)
+                self._capture(key, state, sc, noise)
+            return self._replay(state, f, noise)
+
+    def _side_stream(self, dev: torch.device) -> torch.cuda.Stream:
+        if self.stream is None or self.stream.device != dev:
+            self.stream = torch.cuda.Stream(dev)
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        return self.stream
+
+    def _warm_up(self, state, sc, f, noise):
+        """The eager frame on the side stream; the caller's stream waits
+        for it. Each stream is recorded on the other's tensors, so the
+        allocator reuses none of them before both are done."""
+        cur = torch.cuda.current_stream(noise.device)
+        s = self._side_stream(noise.device)
+        for t in (*state, *sc, noise):
+            t.record_stream(s)
+        with torch.cuda.stream(s):
+            out = self.body(state, sc, [_frame_index(f, noise.device)], noise)
+        cur.wait_stream(s)
+        for t in (*out[0], *out[1:]):
+            t.record_stream(cur)
+        return out
+
+    def _capture(self, key, state, sc, noise) -> None:
+        # the old graph goes first: its pool and buffers are free to reuse
+        self.graph = self.static_in = self.static_out = self.sc = None
+        s = self._side_stream(noise.device)
+        with torch.cuda.stream(s):
+            fresh = lambda t: torch.empty_like(
+                t, memory_format=torch.contiguous_format)
+            st = MonoSlamState(*(fresh(t) for t in state))
+            nz = fresh(noise)
+            fi = torch.zeros(1, dtype=torch.int64, device=noise.device)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin()
+            try:
+                out = self.body(st, sc, [fi], nz)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(noise.device).wait_stream(s)
+        # the scenario is held so that the pointers the graph reads live
+        self.graph, self.static_in, self.static_out, self.sc = (
+            graph, (st, nz, fi), out, sc)
+        self.key = key
+        count("frame.graph_captures")
+
+    def _replay(self, state, f, noise):
+        st, nz, fi = self.static_in
+        with span("frame"):
+            for dst, src in zip(st, state):
+                dst.copy_(src)
+            nz.copy_(noise)
+            fi.fill_(int(f))
+            with span("frame.graph"):
+                self.graph.replay()
+            count("frame.graph_replays")
+            st_out, *rest = self.static_out
+            return (MonoSlamState(*(t.clone() for t in st_out)),
+                    *(t.clone() for t in rest))
+
+
+def _graphed(body):
+    """run(state, sc, frames, noise) over the eager loop ``body``: a
+    one-frame call that :meth:`_FrameGraph.engages` replays the frame's
+    graph; any other call runs ``body`` as it is."""
+    graph = _FrameGraph(body)
+
+    def run(state: MonoSlamState, sc: DeviceScenario, frames,
+            noise: torch.Tensor):
+        frames = [int(f) for f in frames]
+        if graph.engages(state, sc, frames, noise):
+            return graph(state, sc, frames[0], noise)
+        dev = sc.gt_points.device
+        return body(state, sc, [_frame_index(f, dev) for f in frames], noise)
+
+    return run
+
+
+def _scan_loop(params: MonoSlamParams, update_impl: int):
+    """The GT-matcher closed loop, run(state, sc, frames, noise), over
+    ``frames`` given as one-element frame index tensors
+    (:func:`_frame_index`); see :func:`make_scan_runner`."""
     _check_update_impl(update_impl)
 
-    def frame_body(sc: DeviceScenario, state: MonoSlamState, f: int,
+    def frame_body(sc: DeviceScenario, state: MonoSlamState, f: torch.Tensor,
                    noise: torch.Tensor):
         obs, vis = _project_gt(params, sc, f, noise)
         obs_mask = vis & state.lm_active
@@ -238,26 +373,45 @@ def make_scan_runner(params: MonoSlamParams, update_impl: int = 1):
         err = torch.linalg.norm(resid, dim=-1).sum() / torch.clamp(n, min=1)
         return state, (err, n, x_upd[:3], info)
 
-    def run(state: MonoSlamState, sc: DeviceScenario, frames,
+    def run(state: MonoSlamState, sc: DeviceScenario, frames: list,
             noise: torch.Tensor):
         noise = sc.noise_std * noise
         outs = []
         for t, f in enumerate(frames):
             with span("frame"):
-                state, out = frame_body(sc, state, int(f), noise[t])
+                state, out = frame_body(sc, state, f, noise[t])
             outs.append(out)
         return (state, *(torch.stack(o) for o in zip(*outs)))
 
     return run
 
 
+def make_scan_runner(params: MonoSlamParams, update_impl: int = 1):
+    """Scenario03 closed loop with the GT projection matcher: project the GT
+    points, gate by the image, add detection noise, update with
+    ``update_impl`` (1 = the fused congruence; 2-4 as in
+    :func:`_sequential_update`), predict.
+
+    Returns run(state, sc, frames, noise) -> (state, errs [T], n_matched
+    [T], cam_pos [T,3] after each update, chol_info [T]), with ``noise``
+    standard-normal [T,K,2], scaled by ``sc.noise_std`` inside (JAX draws it
+    from a key). ``chol_info`` is the innovation Cholesky's info per frame
+    (0 = factorized): the fused step's for impl 1, the stacked updates' for
+    impl 4, zeros for impls 2 and 3. A one-frame call on a card replays a
+    CUDA graph of the frame (:class:`_FrameGraph`); the returned tensors are
+    the caller's own either way."""
+    return _graphed(_scan_loop(params, update_impl))
+
+
 def make_batched_scan_runner(params: MonoSlamParams, update_impl: int = 1):
     """B instances of :func:`make_scan_runner`'s closed loop, one per noise
     draw, run as one batch, as the JAX package vmaps its run over noise keys
     (tests/test_batch_eval.py). Built with ``torch.func.vmap`` over the
-    unbatched run: every op of a frame runs once for the batch, and kernel
+    unbatched loop: every op of a frame runs once for the batch, and kernel
     B2 (the fused step's downdate, impl 1; the stacked updates', impl 4)
-    launches once a frame for all instances.
+    launches once a frame for all instances. A one-frame call on a card
+    replays a CUDA graph of the whole vmapped frame (:class:`_FrameGraph`:
+    vmap runs inside the capture).
 
     Returns run(state, sc, frames, noise) -> (state, errs [B,T], n_matched
     [B,T], cam_pos [B,T,3], chol_info [B,T]): ``noise`` [B,T,K,2] is each
@@ -265,16 +419,15 @@ def make_batched_scan_runner(params: MonoSlamParams, update_impl: int = 1):
     (x [D]) or carries a leading B (x [B,D]); the returned state carries a
     leading B. Each instance equals its own unbatched run up to the rounding
     of batched matrix products."""
-    run_one = make_scan_runner(params, update_impl)
+    loop = _scan_loop(params, update_impl)
 
-    def run(state: MonoSlamState, sc: DeviceScenario, frames,
-            noise: torch.Tensor):
-        frames = [int(f) for f in frames]
+    def body(state: MonoSlamState, sc: DeviceScenario, frames: list,
+             noise: torch.Tensor):
         return torch.func.vmap(
-            lambda st, nz: run_one(st, sc, frames, nz),
+            lambda st, nz: loop(st, sc, frames, nz),
             in_dims=(0 if state.x.dim() == 2 else None, 0))(state, noise)
 
-    return run
+    return _graphed(body)
 
 
 def render_frame(params: MonoSlamParams, sc: ImageSeqDeviceScenario,
