@@ -18,7 +18,8 @@ instead. The accumulated Sim(3) loop error closes through the pose graph
 Per frame: matcher writes corners -> anchor selection -> SVD-12 relative
 motion + GN-PnP polish -> batched MASKS-8.44 triangulation of new tracks.
 Sliding-window local BA runs every ``window_ba_every`` frames; bucket-padded
-global BA every ``global_ba_every`` frames.
+global BA every ``global_ba_every`` frames. The frames and the closure run
+through the pipeline's per-frame entry point, ``models.mvf.session``.
 
     python -m surikatoko_tpu_torch.demos.mvf_at_scale [--points 10000]
         [--frames 500] [--track_len 12] [--oracle_pairs]
@@ -43,8 +44,8 @@ from surikatoko_tpu_torch.models.ba import SparseBundleAdjustment, TermCriteria
 from surikatoko_tpu_torch.models.ba import sparse as ba_sparse
 from surikatoko_tpu_torch.demos.multi_view_factorization import (
     ate, camera_positions)
-from surikatoko_tpu_torch.models.mvf import MultiViewFactorizer, TrackStore
-from surikatoko_tpu_torch.vision import place_recognition as pr
+from surikatoko_tpu_torch.models.mvf import TrackStore
+from surikatoko_tpu_torch.models.mvf.session import MvfSession
 
 K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]])
 
@@ -172,32 +173,6 @@ class World:
                      [t for t, _ in kept]))
 
 
-def place_recognition(world: World, positions: dict, args, device, dtype,
-                      sync) -> tuple[list, dict]:
-    """The oracle-free closure pairs (JAX demo :272-298): the head and the
-    revisit groups described, matched, and the candidates verified by the
-    similarity RANSAC (``args.pr_ransac_thresh``) on ``positions``. Returns
-    (verified pairs, stats); ``sync(device)`` ends each stage, whose host ms
-    the stats hold."""
-    t0 = time.perf_counter()
-    head = pr.describe_tracks(world.head_obs, device=device)
-    tail = pr.describe_tracks(world.tail_obs, device=device)
-    sync(device)
-    t1 = time.perf_counter()
-    cand = pr.match_track_groups(tail, head)
-    sync(device)
-    t2 = time.perf_counter()
-    pairs = pr.verify_loop_pairs(cand, positions, args.pr_ransac_thresh,
-                                 device=device, dtype=dtype)
-    sync(device)
-    t3 = time.perf_counter()
-    ms = {"describe_ms": 1e3 * (t1 - t0), "match_ms": 1e3 * (t2 - t1),
-          "ransac_ms": 1e3 * (t3 - t2)}
-    return pairs, {"tracks_revisit": int(tail.tids.size),
-                   "tracks_head": int(head.tids.size),
-                   "candidates": len(cand), "stage_ms": ms}
-
-
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -234,45 +209,39 @@ def run_at_scale(args: argparse.Namespace, *, profile_frame: int | None = None,
     n_pts, n_base, n_frames = world.n_pts, world.n_base, world.n_total
     ts = TrackStore(max_tracks=2 * n_pts, max_frames=n_frames,
                     max_track_len=2 * args.track_len)
-    mvf = MultiViewFactorizer(
-        track_store=ts, K=K, use_sparse_ba=True,
-        ba_trigger_reproj_err=float("inf"),   # BA on our own schedule
-        ba_term_rel_change=None, ba_max_iters=args.global_ba_iters,
-        ba_point_bucket=2048, ba_frame_bucket=100, device=device,
-        dtype=dtype)
+    sess = MvfSession(
+        ts, K, base_frames=n_base, window=args.window,
+        window_ba_every=args.window_ba_every,
+        global_ba_every=args.global_ba_every,
+        global_ba_iters=args.global_ba_iters, point_bucket=2048,
+        frame_bucket=100, pr_ransac_thresh=args.pr_ransac_thresh,
+        device=device, dtype=dtype)
+    mvf = sess.mvf
 
     t_int0 = time.perf_counter()
     ba_time = 0.0
-    n_fail = 0
     stage_s = {"integrate": [], "window_ba": [], "global_ba": []}
     for f in range(n_frames):
         def stage(name, fn):
+            nonlocal ba_time
             t0 = time.perf_counter()
             if f == profile_frame and profiler is not None:
                 out = profiler(name, fn)
             else:
                 out = fn()
-            stage_s[name].append((f, time.perf_counter() - t0))
+            dt = time.perf_counter() - t0
+            stage_s[name].append((f, dt))
+            if name != "integrate":
+                ba_time += dt
             return out
 
         world.write_corners(ts, f)
         if f < 2:
-            mvf.add_known_frame(SE3(world.Rs[f], world.ts_gt[f]))
-            for tid in ts.tracks_in_frame(f):
-                mvf.set_known_point(int(tid), world.pts_gt[tid])
+            tids = ts.tracks_in_frame(f)
+            sess.known_frame(SE3(world.Rs[f], world.ts_gt[f]), tids,
+                             world.pts_gt[tids])
             continue
-        if not stage("integrate", mvf.integrate_new_frame_corners):
-            # keep frame/pose indices aligned: constant-position fallback
-            n_fail += 1
-            mvf.add_known_frame(SE3(mvf.cam_cfw_R[-1], mvf.cam_cfw_t[-1]))
-        if args.window_ba_every and (f + 1) % args.window_ba_every == 0:
-            tb = time.perf_counter()
-            stage("window_ba", lambda: mvf.run_windowed_ba(window=args.window))
-            ba_time += time.perf_counter() - tb
-        if args.global_ba_every and (f + 1) % args.global_ba_every == 0:
-            tb = time.perf_counter()
-            stage("global_ba", mvf._run_ba)     # bucket-padded shapes
-            ba_time += time.perf_counter() - tb
+        sess.frame(f, stage)
     _sync(device)
     t_integrate = time.perf_counter() - t_int0 - ba_time
     fps = (n_frames - 2) / t_integrate
@@ -289,22 +258,21 @@ def run_at_scale(args: argparse.Namespace, *, profile_frame: int | None = None,
     if args.revisit_frames:
         tb = time.perf_counter()
         if args.oracle_pairs:
-            pairs = [(n_pts + i, i) for i in range(n_pts)]
+            closed, pairs, _ = sess.close(
+                pairs=[(n_pts + i, i) for i in range(n_pts)])
         else:
-            positions = dict(mvf.point_coords)
-            pairs, pr_stats = place_recognition(world, positions, args,
-                                                device, dtype, _sync)
+            pairs, pr_stats = sess.loop_pairs(world.head_obs, world.tail_obs,
+                                              sync=_sync)
             pr_stats["stage_ms"]["render_ms"] = 1e3 * world.render_s
             n_correct = sum(1 for a, b in pairs if a - n_pts == b)
             if profiler is not None:
+                # on the same map as the run it profiles: before the closure
                 tp = time.perf_counter()
-                profiler("place_recognition", lambda: place_recognition(
-                    world, positions, args, device, dtype, lambda d: None))
+                profiler("place_recognition", lambda: sess.loop_pairs(
+                    world.head_obs, world.tail_obs))
                 tb += time.perf_counter() - tp
+            closed, pairs, _ = sess.close(pairs=pairs)
         n_pairs = len(pairs)
-        closed, _ = mvf.close_loop_sim3(
-            tail_frames=range(n_base, n_frames), head_frames=range(6),
-            pairs=pairs, run_ba=False)
         closure_s = time.perf_counter() - tb
         ate_post_closure = traj_ate()
 
@@ -402,7 +370,7 @@ def run_at_scale(args: argparse.Namespace, *, profile_frame: int | None = None,
                                     and not args.oracle_pairs),
         "place_recognition": pr_stats,
         "closure_s": closure_s,
-        "localization_failures": int(n_fail),
+        "localization_failures": int(sess.failures),
         "points": len(tids_m), "frames": n_frames,
         "integration_s": t_integrate,
         "stage_s": stage_s,

@@ -13,7 +13,9 @@ Two forms of the loop, as in the JAX package: the host form below fetches
 ``ok`` and then the error of every trial; ``device_loop=True`` runs
 lm_device.run_lm_on_device, one packed fetch per trial, with the gauge
 check, normalization and revert on the device around it. Both take the
-same path.
+same path. Both record the spans ``ba.blocks`` and ``ba.trial`` and the
+counters ``ba.runs``, ``ba.iterations`` and ``ba.trials`` (lm_device.py);
+``ba.build`` marks the band plan.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch.distributed as dist
 from surikatoko_tpu_torch.models.ba import derivs, lm_device, normalize, schur
 from surikatoko_tpu_torch.models.ba import sparse as sp
 from surikatoko_tpu_torch.models.ba.problem import BAProblem, reproj_error
+from surikatoko_tpu_torch.utils.profiling import count, span
 
 
 @dataclass
@@ -100,8 +103,10 @@ def _host_loop(ba, p, term_crit: TermCriteria, blocks_fn, solve_fn,
                apply_fn, err_fn):
     """The host-driven LM (lm.py:192-243 of the JAX package): a blocking
     fetch of ``ok``, then of the trial error, per damped solve."""
+    count("ba.runs")
     hessian_factor = 1e-4
-    err_value = float(err_fn(p))
+    with span("host_read"):
+        err_value = float(err_fn(p))
     err_thresh = term_crit.allowed_reproj_err_rel_change
     # dtype-aware convergence floor: once a (damped) trial step changes the
     # error by less than a few ulps of the error itself, no further progress
@@ -111,14 +116,21 @@ def _host_loop(ba, p, term_crit: TermCriteria, blocks_fn, solve_fn,
     ba.iterations = 0
     ba.trials = 0
     for _ in range(term_crit.max_iters):
-        blocks = blocks_fn(p)
+        with span("ba.blocks"):
+            blocks = blocks_fn(p)
         err_new_prev = None
         while True:
-            dX, du, ok = solve_fn(p, blocks, hessian_factor)
+            with span("ba.trial"):
+                dX, du, ok = solve_fn(p, blocks, hessian_factor)
+                with span("host_read"):
+                    ok = bool(ok)
+                if ok:
+                    p_try = apply_fn(p, dX, du)
+                    with span("host_read"):
+                        err_new = float(err_fn(p_try))
             ba.trials += 1
-            if bool(ok):
-                p_try = apply_fn(p, dX, du)
-                err_new = float(err_fn(p_try))
+            count("ba.trials")
+            if ok:
                 if err_new < err_value:
                     p = p_try
                     break
@@ -138,6 +150,7 @@ def _host_loop(ba, p, term_crit: TermCriteria, blocks_fn, solve_fn,
                 ba.stop_reason = "hessian overflow"
                 return False, p
         ba.iterations += 1
+        count("ba.iterations")
         if err_thresh is not None and abs(err_new - err_value) < err_thresh:
             ba.stop_reason = "small relative err change"
             return True, p
@@ -319,7 +332,8 @@ class SparseBundleAdjustment:
         normalize gauge, optimize, revert (reference SceneNormalizer,
         bundle-adj-kanatani.cpp:123)."""
         term_crit = term_crit or TermCriteria()
-        self._plan_band(p)
+        with span("ba.build"):
+            self._plan_band(p)
         if self.device_loop:
             return _run_device_loop(self, p, term_crit, *self._fns(),
                                     gauge=(1.0, self.unity_comp_ind))
@@ -333,6 +347,7 @@ class SparseBundleAdjustment:
 
     def compute(self, p, term_crit: TermCriteria | None = None):
         term_crit = term_crit or TermCriteria()
-        self._plan_band(p)
+        with span("ba.build"):
+            self._plan_band(p)
         loop = _run_device_loop if self.device_loop else _host_loop
         return loop(self, p, term_crit, *self._fns())

@@ -20,6 +20,12 @@ the same decisions in the same order (lm_device.py:126-181 of the JAX
 package) on the fetched values, kept in the problem's dtype as the JAX
 program keeps them, so it takes the same path: the same stop reason,
 iterations and trials.
+
+Spans (``utils.profiling``), named by the caller's ``name`` ("ba" for
+bundle adjustment): ``<name>.blocks`` (the Gauss-Newton blocks of an
+iteration), ``<name>.trial`` (one damped trial: solve, apply, evaluate and
+its fetch) and ``host_read`` around each fetch; counters ``<name>.runs``,
+``<name>.iterations`` (accepted steps) and ``<name>.trials``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from surikatoko_tpu_torch.utils.profiling import count, span
 
 STOP_RUNNING = 0
 STOP_SMALL_REL_CHANGE = 1    # "small relative err change"        (ok=True)
@@ -60,7 +68,8 @@ _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 def _fetch(a: torch.Tensor, b: torch.Tensor):
     """Two device scalars or two [B] vectors in one device->host copy, as
     numpy vectors ([1] or [B]) of the type of ``b``."""
-    v = torch.stack([a.to(b.dtype), b]).cpu().numpy().reshape(2, -1)
+    with span("host_read"):
+        v = torch.stack([a.to(b.dtype), b]).cpu().numpy().reshape(2, -1)
     return v[0], v[1]
 
 
@@ -90,6 +99,7 @@ def run_lm_on_device(
     initial_factor: float = 1e-4,
     eps_floor_mult: float = 32.0,
     valid: torch.Tensor | None = None,
+    name: str = "ba",
 ) -> tuple[Any, int, int, float, int]:
     """Returns (p_final, stop_code, iterations, final_err, trials) where
     ``trials`` counts every damped solve including rejected damping retries
@@ -98,10 +108,11 @@ def run_lm_on_device(
     ``valid`` (optional device bool) gates the whole loop: when False the
     LM never runs and the stop code is STOP_CANNOT_NORMALIZE. It rides in
     the same fetch as the initial error. The schedule is
-    :func:`run_lm_on_device_batched`'s, on one problem and its 0-d state."""
+    :func:`run_lm_on_device_batched`'s, on one problem and its 0-d state;
+    ``name`` names its spans and counters."""
     r = _schedule(p0, (blocks_fn, solve_fn, apply_fn, err_fn), False,
                   err_thresh, max_factor, max_iters, initial_factor,
-                  eps_floor_mult, valid)
+                  eps_floor_mult, valid, name)
     return r.p, r.code.item(), r.iters.item(), r.err.item(), r.trials.item()
 
 
@@ -149,18 +160,19 @@ def run_lm_on_device_batched(
     runs, keeps ``p0`` and stops with STOP_CANNOT_NORMALIZE."""
     return _schedule(p0, (blocks_fn, solve_fn, apply_fn, err_fn), True,
                      err_thresh, max_factor, max_iters, initial_factor,
-                     eps_floor_mult, valid)
+                     eps_floor_mult, valid, "ba")
 
 
 # a failed trial's error may be inf or nan: ``ok`` masks it out of every
 # decision, so numpy's warnings about it say nothing
 @np.errstate(invalid="ignore", over="ignore")
 def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
-              initial_factor, eps_floor_mult, valid) -> BatchedLM:
+              initial_factor, eps_floor_mult, valid, name: str) -> BatchedLM:
     """The LM schedule over a batch (the functions mapped with
     ``torch.func.vmap``, the factor a [B] tensor) or over one problem
     (``batched`` False: its state is numpy vectors of one entry, the factor
-    reaches ``solve_fn`` as a float)."""
+    reaches ``solve_fn`` as a float); ``name`` prefixes its spans and
+    counters."""
     if batched:
         fns = tuple(torch.func.vmap(f) for f in fns)
     blocks_fn, solve_fn, apply_fn, err_fn = fns
@@ -188,7 +200,8 @@ def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
                 else f.item())
 
     while (code == STOP_RUNNING).any():
-        blocks = blocks_fn(p)
+        with span(name + ".blocks"):
+            blocks = blocks_fn(p)
         outer_rounds += 1
         damping = code == STOP_RUNNING
         has_prev = np.zeros(shape, bool)
@@ -199,9 +212,10 @@ def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
         # host loop order (lm.py): decrease -> dtype floor -> err limit ->
         # damp (overflow check after damping)
         while damping.any():
-            dX, du, ok = solve_fn(p, blocks, factor_arg(factor))
-            p_try = apply_fn(p, dX, du)
-            ok, err_new = _fetch(ok, err_fn(p_try))
+            with span(name + ".trial"):
+                dX, du, ok = solve_fn(p, blocks, factor_arg(factor))
+                p_try = apply_fn(p, dX, du)
+                ok, err_new = _fetch(ok, err_fn(p_try))
             trial_rounds += 1
             trials += damping
             # a trial that counts: solved, finite, of a damping problem
@@ -243,4 +257,7 @@ def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
         code = np.where(small_rel, STOP_SMALL_REL_CHANGE,
                         np.where(accepted & (iters >= max_iters),
                                  STOP_MAX_ITERS, code))
+    count(name + ".runs", code.size)
+    count(name + ".iterations", int(iters.sum()))
+    count(name + ".trials", int(trials.sum()))
     return BatchedLM(p, code, iters, err, trials, outer_rounds, trial_rounds)

@@ -50,6 +50,7 @@ from surikatoko_tpu_torch.models.ba.problem import BAProblem
 from surikatoko_tpu_torch.models.ba.sparse import BAProblemSparse
 from surikatoko_tpu_torch.models.mvf import relative_motion as rm
 from surikatoko_tpu_torch.ops.transfer import fetch, host, send
+from surikatoko_tpu_torch.utils.profiling import span, spanned
 
 
 def _bucket(n: int, minimum: int = 8) -> int:
@@ -291,6 +292,9 @@ class MultiViewFactorizer:
     ba_runs: int = field(default=0)
     last_ba_sparse: bool = field(default=False)
     last_closure_inliers: int = field(default=0)
+    # (s, R, t) with head ~ s R tail + t: the similarity the last Sim(3)
+    # closure measured, or None
+    last_closure_similarity: tuple = field(default=None)
     # (kind, ok, stop_reason, iterations, trials) of every BA run, in order
     ba_log: list = field(default_factory=list)
     _ba_points: set = field(default_factory=set)   # tids refined by BA
@@ -347,53 +351,29 @@ class MultiViewFactorizer:
             [t for t in cur if ts.has(int(t), anchor)], int)
         return anchor, common
 
+    @spanned("mvf.integrate")
     def integrate_new_frame_corners(self) -> bool:
         """Assumes the matcher already wrote this frame's corners into the
         track store. Returns False if the frame couldn't be integrated."""
         new_frame = self.frames_count()
-        ts = self.track_store
         if new_frame < 2:
             raise RuntimeError(
                 "bootstrap the first two frames with add_known_frame() first")
-
-        anchor, common = self.find_anchor_frame(new_frame)
-        if len(common) == 0:
+        with span("mvf.localize"):
+            loc_host = self._localization_inputs(new_frame)
+        if loc_host is None:
             return False
-
-        # depths of common (already reconstructed) points in the anchor frame
-        Ra, ta = self.cam_cfw_R[anchor], self.cam_cfw_t[anchor]
-        pts = np.stack([self.point_coords[int(t)] for t in common])
-        depths = (pts @ Ra.T + ta)[:, 2]
-        # a drifted point can sit behind the anchor camera: 1/depth feeds
-        # the SVD-12 system, and inf * mask-zero = NaN would sink the whole
-        # SVD: sanitize the value AND mask the row (masked-slot NaN rule)
-        good_d = np.isfinite(depths) & (depths > 1e-6)
-        if not good_d.any():
-            return False
-
-        n = len(common)
-        nb = _bucket(n)
-        c1 = np.zeros((nb, 3))
-        c2 = np.zeros((nb, 3))
-        dep = np.ones(nb)
-        ptsb = np.zeros((nb, 3))
-        msk = np.zeros(nb, bool)
-        for i, t in enumerate(common):
-            c1[i] = ts.coord(int(t), anchor)
-            c2[i] = ts.coord(int(t), new_frame)
-        dep[:n] = np.where(good_d, depths, 1.0)
-        ptsb[:n] = pts
-        msk[:n] = good_d
-
-        loc_host = (c1, c2, dep, msk, ptsb, Ra, ta,
-                    self.cam_cfw_R[-1], self.cam_cfw_t[-1])
         refine_loc = self.refine_localization and not self.fake_localization
-        cands = self._tri_candidates(self._fresh_tracks(new_frame), new_frame)
+        with span("mvf.triangulate"):
+            cands = self._tri_candidates(self._fresh_tracks(new_frame),
+                                         new_frame)
+            fused = bool(cands) and not self.fake_localization
+            if fused:
+                batch = self._assemble_tri_batch(cands, mark_frame=new_frame)
         tri = {}
-        if cands and not self.fake_localization:
+        if fused:
             # fused path: localize + triangulate the fresh tracks with ONE
             # upload and ONE packed read
-            batch = self._assemble_tri_batch(cands, mark_frame=new_frame)
             args = self._send(*loc_host, *batch)
             args[3] = args[3] > 0.5                       # mask
             for k in (13, 14, 18, 19):                    # msk_fb, new_fb,
@@ -405,7 +385,8 @@ class MultiViewFactorizer:
                                 pose_np[12])
             if ok <= 0.5:
                 return False
-            tri = self._accept_triangulations(cands, tri_np)
+            with span("mvf.triangulate"):
+                tri = self._accept_triangulations(cands, tri_np)
         else:
             args = self._send(*loc_host)
             args[3] = args[3] > 0.5
@@ -424,19 +405,58 @@ class MultiViewFactorizer:
             self.cam_cfw_R.append(R_new)
             self.cam_cfw_t.append(t_new)
 
-        if cands and not self.fake_localization:
-            self._store_triangulations(tri)
-        else:
-            # fake-localization path triangulates under the (GT) appended
-            # pose; empty-candidate frames are a no-op either way
-            self._reconstruct_new_tracks(new_frame)
+        with span("mvf.triangulate"):
+            if fused:
+                self._store_triangulations(tri)
+            else:
+                # fake-localization path triangulates under the (GT)
+                # appended pose; empty-candidate frames are a no-op either
+                # way
+                self._reconstruct_new_tracks(new_frame)
 
         # BA trigger (no read at all when the trigger is disabled)
         if self.ba_trigger_reproj_err != float("inf"):
             err = self._reproj_error()
             if err > self.ba_trigger_reproj_err:
-                self._run_ba()
+                self.run_global_ba()
         return True
+
+    def _localization_inputs(self, new_frame: int) -> tuple | None:
+        """The host arrays of the frame's localization (bucket-padded
+        anchor and new-frame coordinates of the tracks the two share, their
+        depths in the anchor, the mask, their points, the anchor's and the
+        previous frame's poses), or None where nothing can localize it."""
+        ts = self.track_store
+        anchor, common = self.find_anchor_frame(new_frame)
+        if len(common) == 0:
+            return None
+
+        # depths of common (already reconstructed) points in the anchor frame
+        Ra, ta = self.cam_cfw_R[anchor], self.cam_cfw_t[anchor]
+        pts = np.stack([self.point_coords[int(t)] for t in common])
+        depths = (pts @ Ra.T + ta)[:, 2]
+        # a drifted point can sit behind the anchor camera: 1/depth feeds
+        # the SVD-12 system, and inf * mask-zero = NaN would sink the whole
+        # SVD: sanitize the value AND mask the row (masked-slot NaN rule)
+        good_d = np.isfinite(depths) & (depths > 1e-6)
+        if not good_d.any():
+            return None
+
+        n = len(common)
+        nb = _bucket(n)
+        c1 = np.zeros((nb, 3))
+        c2 = np.zeros((nb, 3))
+        dep = np.ones(nb)
+        ptsb = np.zeros((nb, 3))
+        msk = np.zeros(nb, bool)
+        for i, t in enumerate(common):
+            c1[i] = ts.coord(int(t), anchor)
+            c2[i] = ts.coord(int(t), new_frame)
+        dep[:n] = np.where(good_d, depths, 1.0)
+        ptsb[:n] = pts
+        msk[:n] = good_d
+        return (c1, c2, dep, msk, ptsb, Ra, ta,
+                self.cam_cfw_R[-1], self.cam_cfw_t[-1])
 
     # ---- triangulation (MASKS 8.44), batched over candidate tracks ----
     def _tri_candidates(self, tids, upto_frame: int) -> list:
@@ -725,7 +745,7 @@ class MultiViewFactorizer:
         if run_ba:
             pins = sorted({int(i) for (i, j, _, _) in loop_closures}
                           | {int(j) for (i, j, _, _) in loop_closures})
-            self._run_ba(pin_frames=tuple(pins))
+            self.run_global_ba(pin_frames=tuple(pins))
 
     def _profile(self, name: str) -> dict:
         return self.profile.setdefault(
@@ -736,6 +756,7 @@ class MultiViewFactorizer:
         self.ba_log.append((kind, bool(ok), ba.stop_reason,
                             int(ba.iterations), int(ba.trials)))
 
+    @spanned("ba.window")
     def run_windowed_ba(self, window: int = 25,
                         point_bucket: int = 512) -> bool:
         """Sliding-window local BA: optimize the last `window` camera poses
@@ -743,8 +764,8 @@ class MultiViewFactorizer:
         pinned as the gauge anchor (fixed-keyframe BA, no normalization
         needed). Shapes are static (window fixed, points bucket-padded), so
         the whole run sees a handful of shapes as the map grows. A full
-        `_run_ba` at the end still polishes globally. New capability beyond
-        the reference (its MVF re-runs global BA on every trigger,
+        `run_global_ba` at the end still polishes globally. New capability
+        beyond the reference (its MVF re-runs global BA on every trigger,
         multi-view-factorization.cpp:378-394, which cannot scale)."""
         prof = self._profile("window_ba")
         _t0 = time.perf_counter()
@@ -753,35 +774,36 @@ class MultiViewFactorizer:
             return False
         base = F - window
         ts = self.track_store
-        # tracks observed in the window AND reconstructed
-        tids = sorted({int(t) for f in range(base, F)
-                       for t in ts.tracks_in_frame(f)}
-                      & set(self.point_coords))
-        if not tids:
-            return False
-        # track_len bucketed to multiples of 8 (capped at the store width);
-        # truncating instead would drop the NEWEST observations, exactly
-        # the in-window ones
-        obs, fidx, mask = ts.sparse_observations(
-            tids, F, track_len=self._bucketed_track_len(tids))
-        # restrict to window frames, local indexing
-        inwin = mask & (fidx >= base)
-        fidx_l = np.where(inwin, fidx - base, 0).astype(np.int32)
-        obs = np.where(inwin[..., None], obs, 0.0)
-        Np = len(tids)
-        Npad = _bucket(Np, minimum=point_bucket)
-        pad = Npad - Np
-        pts = np.stack([self.point_coords[t] for t in tids])
-        if pad:
-            pts = np.concatenate([pts, np.zeros((pad, 3))])
-            obs = np.concatenate([obs, np.zeros((pad,) + obs.shape[1:])])
-            fidx_l = np.concatenate(
-                [fidx_l, np.zeros((pad,) + fidx_l.shape[1:], np.int32)])
-            inwin = np.concatenate(
-                [inwin, np.zeros((pad,) + inwin.shape[1:], bool)])
-        p = self._sparse_from_host(
-            pts, np.stack(self.cam_cfw_R[base:]),
-            np.stack(self.cam_cfw_t[base:]), obs, fidx_l, inwin)
+        with span("ba.build"):
+            # tracks observed in the window AND reconstructed
+            tids = sorted({int(t) for f in range(base, F)
+                           for t in ts.tracks_in_frame(f)}
+                          & set(self.point_coords))
+            if not tids:
+                return False
+            # track_len bucketed to multiples of 8 (capped at the store
+            # width); truncating instead would drop the NEWEST observations,
+            # exactly the in-window ones
+            obs, fidx, mask = ts.sparse_observations(
+                tids, F, track_len=self._bucketed_track_len(tids))
+            # restrict to window frames, local indexing
+            inwin = mask & (fidx >= base)
+            fidx_l = np.where(inwin, fidx - base, 0).astype(np.int32)
+            obs = np.where(inwin[..., None], obs, 0.0)
+            Np = len(tids)
+            Npad = _bucket(Np, minimum=point_bucket)
+            pad = Npad - Np
+            pts = np.stack([self.point_coords[t] for t in tids])
+            if pad:
+                pts = np.concatenate([pts, np.zeros((pad, 3))])
+                obs = np.concatenate([obs, np.zeros((pad,) + obs.shape[1:])])
+                fidx_l = np.concatenate(
+                    [fidx_l, np.zeros((pad,) + fidx_l.shape[1:], np.int32)])
+                inwin = np.concatenate(
+                    [inwin, np.zeros((pad,) + inwin.shape[1:], bool)])
+            p = self._sparse_from_host(
+                pts, np.stack(self.cam_cfw_R[base:]),
+                np.stack(self.cam_cfw_t[base:]), obs, fidx_l, inwin)
         if self._window_ba is None or self._window_ba_key != (window,):
             self._window_ba = SparseBundleAdjustment(
                 optimize_intrinsics=False, pin_frames=(0, 1),
@@ -898,6 +920,7 @@ class MultiViewFactorizer:
             B = np.stack([tri[t] for t in common])                 # early
             n_meas = len(common)
         U = self._closure_similarity(A, B)
+        self.last_closure_similarity = U
 
         n = self.frames_count()
         R_w, t_w = self._world_from_cameras()
@@ -922,7 +945,7 @@ class MultiViewFactorizer:
         if run_ba:
             pins = tuple(sorted({int(i) for i in tail_frames}
                                 | {int(j) for j in head_frames}))
-            self._run_ba(pin_frames=pins)
+            self.run_global_ba(pin_frames=pins)
         return True, n_meas
 
     def _use_sparse(self) -> bool:
@@ -941,7 +964,12 @@ class MultiViewFactorizer:
         T01 = T0 - R0 @ (R1.T @ T1)
         return int(np.argmax(np.abs(T01)))
 
-    def _run_ba(self, pin_frames: tuple = ()) -> None:
+    @spanned("ba.global")
+    def run_global_ba(self, pin_frames: tuple = ()) -> None:
+        """Global BA over every frame and point (the sparse Schur path at
+        scale, its shapes padded to ``ba_point_bucket`` points and
+        ``ba_frame_bucket`` frames), ``pin_frames`` held fixed; the map and
+        the poses take its result if it converged."""
         prof = self._profile("global_ba")
         _t0 = time.perf_counter()
         term = TermCriteria(
@@ -953,9 +981,10 @@ class MultiViewFactorizer:
             n_f = self.frames_count()
             n_dev = (1 if self.ba_group is None
                      else dist.get_world_size(self.ba_group))
-            tids, p = self._sparse_problem(
-                pad_points=self.ba_point_bucket or max(8 * n_dev, 8),
-                pad_frames=self.ba_frame_bucket)
+            with span("ba.build"):
+                tids, p = self._sparse_problem(
+                    pad_points=self.ba_point_bucket or max(8 * n_dev, 8),
+                    pad_frames=self.ba_frame_bucket)
             pins = tuple(pin_frames) + tuple(range(n_f, p.n_frames))
             key = (p.n_points, p.n_frames, pins, uci)
             ba = self._ba_cache.get(key)
@@ -999,3 +1028,5 @@ class MultiViewFactorizer:
         for f in range(self.frames_count()):
             self.cam_cfw_R[f] = R_opt[f]
             self.cam_cfw_t[f] = t_opt[f]
+
+    _run_ba = run_global_ba      # the JAX package's name

@@ -31,6 +31,7 @@ from surikatoko_tpu_torch import config
 from surikatoko_tpu_torch.geom import so3
 from surikatoko_tpu_torch.models.ba import lm_device
 from surikatoko_tpu_torch.ops.transfer import host, send
+from surikatoko_tpu_torch.utils.profiling import spanned
 
 
 class PoseGraph(NamedTuple):
@@ -246,7 +247,7 @@ def _optimize(g, *, linearize, apply_step, error, sim3: bool, iters: int,
             g, blocks_fn=linearize, solve_fn=solve_fn,
             apply_fn=lambda p, dX, _du: apply_step(p, dX),
             err_fn=error, err_thresh=None, max_factor=max_damping,
-            max_iters=iters, initial_factor=damping)
+            max_iters=iters, initial_factor=damping, name="posegraph")
         return g_out
 
     lam = damping
@@ -264,6 +265,7 @@ def _optimize(g, *, linearize, apply_step, error, sim3: bool, iters: int,
     return g
 
 
+@spanned("posegraph.sim3")
 def optimize_sim3_graph(g: Sim3Graph, iters: int = 30,
                         damping: float = 1e-6,
                         max_damping: float = 1e8,
@@ -274,7 +276,8 @@ def optimize_sim3_graph(g: Sim3Graph, iters: int = 30,
     ``device_loop=True`` runs the BA's device-loop LM
     (models/ba/lm_device.py): one packed read per trial instead of the host
     schedule's read per attempt, and the linearization is kept across
-    damping retries, where the host schedule re-linearizes."""
+    damping retries, where the host schedule re-linearizes. A call is the
+    span ``posegraph.sim3``."""
     return _optimize(g, linearize=_sim3_linearize,
                      apply_step=_sim3_apply_step, error=sim3_graph_error,
                      sim3=True, iters=iters, damping=damping,

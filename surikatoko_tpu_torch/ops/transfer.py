@@ -1,18 +1,22 @@
 """Host <-> device copies of the host-driven pipelines, one each way: a
 group of host arrays goes up as one copy (from pinned memory on the card,
 so it does not block the host), and a group of device results comes back
-as one packed copy (one wait for the card)."""
+as one packed copy (one wait for the card). Each read back is a
+``host_read`` span (``utils.profiling``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from surikatoko_tpu_torch.utils.profiling import span
+
 
 def host(a) -> np.ndarray:
     """A host numpy array of ``a`` (a tensor is read back)."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        with span("host_read"):
+            return a.detach().cpu().numpy()
     return np.asarray(a)
 
 
@@ -38,8 +42,9 @@ def send(device, dtype: torch.dtype, *arrays) -> list[torch.Tensor]:
 def fetch(*tensors: torch.Tensor) -> list[np.ndarray]:
     """Device tensors back to the host as one packed copy, in the first
     one's dtype, each in its own shape."""
-    flat = torch.cat([t.reshape(-1).to(tensors[0].dtype)
-                      for t in tensors]).cpu().numpy()
+    with span("host_read"):
+        flat = torch.cat([t.reshape(-1).to(tensors[0].dtype)
+                          for t in tensors]).cpu().numpy()
     out, i = [], 0
     for t in tensors:
         n = t.numel()

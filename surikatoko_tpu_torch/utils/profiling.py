@@ -9,7 +9,8 @@ device timelines, and appends a :class:`Span` to an in-memory record whose
 clock is the profiler events' own (``time.time_ns()``, the Unix clock that
 kineto stamps its events with), so a span lines up with the kernels of the
 same trace. Each profiler session starts a new record; :func:`window`
-returns the latest one. Spans of the MonoSlam frame:
+returns the latest one. ``spanned(name)`` makes every call of a function
+a span. Spans of the MonoSlam frame:
 
   ``frame``                 one frame of a loop (one batched step under
                             ``torch.func.vmap``): the scan runners' frame
@@ -37,11 +38,34 @@ returns the latest one. Spans of the MonoSlam frame:
                             pageable host array to the card (which
                             synchronizes the stream)
 
+Spans of the incremental SfM pass (``models/mvf/session``):
+
+  ``mvf.frame``             one keyframe of ``MvfSession.frame``: its
+                            integration and the BA its index calls for
+  ``mvf.integrate``         ``integrate_new_frame_corners``: inside it
+                            ``mvf.localize`` (anchor, shared tracks and
+                            their depths, on the host) and
+                            ``mvf.triangulate`` (fresh tracks and their
+                            batch; accepting and storing the points), and
+                            the fused device work with its one read
+  ``ba.window``, ``ba.global``   a sliding-window or a global BA; inside
+                            each ``ba.build`` (the problem's assembly and
+                            upload, the band plan), ``ba.blocks`` (the
+                            Gauss-Newton blocks of an LM iteration) and
+                            ``ba.trial`` (one damped trial: solve, apply,
+                            evaluate, fetch)
+  ``pr.describe``, ``pr.match``, ``pr.ransac``   place recognition's stages
+  ``posegraph.sim3``        the Sim(3) pose graph's optimization (its LM
+                            records ``posegraph.blocks`` and
+                            ``posegraph.trial``)
+
 ``count(name, n)`` adds to an always-on total that :func:`counts` reads:
 ``b1.calls``, ``b2.calls`` and ``b2.rows_calls`` count host calls of the
 kernels (a replayed CUDA graph calls nothing; its capture calls once);
 ``frame.graph_captures`` and ``frame.graph_replays`` count the scan
-runners' frame graphs captured and replayed.
+runners' frame graphs captured and replayed; ``ba.runs``,
+``ba.iterations`` (accepted LM steps) and ``ba.trials`` (damped solves)
+count bundle adjustment's LM (``posegraph.*`` the pose graph's).
 
 ``device_trace`` writes a Chrome trace of a block; ``cuda_ms`` and
 ``device_profile`` time a call on the card.
@@ -50,6 +74,7 @@ runners' frame graphs captured and replayed.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from typing import NamedTuple
 
@@ -106,6 +131,17 @@ def span(name: str):
     if not _autograd_profiler._is_profiler_enabled:
         return _NOOP
     return _On(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function is the span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 def window() -> list[Span]:

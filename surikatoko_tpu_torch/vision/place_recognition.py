@@ -10,7 +10,8 @@ candidate pairs verifies them. The surviving pairs feed
 A group's images go to the device as one copy and its keypoints as
 another; its frames are described there one by one and the group's track
 descriptors gathered there: nothing is read back until the matcher reads
-its mask and indices, once.
+its mask and indices, once. Spans (``utils.profiling``): ``pr.describe``,
+``pr.match`` and ``pr.ransac``, one a call.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from surikatoko_tpu_torch import config
 from surikatoko_tpu_torch.geom.align import apply_similarity, umeyama_similarity
 from surikatoko_tpu_torch.models.sfm import ransac as ransac_mod
 from surikatoko_tpu_torch.ops.transfer import fetch, send
+from surikatoko_tpu_torch.utils.profiling import span, spanned
 from surikatoko_tpu_torch.vision import descriptors as desc_mod
 
 
@@ -33,6 +35,7 @@ class TrackDescriptors(NamedTuple):
     count: np.ndarray     # [T] observations aggregated per track
 
 
+@spanned("pr.describe")
 def describe_tracks(frames: Iterable[tuple[np.ndarray, np.ndarray,
                                            Sequence[int]]],
                     device: torch.device | str = "cuda") -> TrackDescriptors:
@@ -61,6 +64,7 @@ def describe_tracks(frames: Iterable[tuple[np.ndarray, np.ndarray,
                             count.astype(np.int64))
 
 
+@spanned("pr.match")
 def match_track_groups(a: TrackDescriptors, b: TrackDescriptors,
                        max_distance: int = 64, ratio: float = 0.85
                        ) -> list[tuple[int, int]]:
@@ -79,6 +83,7 @@ def match_track_groups(a: TrackDescriptors, b: TrackDescriptors,
             for i in np.nonzero(good)[0]]
 
 
+@spanned("pr.ransac")
 def ransac_similarity_pairs(A: np.ndarray, B: np.ndarray, threshold: float,
                             generator: torch.Generator | None = None,
                             iterations: int = 256, *,
@@ -114,7 +119,8 @@ def ransac_similarity_pairs(A: np.ndarray, B: np.ndarray, threshold: float,
 
     out = ransac_mod.ransac(n, 3, fit, resid, threshold=threshold ** 2,
                             samples=idx)
-    return out.inliers.cpu().numpy()
+    with span("host_read"):
+        return out.inliers.cpu().numpy()
 
 
 def verify_loop_pairs(cand: list[tuple[int, int]],

@@ -54,14 +54,14 @@ def so3_departure(R_list) -> float:
 
 def probe_so3(device) -> list:
     out = []
-    run_ba = factorizer.MultiViewFactorizer._run_ba
+    run_ba = factorizer.MultiViewFactorizer.run_global_ba
     compute = factorizer.BundleAdjustment.compute_inplace
     for name, dtype, project in (("f64", torch.float64, True),
                                  ("f32", torch.float32, True),
                                  ("f32_unprojected", torch.float32, False)):
         seen = {}
 
-        def recording_run_ba(self, pin_frames=()):
+        def recording_global_ba(self, pin_frames=()):
             if pin_frames:
                 seen["departure_before"] = so3_departure(self.cam_cfw_R)
             run_ba(self, pin_frames)
@@ -76,7 +76,7 @@ def probe_so3(device) -> list:
                                         for f in self.pin_frames}
             return ok, p_opt
 
-        factorizer.MultiViewFactorizer._run_ba = recording_run_ba
+        factorizer.MultiViewFactorizer.run_global_ba = recording_global_ba
         factorizer.BundleAdjustment.compute_inplace = recording_compute
         nearest = factorizer._nearest_rotations
         if not project:
@@ -85,7 +85,7 @@ def probe_so3(device) -> list:
             _, res = demo.run_factorizer(12, 0.5, True, seed=0, device=device,
                                          dtype=dtype)
         finally:
-            factorizer.MultiViewFactorizer._run_ba = run_ba
+            factorizer.MultiViewFactorizer.run_global_ba = run_ba
             factorizer.BundleAdjustment.compute_inplace = compute
             factorizer._nearest_rotations = nearest
         out.append({"probe": "so3", "run": name, **seen,
