@@ -49,9 +49,11 @@ def frame_var_mask(n_frames: int, unity_comp_ind: int = 1,
     frame 0 keeps only intrinsics; frame 1 loses T[unity_comp]; others free.
     ``optimize_intrinsics=False`` pins the four intrinsic vars of every
     frame; ``pin_frames`` freezes the pose (T, W) of more frames."""
+    # every write a slice, so a fill on the device: a one-element index
+    # would copy a host scalar up (a sync, and no CUDA graph can capture it)
     mask = torch.ones((n_frames, FRAME_VARS), dtype=torch.bool, device=device)
     mask[0, 4:] = False
-    mask[1, 4 + unity_comp_ind] = False
+    mask[1, 4 + unity_comp_ind:5 + unity_comp_ind] = False
     for f in pin_frames:
         mask[int(f), 4:] = False
     if not optimize_intrinsics:

@@ -15,7 +15,9 @@ lm_device.run_lm_on_device, one packed fetch per trial, with the gauge
 check, normalization and revert on the device around it. Both take the
 same path. Both record the spans ``ba.blocks`` and ``ba.trial`` and the
 counters ``ba.runs``, ``ba.iterations`` and ``ba.trials`` (lm_device.py);
-``ba.build`` marks the band plan.
+``ba.build`` marks the band plan. On a card the device form replays the
+CUDA graphs that the BA object keeps (``lm_device.LMGraphs``), one pair a
+problem shape, so a run at a shape seen before captures nothing.
 """
 
 from __future__ import annotations
@@ -90,7 +92,8 @@ def _run_device_loop(ba, p, term_crit: TermCriteria, blocks_fn, solve_fn,
     def lm(q, valid=None):
         return lm_device.run_lm_on_device(
             q, blocks_fn=blocks_fn, solve_fn=solve_fn, apply_fn=apply_fn,
-            err_fn=err_fn, valid=valid, **_lm_limits(term_crit))
+            err_fn=err_fn, valid=valid, graphs=ba._graphs,
+            **_lm_limits(term_crit))
     p_out, code, iters, _, trials = (lm(p) if gauge is None
                                      else _in_gauge(p, lm, *gauge))
     ba.iterations = iters
@@ -170,6 +173,8 @@ class BundleAdjustment:
     stop_reason: str = field(default="", init=False)
     iterations: int = field(default=0, init=False)
     trials: int = field(default=0, init=False)   # damped solves incl. rejected
+    _graphs: lm_device.LMGraphs = field(default_factory=lm_device.LMGraphs,
+                                        init=False, repr=False, compare=False)
 
     def _fns(self):
         kw = dict(unity_comp_ind=self.unity_comp_ind,
@@ -262,6 +267,8 @@ class SparseBundleAdjustment:
         self._band_ext = None
         self._mesh_band_plan = None
         self._sharded = None
+        self._fmasks = {}           # (F, device) -> frame_var_mask
+        self._graphs = lm_device.LMGraphs()
 
     def set_plan_inputs(self, frame_idx, obs_mask) -> None:
         """Host-side numpy (frame_idx, obs_mask) for the banding plan, so
@@ -303,29 +310,37 @@ class SparseBundleAdjustment:
             fi_plan, om_plan = self._plan_src(p)
             plan = sp.plan_bands(fi_plan, om_plan, self.point_chunk,
                                  p.n_frames)
+        if plan is not None or self._plan is not None:
+            self._graphs.clear()        # their solve read the old plan
         self._plan = plan
         self._band_ext = (None if plan is None else
                           torch.as_tensor(plan.ext_idx, device=p.points.device))
 
-    def _solve(self, p, blocks, factor):
+    def _fns(self, p):
+        """The LM's functions for ``p`` under the current plan
+        (:meth:`_plan_band` first). The frame-variable mask is made once a
+        frame count and kept, so the LM's graphs read it in place."""
+        pins = tuple(int(f) for f in self.pin_frames)
+        key = (p.n_frames, p.points.device)
+        if key not in self._fmasks:
+            self._fmasks[key] = derivs.frame_var_mask(
+                p.n_frames, self.unity_comp_ind, self.optimize_intrinsics,
+                pins, p.points.device)
         kw = dict(unity_comp_ind=self.unity_comp_ind,
                   optimize_intrinsics=self.optimize_intrinsics,
-                  pin_frames=tuple(int(f) for f in self.pin_frames))
-        self._plan_band(p)
+                  pin_frames=pins, fmask=self._fmasks[key])
         if self._sharded is not None:
-            return self._sharded(p, blocks, factor)
-        if self._plan is not None:
-            return sp.solve_corrections_schur_banded(
-                p, blocks, factor, self._plan, ext_idx=self._band_ext, **kw)
-        return sp.solve_corrections_schur_sparse(
-            p, blocks, factor, point_chunk=self.point_chunk, **kw)
-
-    def _fns(self):
-        blocks_fn = functools.partial(
-            sp.compute_blocks, unity_comp_ind=self.unity_comp_ind,
-            optimize_intrinsics=self.optimize_intrinsics,
-            pin_frames=tuple(int(f) for f in self.pin_frames))
-        return blocks_fn, self._solve, sp.apply_corrections, sp.reproj_error
+            solve_fn = self._sharded
+        elif self._plan is not None:
+            solve_fn = functools.partial(
+                sp.solve_corrections_schur_banded, plan=self._plan,
+                ext_idx=self._band_ext, **kw)
+        else:
+            solve_fn = functools.partial(
+                sp.solve_corrections_schur_sparse,
+                point_chunk=self.point_chunk, **kw)
+        return (functools.partial(sp.compute_blocks, **kw), solve_fn,
+                sp.apply_corrections, sp.reproj_error)
 
     def compute_inplace(self, p, term_crit: TermCriteria | None = None):
         """Full pipeline mirroring :meth:`BundleAdjustment.compute_inplace`:
@@ -335,7 +350,7 @@ class SparseBundleAdjustment:
         with span("ba.build"):
             self._plan_band(p)
         if self.device_loop:
-            return _run_device_loop(self, p, term_crit, *self._fns(),
+            return _run_device_loop(self, p, term_crit, *self._fns(p),
                                     gauge=(1.0, self.unity_comp_ind))
         if not normalize.can_normalize(p, self.unity_comp_ind):
             self.stop_reason = "cannot normalize (zero cam0-cam1 shift)"
@@ -350,4 +365,4 @@ class SparseBundleAdjustment:
         with span("ba.build"):
             self._plan_band(p)
         loop = _run_device_loop if self.device_loop else _host_loop
-        return loop(self, p, term_crit, *self._fns())
+        return loop(self, p, term_crit, *self._fns(p))

@@ -21,11 +21,19 @@ package) on the fetched values, kept in the problem's dtype as the JAX
 program keeps them, so it takes the same path: the same stop reason,
 iterations and trials.
 
+On a card, a one-problem run replays both pieces of device work that the
+schedule does not decide from CUDA graphs (:class:`LMGraphs`): the blocks,
+and the trial's solve, apply and evaluation as one graph. The schedule, its
+decisions and its fetch a trial are the same in both forms.
+
 Spans (``utils.profiling``), named by the caller's ``name`` ("ba" for
 bundle adjustment): ``<name>.blocks`` (the Gauss-Newton blocks of an
 iteration), ``<name>.trial`` (one damped trial: solve, apply, evaluate and
-its fetch) and ``host_read`` around each fetch; counters ``<name>.runs``,
-``<name>.iterations`` (accepted steps) and ``<name>.trials``.
+its fetch), ``<name>.graph`` inside either around a replay of a graph
+captured by an earlier call, and ``host_read`` around each fetch; counters
+``<name>.runs``, ``<name>.iterations`` (accepted steps), ``<name>.trials``,
+``<name>.graph_captures`` (graphs captured) and ``<name>.graph_replays``
+(graph launches, the one after each capture included).
 """
 
 from __future__ import annotations
@@ -100,6 +108,7 @@ def run_lm_on_device(
     eps_floor_mult: float = 32.0,
     valid: torch.Tensor | None = None,
     name: str = "ba",
+    graphs: "LMGraphs | None" = None,
 ) -> tuple[Any, int, int, float, int]:
     """Returns (p_final, stop_code, iterations, final_err, trials) where
     ``trials`` counts every damped solve including rejected damping retries
@@ -109,10 +118,17 @@ def run_lm_on_device(
     LM never runs and the stop code is STOP_CANNOT_NORMALIZE. It rides in
     the same fetch as the initial error. The schedule is
     :func:`run_lm_on_device_batched`'s, on one problem and its 0-d state;
-    ``name`` names its spans and counters."""
+    ``name`` names its spans and counters.
+
+    Where every field of ``p0`` is a CUDA tensor, none requiring grad or
+    wrapped by ``torch.func``, and no capture is under way, the blocks and
+    the trials replay CUDA graphs (:class:`LMGraphs`): those of ``graphs``,
+    a store that its owner keeps across runs of the same functions, or
+    without one, graphs captured for this run. ``solve_fn`` then takes the
+    factor as a 0-d tensor of the problem's dtype; elsewhere as a float."""
     r = _schedule(p0, (blocks_fn, solve_fn, apply_fn, err_fn), False,
                   err_thresh, max_factor, max_iters, initial_factor,
-                  eps_floor_mult, valid, name)
+                  eps_floor_mult, valid, name, graphs)
     return r.p, r.code.item(), r.iters.item(), r.err.item(), r.trials.item()
 
 
@@ -160,23 +176,164 @@ def run_lm_on_device_batched(
     runs, keeps ``p0`` and stops with STOP_CANNOT_NORMALIZE."""
     return _schedule(p0, (blocks_fn, solve_fn, apply_fn, err_fn), True,
                      err_thresh, max_factor, max_iters, initial_factor,
-                     eps_floor_mult, valid, "ba")
+                     eps_floor_mult, valid, "ba", None)
+
+
+class _Eager:
+    """The LM's device work called as it is: over a batch (the functions
+    mapped with ``torch.func.vmap``), or for one problem that takes no
+    graph."""
+
+    def __init__(self, fns, batched: bool):
+        if batched:
+            fns = tuple(torch.func.vmap(f) for f in fns)
+        self.blocks, self.solve_fn, self.apply_fn, self.err_fn = fns
+
+    def trial(self, p, blocks, factor):
+        """(ok, err, p_try) of the damped step at ``factor``."""
+        dX, du, ok = self.solve_fn(p, blocks, factor)
+        p_try = self.apply_fn(p, dX, du)
+        return ok, self.err_fn(p_try), p_try
+
+    @staticmethod
+    def accept(p_try):
+        return p_try
+
+    @staticmethod
+    def result(p, _p0):
+        return p
+
+
+def _graphable(p0) -> bool:
+    """Whether a one-problem run may replay graphs: every field a CUDA
+    tensor that does not require grad and is not wrapped by ``torch.func``,
+    and no capture under way."""
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return (all(isinstance(t, torch.Tensor) and t.is_cuda
+                and not t.requires_grad and not wrapped(t) for t in p0)
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class LMGraphs:
+    """The CUDA graphs of one-problem LM runs on a card, one
+    :class:`_LMGraph` a key: the shapes, dtypes and device of the problem's
+    fields. Its owner hands it to runs of the same functions and clears it
+    when they change (a sparse BA when its band plan does)."""
+
+    def __init__(self):
+        self._graphs = {}
+
+    def clear(self) -> None:
+        self._graphs.clear()
+
+    def get(self, p0, fns, name: str, dtype: torch.dtype) -> "_LMGraph":
+        key = tuple((t.shape, t.dtype, t.device) for t in p0)
+        g = self._graphs.get(key)
+        if g is None:
+            g = self._graphs[key] = _LMGraph(p0, fns, name, dtype)
+        return g
+
+
+class _LMGraph:
+    """One key's graphs and the static buffers they read: the problem
+    (``p``, loaded once a run and replaced field by field by an accepted
+    step), the damping factor (a 0-d tensor of the problem's dtype,
+    refilled before each trial) and the blocks graph's outputs. The blocks
+    graph computes ``blocks_fn(p)``; the trial graph ``solve_fn``,
+    ``apply_fn`` and ``err_fn``, giving (ok, err, p_try). Each is captured
+    at its first call, after a warm-up on a side stream (the lazy set-up of
+    cuBLAS, cuSOLVER and the allocator, as ``torch.cuda.graphs`` asks),
+    into a pool of its own, and replayed at once; every later call
+    replays it under the span ``<name>.graph``."""
+
+    def __init__(self, p0, fns, name: str, dtype: torch.dtype):
+        self.fns, self.name = fns, name
+        self.p = type(p0)(*(torch.empty_like(
+            t, memory_format=torch.contiguous_format) for t in p0))
+        self.factor = torch.empty((), dtype=dtype, device=p0[0].device)
+        self.stream = torch.cuda.Stream(p0[0].device)
+        self.graphs = {}      # part -> (graph, its outputs)
+        self.varying = None   # the fields of p that a step replaces
+
+    def load(self, p0):
+        for dst, src in zip(self.p, p0):
+            dst.copy_(src)
+        return self.p
+
+    def blocks(self, _p):
+        return self._run("blocks", lambda: self.fns[0](self.p))
+
+    def trial(self, _p, blocks, factor: float):
+        solve_fn, apply_fn, err_fn = self.fns[1:]
+
+        def work():
+            dX, du, ok = solve_fn(self.p, blocks, self.factor)
+            p_try = apply_fn(self.p, dX, du)
+            return ok, err_fn(p_try), p_try
+        self.factor.fill_(factor)
+        ok, err, p_try = self._run("trial", work)
+        if self.varying is None:
+            self.varying = [i for i, (a, b) in enumerate(zip(p_try, self.p))
+                            if a is not b]
+        return ok, err, p_try
+
+    def accept(self, p_try):
+        """The step's fields copied into ``p``, where the next blocks read
+        them (device to device)."""
+        for i in self.varying:
+            self.p[i].copy_(p_try[i])
+        return self.p
+
+    def result(self, p, p0):
+        """The run's problem, the caller's own: the fields a step replaces
+        cloned from ``p`` (a later run overwrites it), the others
+        ``p0``'s."""
+        return type(p0)(*(p[i].clone() if i in self.varying else t
+                          for i, t in enumerate(p0)))
+
+    def _run(self, part: str, work):
+        got = self.graphs.get(part)
+        if got is None:
+            got = self.graphs[part] = self._capture(work)
+            got[0].replay()
+        else:
+            with span(self.name + ".graph"):
+                got[0].replay()
+        count(self.name + ".graph_replays")
+        return got[1]
+
+    def _capture(self, work):
+        dev = self.factor.device
+        with torch.cuda.device(dev):
+            cur = torch.cuda.current_stream(dev)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                work()
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin()
+                try:
+                    out = work()
+                finally:
+                    graph.capture_end()
+            cur.wait_stream(self.stream)
+        count(self.name + ".graph_captures")
+        return graph, out
 
 
 # a failed trial's error may be inf or nan: ``ok`` masks it out of every
 # decision, so numpy's warnings about it say nothing
 @np.errstate(invalid="ignore", over="ignore")
 def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
-              initial_factor, eps_floor_mult, valid, name: str) -> BatchedLM:
+              initial_factor, eps_floor_mult, valid, name: str,
+              graphs) -> BatchedLM:
     """The LM schedule over a batch (the functions mapped with
     ``torch.func.vmap``, the factor a [B] tensor) or over one problem
     (``batched`` False: its state is numpy vectors of one entry, the factor
-    reaches ``solve_fn`` as a float); ``name`` prefixes its spans and
-    counters."""
-    if batched:
-        fns = tuple(torch.func.vmap(f) for f in fns)
-    blocks_fn, solve_fn, apply_fn, err_fn = fns
-    err0 = err_fn(p0)
+    reaches ``solve_fn`` as a float, or as a 0-d tensor where the run
+    replays ``graphs``' graphs, :func:`run_lm_on_device`); ``name``
+    prefixes its spans and counters."""
+    work = _Eager(fns, batched)
+    err0 = work.err_fn(p0)
     dev = err0.device
     npd = _NP_DTYPE[err0.dtype]
     if valid is None:
@@ -184,6 +341,10 @@ def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
     ok0, err = _fetch(valid, err0)
     shape = err.shape
     code = np.where(ok0 != 0, STOP_RUNNING, STOP_CANNOT_NORMALIZE)
+    p = p0
+    if not batched and (code == STOP_RUNNING).all() and _graphable(p0):
+        work = (graphs or LMGraphs()).get(p0, fns, name, err0.dtype)
+        p = work.load(p0)
     eps_floor = npd(eps_floor_mult * float(np.finfo(npd).eps))
     # no |change| is below -inf and no factor above +inf: a criterion given
     # as None never fires
@@ -193,7 +354,6 @@ def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
     iters = np.zeros(shape, np.int64)
     trials = np.zeros(shape, np.int64)
     outer_rounds = trial_rounds = 0
-    p = p0
 
     def factor_arg(f):
         return (torch.as_tensor(f, dtype=err0.dtype, device=dev) if batched
@@ -201,7 +361,7 @@ def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
 
     while (code == STOP_RUNNING).any():
         with span(name + ".blocks"):
-            blocks = blocks_fn(p)
+            blocks = work.blocks(p)
         outer_rounds += 1
         damping = code == STOP_RUNNING
         has_prev = np.zeros(shape, bool)
@@ -213,9 +373,8 @@ def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
         # damp (overflow check after damping)
         while damping.any():
             with span(name + ".trial"):
-                dX, du, ok = solve_fn(p, blocks, factor_arg(factor))
-                p_try = apply_fn(p, dX, du)
-                ok, err_new = _fetch(ok, err_fn(p_try))
+                ok, err_new, p_try = work.trial(p, blocks, factor_arg(factor))
+                ok, err_new = _fetch(ok, err_new)
             trial_rounds += 1
             trials += damping
             # a trial that counts: solved, finite, of a damping problem
@@ -231,7 +390,7 @@ def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
             if decreased.all():
                 # every problem accepts this trial (one problem always does
                 # when it decreases): no selection needed
-                p_acc = p_try
+                p_acc = work.accept(p_try)
             elif decreased.any():
                 p_acc = select(torch.as_tensor(decreased, device=dev), p_try,
                                p_acc)
@@ -260,4 +419,5 @@ def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
     count(name + ".runs", code.size)
     count(name + ".iterations", int(iters.sum()))
     count(name + ".trials", int(trials.sum()))
-    return BatchedLM(p, code, iters, err, trials, outer_rounds, trial_rounds)
+    return BatchedLM(work.result(p, p0), code, iters, err, trials,
+                     outer_rounds, trial_rounds)

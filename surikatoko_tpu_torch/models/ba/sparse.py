@@ -98,9 +98,21 @@ def reproj_error(p: BAProblemSparse) -> torch.Tensor:
     return torch.sum(r * r)
 
 
+def _free_vars(F: int, unity_comp_ind: int, optimize_intrinsics: bool,
+               pin_frames: tuple, device, fmask) -> torch.Tensor:
+    """``fmask`` where the caller made it once (``derivs.frame_var_mask``
+    of the same arguments; SparseBundleAdjustment keeps one), else built
+    here."""
+    if fmask is not None:
+        return fmask
+    return frame_var_mask(F, unity_comp_ind, optimize_intrinsics, pin_frames,
+                          device)
+
+
 def compute_blocks(p: BAProblemSparse, unity_comp_ind: int = 1,
                    pin_frames: tuple = (),
-                   optimize_intrinsics: bool = True) -> SparseBlocks:
+                   optimize_intrinsics: bool = True,
+                   fmask: torch.Tensor | None = None) -> SparseBlocks:
     dtype = p.points.dtype
     F = p.n_frames
     per_track = vmap(dv.per_obs_jacobians, in_dims=(0, 0, 0, 0, None))
@@ -109,8 +121,8 @@ def compute_blocks(p: BAProblemSparse, unity_comp_ind: int = 1,
     m = p.obs_mask[..., None].to(dtype)
     r = r * m
     Jp = Jp * m[..., None]
-    fmask = frame_var_mask(F, unity_comp_ind, optimize_intrinsics, pin_frames,
-                           p.points.device).to(dtype)
+    fmask = _free_vars(F, unity_comp_ind, optimize_intrinsics, pin_frames,
+                       p.points.device, fmask).to(dtype)
     Jf = Jf * m[..., None] * fmask[p.frame_idx][:, :, None, :]
 
     E = torch.einsum("ilca,ilcb->iab", Jp, Jp)
@@ -175,9 +187,12 @@ def _finish(blocks_gf, G, Sg, red, Lch, Fpf, gp, fidx, F):
     rhs = (-(blocks_gf - red)).reshape(F * FRAME_VARS)
     du, info_S = preconditioned_cholesky_solve(S2, rhs)
     du = du.reshape(F, FRAME_VARS)
-    # back-substitute through the point Cholesky factor (no batched inverse)
+    # back-substitute through the point Cholesky factor (no batched inverse),
+    # as two triangular solves: the batched ``cholesky_solve`` runs MAGMA's
+    # on the card, which a CUDA graph cannot capture
     rhs_pt = gp + torch.einsum("ilab,ilb->ia", Fpf, du[fidx])
-    dX = -torch.cholesky_solve(rhs_pt[:, :, None], Lch)[..., 0]
+    y = torch.linalg.solve_triangular(Lch, rhs_pt[:, :, None], upper=False)
+    dX = -torch.linalg.solve_triangular(Lch.mT, y, upper=True)[..., 0]
     return du, dX, info_S
 
 
@@ -185,6 +200,7 @@ def solve_corrections_schur_sparse(
     p: BAProblemSparse, blocks: SparseBlocks, hessian_factor,
     unity_comp_ind: int = 1, optimize_intrinsics: bool = True,
     point_chunk: int = 2048, pin_frames: tuple = (),
+    fmask: torch.Tensor | None = None,
 ):
     """Two-phase Schur solve with full-width Gram strips: per point chunk,
     one [10F, 3pc] @ [3pc, 10F] product accumulates every (l, m)
@@ -193,8 +209,8 @@ def solve_corrections_schur_sparse(
     factor. Returns (dX, du, ok); a failed factorization (point or reduced)
     gives ok=False."""
     F = p.n_frames
-    fmask = frame_var_mask(F, unity_comp_ind, optimize_intrinsics, pin_frames,
-                           blocks.E.device)
+    fmask = _free_vars(F, unity_comp_ind, optimize_intrinsics, pin_frames,
+                       blocks.E.device, fmask)
     G = _fixed_var_identity(_damp(blocks.G, hessian_factor), fmask)
     Lch, info_E, Bv, Rv = _point_factor(
         _damp(blocks.E, hessian_factor), blocks.Fpf, blocks.gp)
@@ -397,7 +413,7 @@ def solve_corrections_schur_banded(
     p: BAProblemSparse, blocks: SparseBlocks, hessian_factor,
     plan: BandPlan, ext_idx: torch.Tensor | None = None,
     unity_comp_ind: int = 1, optimize_intrinsics: bool = True,
-    pin_frames: tuple = (),
+    pin_frames: tuple = (), fmask: torch.Tensor | None = None,
 ):
     """Banded variant of :func:`solve_corrections_schur_sparse`: points in
     first-observed-frame order (:func:`plan_bands`), so each banded
@@ -410,8 +426,8 @@ def solve_corrections_schur_banded(
     dev = blocks.E.device
     if ext_idx is None:
         ext_idx = torch.as_tensor(plan.ext_idx, device=dev)
-    fmask = frame_var_mask(F, unity_comp_ind, optimize_intrinsics, pin_frames,
-                           dev)
+    fmask = _free_vars(F, unity_comp_ind, optimize_intrinsics, pin_frames,
+                       dev, fmask)
     G = _fixed_var_identity(_damp(blocks.G, hessian_factor), fmask)
     Sg, red, Lch, info_E, Fpf_s, gp_s, fidx_s = _banded_reduction(
         _damp(blocks.E, hessian_factor), blocks.Fpf, blocks.gp, p.frame_idx,

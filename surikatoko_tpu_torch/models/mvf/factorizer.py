@@ -993,7 +993,10 @@ class MultiViewFactorizer:
                     optimize_intrinsics=False, pin_frames=pins,
                     point_chunk=self.ba_point_chunk, unity_comp_ind=uci,
                     group=self.ba_group, device_loop=self.ba_device_loop)
-                self._ba_cache[key] = ba
+                # only the newest: each run plans its bands anew, so an
+                # older BA's plan and the CUDA graphs captured for it
+                # serve no later run, and their memory goes
+                self._ba_cache = {key: ba}
             ba.set_plan_inputs(*self._last_sparse_inputs)
             _t1 = time.perf_counter()
             ok, p_opt = ba.compute_inplace(p, term)

@@ -16,7 +16,9 @@ the framework). Edges are a masked array of fixed size.
 Both LM forms of the JAX package are here: the host schedule (a blocking
 error read per attempt) and ``device_loop=True``, which runs
 models/ba/lm_device.run_lm_on_device (a host loop with one packed read per
-trial and the linearization kept across damping retries).
+trial and the linearization kept across damping retries; on a card its
+linearization and trials replay CUDA graphs captured for the run, counted
+as ``posegraph.graph_captures`` and ``posegraph.graph_replays``).
 """
 
 from __future__ import annotations
@@ -90,7 +92,8 @@ def _free_mask(N: int, dtype, device, sim3: bool) -> torch.Tensor:
     free[0:3] = 0.0
     free[3 * N:3 * N + 3] = 0.0
     if sim3:
-        free[6 * N] = 0.0
+        # a slice: fills on the device (see derivs.frame_var_mask)
+        free[6 * N:6 * N + 1] = 0.0
     return free
 
 
@@ -110,7 +113,7 @@ def _linearize(g: PoseGraph) -> tuple[torch.Tensor, torch.Tensor]:
     return r, J * _free_mask(N, z.dtype, z.device, sim3=False)[None, :]
 
 
-def _solve_damped(blocks, lam: float, sim3: bool) -> torch.Tensor:
+def _solve_damped(blocks, lam, sim3: bool) -> torch.Tensor:
     """-(JᵀJ + λI + pin-diag)⁻¹ Jᵀr: one damped GN step. No error check:
     a singular system gives non-finite entries, which the LM rejects."""
     r, J = blocks
@@ -239,7 +242,11 @@ def _optimize(g, *, linearize, apply_step, error, sim3: bool, iters: int,
     ``max_damping``."""
     if device_loop:
         def solve_fn(_p, blocks, factor):
-            d = _solve_damped(blocks, max(factor, damping), sim3)
+            # a graphed run's factor is a 0-d device tensor, which the
+            # host's max would read back
+            lam = (torch.clamp(factor, min=damping) if torch.is_tensor(factor)
+                   else max(factor, damping))
+            d = _solve_damped(blocks, lam, sim3)
             return d, torch.zeros((), dtype=d.dtype, device=d.device), \
                 torch.isfinite(d).all()
 

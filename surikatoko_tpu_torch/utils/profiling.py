@@ -53,19 +53,23 @@ Spans of the incremental SfM pass (``models/mvf/session``):
                             upload, the band plan), ``ba.blocks`` (the
                             Gauss-Newton blocks of an LM iteration) and
                             ``ba.trial`` (one damped trial: solve, apply,
-                            evaluate, fetch)
+                            evaluate, fetch); inside either ``ba.graph``,
+                            a replay of its CUDA graph captured by an
+                            earlier call (``models/ba/lm_device``)
   ``pr.describe``, ``pr.match``, ``pr.ransac``   place recognition's stages
   ``posegraph.sim3``        the Sim(3) pose graph's optimization (its LM
-                            records ``posegraph.blocks`` and
-                            ``posegraph.trial``)
+                            records ``posegraph.blocks``,
+                            ``posegraph.trial`` and ``posegraph.graph``)
 
 ``count(name, n)`` adds to an always-on total that :func:`counts` reads:
 ``b1.calls``, ``b2.calls`` and ``b2.rows_calls`` count host calls of the
 kernels (a replayed CUDA graph calls nothing; its capture calls once);
 ``frame.graph_captures`` and ``frame.graph_replays`` count the scan
 runners' frame graphs captured and replayed; ``ba.runs``,
-``ba.iterations`` (accepted LM steps) and ``ba.trials`` (damped solves)
-count bundle adjustment's LM (``posegraph.*`` the pose graph's).
+``ba.iterations`` (accepted LM steps), ``ba.trials`` (damped solves),
+``ba.graph_captures`` (CUDA graphs of its blocks or trial captured) and
+``ba.graph_replays`` (their launches) count bundle adjustment's LM
+(``posegraph.*`` the pose graph's).
 
 ``device_trace`` writes a Chrome trace of a block; ``cuda_ms`` and
 ``device_profile`` time a call on the card.

@@ -30,12 +30,14 @@ from surikatoko_tpu_torch.models.ba import normalize as tn
 from surikatoko_tpu_torch.models.ba import problem as tp
 from surikatoko_tpu_torch.models.ba import schur as ts
 from surikatoko_tpu_torch.models.ba import sparse as tsp
+from surikatoko_tpu_torch.utils.profiling import counts
 from surikatoko_tpu_torch.world import ba_scene
 
 from test_ba import circle_grid_problem
 from test_ba_sparse import _local_track_problem
 
 torch.set_num_threads(2)
+GRAPH_COUNTERS = ("ba.graph_captures", "ba.graph_replays")
 BLOCK_TOL = dict(rtol=1e-9, atol=1e-12)
 SOLVE_TOL = dict(rtol=1e-7, atol=1e-10)
 
@@ -350,16 +352,19 @@ def test_torch_banded_with_unobserved_points_matches_full(rng):
 @pytest.mark.parametrize("device_loop", [False, True], ids=["host", "device"])
 def test_torch_sparse_lm_banded_matches_unbanded_and_jax(rng, device_loop):
     """test_sparse_lm_driver_banded_matches_unbanded: band=True takes the
-    band=False path, and the JAX banded one's."""
+    band=False path, and the JAX banded one's. On the CPU the device loop
+    is eager: it captures and replays no CUDA graph."""
     psj = _local_track_problem(rng, noise=0.05)
     pst = _to_torch(psj)
     term = dict(allowed_reproj_err_rel_change=1e-12, max_iters=10)
+    graphs = {c: counts().get(c, 0) for c in GRAPH_COUNTERS}
     ba_f = TSBA(point_chunk=64, band=False, device_loop=device_loop)
     ok_f, p_f = ba_f.compute(pst, TTC(**term))
     ba_b = TSBA(point_chunk=64, band=True, device_loop=device_loop)
     ba_b.set_plan_inputs(np.asarray(psj.frame_idx), np.asarray(psj.obs_mask))
     ok_b, p_b = ba_b.compute(pst, TTC(**term))
     assert ba_b._plan is not None, "banding should be active here"
+    assert {c: counts().get(c, 0) for c in GRAPH_COUNTERS} == graphs
     path = lambda d, ok: (ok, d.stop_reason, d.iterations, d.trials)  # noqa: E731
     assert path(ba_b, ok_b) == path(ba_f, ok_f)
     _close(tsp.reproj_error(p_b), tsp.reproj_error(p_f), rtol=1e-9, atol=1e-18)

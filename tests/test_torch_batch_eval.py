@@ -246,6 +246,8 @@ def test_torch_batched_lm_matches_jax_vmap():
     t_kw = dict(blocks_fn=td.compute_blocks,
                 solve_fn=lambda _p, b, f: ts.solve_corrections_schur(b, f),
                 apply_fn=td.apply_corrections, err_fn=tp.reproj_error, **kw)
+    graphs = [counts().get(c, 0) for c in ("ba.graph_captures",
+                                           "ba.graph_replays")]
     r = tlmd.run_lm_on_device_batched(interop.stack(probs_t), **t_kw)
     p_t, code_t, iters_t, err_t, trials_t = r[:5]
     # a round is one set of launches for all problems: as many as the
@@ -268,6 +270,9 @@ def test_torch_batched_lm_matches_jax_vmap():
         np.testing.assert_allclose(err_t[b], err, rtol=1e-9, atol=1e-18)
         np.testing.assert_allclose(p_t.points[b].numpy(), p1.points.numpy(),
                                    rtol=0, atol=1e-8)
+    # the batch, and one problem off the card, engage no CUDA graph
+    assert [counts().get(c, 0) for c in ("ba.graph_captures",
+                                         "ba.graph_replays")] == graphs
 
 
 @pytest.mark.parametrize("err_thresh,max_factor,max_iters,fail_below", [
