@@ -16,8 +16,8 @@ check, normalization and revert on the device around it. Both take the
 same path. Both record the spans ``ba.blocks`` and ``ba.trial`` and the
 counters ``ba.runs``, ``ba.iterations`` and ``ba.trials`` (lm_device.py);
 ``ba.build`` marks the band plan. On a card the device form replays the
-CUDA graphs that the BA object keeps (``lm_device.LMGraphs``), one pair a
-problem shape, so a run at a shape seen before captures nothing.
+CUDA graphs that the BA object keeps (a ``utils.cuda_graph.Store``), one
+pair a problem shape, so a run at a shape seen before captures nothing.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import torch.distributed as dist
 from surikatoko_tpu_torch.models.ba import derivs, lm_device, normalize, schur
 from surikatoko_tpu_torch.models.ba import sparse as sp
 from surikatoko_tpu_torch.models.ba.problem import BAProblem, reproj_error
+from surikatoko_tpu_torch.utils import cuda_graph
 from surikatoko_tpu_torch.utils.profiling import count, span
 
 
@@ -173,8 +174,8 @@ class BundleAdjustment:
     stop_reason: str = field(default="", init=False)
     iterations: int = field(default=0, init=False)
     trials: int = field(default=0, init=False)   # damped solves incl. rejected
-    _graphs: lm_device.LMGraphs = field(default_factory=lm_device.LMGraphs,
-                                        init=False, repr=False, compare=False)
+    _graphs: cuda_graph.Store = field(default_factory=cuda_graph.Store,
+                                      init=False, repr=False, compare=False)
 
     def _fns(self):
         kw = dict(unity_comp_ind=self.unity_comp_ind,
@@ -268,7 +269,7 @@ class SparseBundleAdjustment:
         self._mesh_band_plan = None
         self._sharded = None
         self._fmasks = {}           # (F, device) -> frame_var_mask
-        self._graphs = lm_device.LMGraphs()
+        self._graphs = cuda_graph.Store()
 
     def set_plan_inputs(self, frame_idx, obs_mask) -> None:
         """Host-side numpy (frame_idx, obs_mask) for the banding plan, so

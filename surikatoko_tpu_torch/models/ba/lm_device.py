@@ -22,18 +22,18 @@ program keeps them, so it takes the same path: the same stop reason,
 iterations and trials.
 
 On a card, a one-problem run replays both pieces of device work that the
-schedule does not decide from CUDA graphs (:class:`LMGraphs`): the blocks,
-and the trial's solve, apply and evaluation as one graph. The schedule, its
+schedule does not decide from CUDA graphs (``utils/cuda_graph``, which
+states the engage, warm-up, capture and naming rules): the blocks, and the
+trial's solve, apply and evaluation as one graph. The schedule, its
 decisions and its fetch a trial are the same in both forms.
 
 Spans (``utils.profiling``), named by the caller's ``name`` ("ba" for
 bundle adjustment): ``<name>.blocks`` (the Gauss-Newton blocks of an
 iteration), ``<name>.trial`` (one damped trial: solve, apply, evaluate and
-its fetch), ``<name>.graph`` inside either around a replay of a graph
-captured by an earlier call, and ``host_read`` around each fetch; counters
-``<name>.runs``, ``<name>.iterations`` (accepted steps), ``<name>.trials``,
-``<name>.graph_captures`` (graphs captured) and ``<name>.graph_replays``
-(graph launches, the one after each capture included).
+its fetch), ``<name>.graph`` inside either where it replays, and
+``host_read`` around each fetch; counters ``<name>.runs``,
+``<name>.iterations`` (accepted steps), ``<name>.trials``, and the graphs'
+``<name>.graph_captures`` and ``<name>.graph_replays``.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from surikatoko_tpu_torch.utils import cuda_graph
 from surikatoko_tpu_torch.utils.profiling import count, span
 
 STOP_RUNNING = 0
@@ -108,7 +109,7 @@ def run_lm_on_device(
     eps_floor_mult: float = 32.0,
     valid: torch.Tensor | None = None,
     name: str = "ba",
-    graphs: "LMGraphs | None" = None,
+    graphs: cuda_graph.Store | None = None,
 ) -> tuple[Any, int, int, float, int]:
     """Returns (p_final, stop_code, iterations, final_err, trials) where
     ``trials`` counts every damped solve including rejected damping retries
@@ -120,12 +121,12 @@ def run_lm_on_device(
     :func:`run_lm_on_device_batched`'s, on one problem and its 0-d state;
     ``name`` names its spans and counters.
 
-    Where every field of ``p0`` is a CUDA tensor, none requiring grad or
-    wrapped by ``torch.func``, and no capture is under way, the blocks and
-    the trials replay CUDA graphs (:class:`LMGraphs`): those of ``graphs``,
-    a store that its owner keeps across runs of the same functions, or
-    without one, graphs captured for this run. ``solve_fn`` then takes the
-    factor as a 0-d tensor of the problem's dtype; elsewhere as a float."""
+    Where ``p0``'s fields engage a graph (``cuda_graph.graphable``), the
+    blocks and the trials replay CUDA graphs: those of ``graphs``, a
+    ``cuda_graph.Store`` that its owner keeps across runs of the same
+    functions, or without one, graphs captured for this run. ``solve_fn``
+    then takes the factor as a 0-d tensor of the problem's dtype; elsewhere
+    as a float."""
     r = _schedule(p0, (blocks_fn, solve_fn, apply_fn, err_fn), False,
                   err_thresh, max_factor, max_iters, initial_factor,
                   eps_floor_mult, valid, name, graphs)
@@ -204,55 +205,23 @@ class _Eager:
         return p
 
 
-def _graphable(p0) -> bool:
-    """Whether a one-problem run may replay graphs: every field a CUDA
-    tensor that does not require grad and is not wrapped by ``torch.func``,
-    and no capture under way."""
-    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
-    return (all(isinstance(t, torch.Tensor) and t.is_cuda
-                and not t.requires_grad and not wrapped(t) for t in p0)
-            and not torch.cuda.is_current_stream_capturing())
-
-
-class LMGraphs:
-    """The CUDA graphs of one-problem LM runs on a card, one
-    :class:`_LMGraph` a key: the shapes, dtypes and device of the problem's
-    fields. Its owner hands it to runs of the same functions and clears it
-    when they change (a sparse BA when its band plan does)."""
-
-    def __init__(self):
-        self._graphs = {}
-
-    def clear(self) -> None:
-        self._graphs.clear()
-
-    def get(self, p0, fns, name: str, dtype: torch.dtype) -> "_LMGraph":
-        key = tuple((t.shape, t.dtype, t.device) for t in p0)
-        g = self._graphs.get(key)
-        if g is None:
-            g = self._graphs[key] = _LMGraph(p0, fns, name, dtype)
-        return g
-
-
 class _LMGraph:
-    """One key's graphs and the static buffers they read: the problem
-    (``p``, loaded once a run and replaced field by field by an accepted
-    step), the damping factor (a 0-d tensor of the problem's dtype,
-    refilled before each trial) and the blocks graph's outputs. The blocks
-    graph computes ``blocks_fn(p)``; the trial graph ``solve_fn``,
-    ``apply_fn`` and ``err_fn``, giving (ok, err, p_try). Each is captured
-    at its first call, after a warm-up on a side stream (the lazy set-up of
-    cuBLAS, cuSOLVER and the allocator, as ``torch.cuda.graphs`` asks),
-    into a pool of its own, and replayed at once; every later call
-    replays it under the span ``<name>.graph``."""
+    """One key's graphs (``utils/cuda_graph``, named by the run's ``name``)
+    and the static buffers they read: the problem (``p``, loaded once a run
+    and replaced field by field by an accepted step) and the damping factor
+    (a 0-d tensor of the problem's dtype, refilled before each trial). The
+    blocks graph computes ``blocks_fn(p)``; the trial graph ``solve_fn``,
+    ``apply_fn`` and ``err_fn`` on the blocks graph's outputs, giving (ok,
+    err, p_try)."""
 
     def __init__(self, p0, fns, name: str, dtype: torch.dtype):
-        self.fns, self.name = fns, name
+        self.fns = fns
         self.p = type(p0)(*(torch.empty_like(
             t, memory_format=torch.contiguous_format) for t in p0))
-        self.factor = torch.empty((), dtype=dtype, device=p0[0].device)
-        self.stream = torch.cuda.Stream(p0[0].device)
-        self.graphs = {}      # part -> (graph, its outputs)
+        dev = p0[0].device
+        self.factor = torch.empty((), dtype=dtype, device=dev)
+        self.blocks_graph = cuda_graph.Graph(name, dev)
+        self.trial_graph = cuda_graph.Graph(name, dev)
         self.varying = None   # the fields of p that a step replaces
 
     def load(self, p0):
@@ -261,7 +230,7 @@ class _LMGraph:
         return self.p
 
     def blocks(self, _p):
-        return self._run("blocks", lambda: self.fns[0](self.p))
+        return self.blocks_graph(lambda: self.fns[0](self.p))
 
     def trial(self, _p, blocks, factor: float):
         solve_fn, apply_fn, err_fn = self.fns[1:]
@@ -271,7 +240,7 @@ class _LMGraph:
             p_try = apply_fn(self.p, dX, du)
             return ok, err_fn(p_try), p_try
         self.factor.fill_(factor)
-        ok, err, p_try = self._run("trial", work)
+        ok, err, p_try = self.trial_graph(work)
         if self.varying is None:
             self.varying = [i for i, (a, b) in enumerate(zip(p_try, self.p))
                             if a is not b]
@@ -290,34 +259,6 @@ class _LMGraph:
         ``p0``'s."""
         return type(p0)(*(p[i].clone() if i in self.varying else t
                           for i, t in enumerate(p0)))
-
-    def _run(self, part: str, work):
-        got = self.graphs.get(part)
-        if got is None:
-            got = self.graphs[part] = self._capture(work)
-            got[0].replay()
-        else:
-            with span(self.name + ".graph"):
-                got[0].replay()
-        count(self.name + ".graph_replays")
-        return got[1]
-
-    def _capture(self, work):
-        dev = self.factor.device
-        with torch.cuda.device(dev):
-            cur = torch.cuda.current_stream(dev)
-            self.stream.wait_stream(cur)
-            with torch.cuda.stream(self.stream):
-                work()
-                graph = torch.cuda.CUDAGraph()
-                graph.capture_begin()
-                try:
-                    out = work()
-                finally:
-                    graph.capture_end()
-            cur.wait_stream(self.stream)
-        count(self.name + ".graph_captures")
-        return graph, out
 
 
 # a failed trial's error may be inf or nan: ``ok`` masks it out of every
@@ -342,8 +283,10 @@ def _schedule(p0, fns, batched: bool, err_thresh, max_factor, max_iters,
     shape = err.shape
     code = np.where(ok0 != 0, STOP_RUNNING, STOP_CANNOT_NORMALIZE)
     p = p0
-    if not batched and (code == STOP_RUNNING).all() and _graphable(p0):
-        work = (graphs or LMGraphs()).get(p0, fns, name, err0.dtype)
+    if (not batched and (code == STOP_RUNNING).all()
+            and cuda_graph.graphable(p0)):
+        work = (graphs or cuda_graph.Store()).get(
+            cuda_graph.key(p0), lambda: _LMGraph(p0, fns, name, err0.dtype))
         p = work.load(p0)
     eps_floor = npd(eps_floor_mult * float(np.finfo(npd).eps))
     # no |change| is below -inf and no factor above +inf: a criterion given

@@ -17,8 +17,8 @@ Both LM forms of the JAX package are here: the host schedule (a blocking
 error read per attempt) and ``device_loop=True``, which runs
 models/ba/lm_device.run_lm_on_device (a host loop with one packed read per
 trial and the linearization kept across damping retries; on a card its
-linearization and trials replay CUDA graphs captured for the run, counted
-as ``posegraph.graph_captures`` and ``posegraph.graph_replays``).
+linearization and trials replay CUDA graphs captured for the run, named
+``posegraph`` by the rules of ``utils/cuda_graph``).
 """
 
 from __future__ import annotations

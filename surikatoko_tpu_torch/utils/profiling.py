@@ -15,8 +15,9 @@ a span. Spans of the MonoSlam frame:
   ``frame``                 one frame of a loop (one batched step under
                             ``torch.func.vmap``): the scan runners' frame
                             bodies and ``MonoSlamFilter.process_frame``
-  ``frame.graph``           a replay of the CUDA graph of one frame (the
-                            scan runners' one-frame calls on a card),
+  ``frame.graph``           a replay of the CUDA graph of one frame that
+                            an earlier call captured (the scan runners'
+                            one-frame calls on a card, ``utils/cuda_graph``),
                             inside ``frame``; the spans below do not run
                             in a replay
   ``frame.match``           the GT matcher's projection (scan runner)

@@ -9,11 +9,12 @@ one ``lax.scan``; here the scan is a Python loop over frames whose body keeps
 the reference's fixed shapes and masks (no ``.item()``, no ``nonzero()``, no
 data-dependent shapes, the frame index a device tensor), so it never waits
 for the card. A one-frame call of the GT-matcher runners on a card replays
-a CUDA graph of the whole frame (:class:`_FrameGraph`): the ~400 launches
-of a frame become one. Scenario data come from numpy ``default_rng(seed)``
-exactly as in the reference. The loops draw no random numbers: the GT
-matcher's detection noise is passed in as standard-normal draws (JAX draws
-them from a key), so both packages can be fed the same noise.
+a CUDA graph of the whole frame (:class:`_FrameGraph`, by the rules of
+``utils/cuda_graph``): the ~400 launches of a frame become one. Scenario
+data come from numpy ``default_rng(seed)`` exactly as in the reference.
+The loops draw no random numbers: the GT matcher's detection noise is
+passed in as standard-normal draws (JAX draws them from a key), so both
+packages can be fed the same noise.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ from surikatoko_tpu_torch.models.monoslam.state import (
     MonoSlamState,
 )
 from surikatoko_tpu_torch.ops.ncc import ncc_search
-from surikatoko_tpu_torch.utils.profiling import count, span
+from surikatoko_tpu_torch.utils import cuda_graph
+from surikatoko_tpu_torch.utils.profiling import span
 from surikatoko_tpu_torch.vision import features
 from surikatoko_tpu_torch.world import scene_gen
 from surikatoko_tpu_torch.world.runner import gt_poses_in_tracker_frame
@@ -222,129 +224,57 @@ def _check_update_impl(update_impl: int) -> None:
 
 
 class _FrameGraph:
-    """A runner's one-frame call on a card, replayed as one CUDA graph.
+    """One key's graph of a runner's one-frame call (``utils/cuda_graph``,
+    named ``frame``) and the static buffers it reads: the state's six
+    tensors, the noise draw and the frame index; the scenario is read in
+    place and held here, so that the pointers the graph reads live. A call
+    copies the caller's state and noise into the buffers (device to
+    device), fills the index, replays ``body`` over the one frame, and
+    returns clones of the graph's outputs, so nothing returned is
+    overwritten by a later replay; all of it inside the span ``frame``."""
 
-    ``body(state, sc, frames, noise)`` is the runner's eager loop over
-    ``frames``, one-element frame index tensors. :meth:`engages` says from
-    the inputs alone whether a call may take the graph: one frame, CUDA
-    tensors, none requiring grad or wrapped by ``torch.func``, no capture
-    under way. The capture key is the shapes, dtypes and device of the state
-    and the noise and the identity (data pointer, shape, dtype) of each
-    tensor of the scenario, which the graph reads in place. The first call
-    with a new key runs ``body`` on a side stream (warming up cuBLAS,
-    cuSOLVER and the allocator, as ``torch.cuda.graphs`` asks); the next
-    call with that key captures one frame on that stream into a graph with
-    its own memory pool, reading static input buffers (the state's six
-    tensors, the noise draw, the frame index), and replays it. Every later
-    call with the key copies the caller's state and noise into the buffers
-    (device to device), fills the index, replays, and returns clones of the
-    graph's outputs, so nothing returned is overwritten by a later replay.
-    Only the latest graph is kept. Counters ``frame.graph_captures`` and
-    ``frame.graph_replays``; span ``frame.graph`` (inside ``frame``) around
-    each replay."""
+    def __init__(self, body, state: MonoSlamState, sc, noise: torch.Tensor):
+        fresh = lambda t: torch.empty_like(
+            t, memory_format=torch.contiguous_format)
+        self.body, self.sc = body, sc
+        self.state = MonoSlamState(*(fresh(t) for t in state))
+        self.noise = fresh(noise)
+        self.f = torch.zeros(1, dtype=torch.int64, device=noise.device)
+        self.graph = cuda_graph.Graph("frame", noise.device)
 
-    def __init__(self, body):
-        self.body = body
-        self.key = None        # the captured graph's key
-        self.seen = None       # the key of the last warm-up
-        self.graph = self.static_in = self.static_out = self.sc = None
-        self.stream = None
+    def _frame(self):
+        return self.body(self.state, self.sc, [self.f], self.noise)
 
-    @staticmethod
-    def engages(state: MonoSlamState, sc, frames: list,
-                noise: torch.Tensor) -> bool:
-        wrapped = torch._C._functorch.is_functorch_wrapped_tensor
-        return (len(frames) == 1
-                and all(t.is_cuda and not t.requires_grad and not wrapped(t)
-                        for t in (*state, *sc, noise))
-                and not torch.cuda.is_current_stream_capturing())
-
-    @staticmethod
-    def _key(state: MonoSlamState, sc, noise: torch.Tensor) -> tuple:
-        return (tuple((t.shape, t.dtype, t.device) for t in (*state, noise)),
-                tuple((t.data_ptr(), t.shape, t.dtype) for t in sc))
-
-    def __call__(self, state: MonoSlamState, sc, f: int, noise: torch.Tensor):
-        dev = noise.device
-        key = self._key(state, sc, noise)
-        with torch.cuda.device(dev):
-            if key != self.key:
-                if key != self.seen:
-                    self.seen = key
-                    return self._warm_up(state, sc, f, noise)
-                self._capture(key, state, sc, noise)
-            return self._replay(state, f, noise)
-
-    def _side_stream(self, dev: torch.device) -> torch.cuda.Stream:
-        if self.stream is None or self.stream.device != dev:
-            self.stream = torch.cuda.Stream(dev)
-        self.stream.wait_stream(torch.cuda.current_stream(dev))
-        return self.stream
-
-    def _warm_up(self, state, sc, f, noise):
-        """The eager frame on the side stream; the caller's stream waits
-        for it. Each stream is recorded on the other's tensors, so the
-        allocator reuses none of them before both are done."""
-        cur = torch.cuda.current_stream(noise.device)
-        s = self._side_stream(noise.device)
-        for t in (*state, *sc, noise):
-            t.record_stream(s)
-        with torch.cuda.stream(s):
-            out = self.body(state, sc, [_frame_index(f, noise.device)], noise)
-        cur.wait_stream(s)
-        for t in (*out[0], *out[1:]):
-            t.record_stream(cur)
-        return out
-
-    def _capture(self, key, state, sc, noise) -> None:
-        # the old graph goes first: its pool and buffers are free to reuse
-        self.graph = self.static_in = self.static_out = self.sc = None
-        s = self._side_stream(noise.device)
-        with torch.cuda.stream(s):
-            fresh = lambda t: torch.empty_like(
-                t, memory_format=torch.contiguous_format)
-            st = MonoSlamState(*(fresh(t) for t in state))
-            nz = fresh(noise)
-            fi = torch.zeros(1, dtype=torch.int64, device=noise.device)
-            graph = torch.cuda.CUDAGraph()
-            graph.capture_begin()
-            try:
-                out = self.body(st, sc, [fi], nz)
-            finally:
-                graph.capture_end()
-        torch.cuda.current_stream(noise.device).wait_stream(s)
-        # the scenario is held so that the pointers the graph reads live
-        self.graph, self.static_in, self.static_out, self.sc = (
-            graph, (st, nz, fi), out, sc)
-        self.key = key
-        count("frame.graph_captures")
-
-    def _replay(self, state, f, noise):
-        st, nz, fi = self.static_in
+    def __call__(self, state: MonoSlamState, f: int, noise: torch.Tensor):
         with span("frame"):
-            for dst, src in zip(st, state):
+            for dst, src in zip(self.state, state):
                 dst.copy_(src)
-            nz.copy_(noise)
-            fi.fill_(int(f))
-            with span("frame.graph"):
-                self.graph.replay()
-            count("frame.graph_replays")
-            st_out, *rest = self.static_out
+            self.noise.copy_(noise)
+            self.f.fill_(f)
+            st_out, *rest = self.graph(self._frame)
             return (MonoSlamState(*(t.clone() for t in st_out)),
                     *(t.clone() for t in rest))
 
 
 def _graphed(body):
     """run(state, sc, frames, noise) over the eager loop ``body``: a
-    one-frame call that :meth:`_FrameGraph.engages` replays the frame's
-    graph; any other call runs ``body`` as it is."""
-    graph = _FrameGraph(body)
+    one-frame call whose tensors engage a graph (``cuda_graph.graphable``)
+    replays the :class:`_FrameGraph` of its key (the shapes of state and
+    noise, the scenario tensors' identity); any other call runs ``body`` as
+    it is. Only the latest key's graph is kept."""
+    graphs = cuda_graph.Store()
+
+    def make(state, sc, noise):
+        graphs.clear()      # the old graph first: its pool is free to reuse
+        return _FrameGraph(body, state, sc, noise)
 
     def run(state: MonoSlamState, sc: DeviceScenario, frames,
             noise: torch.Tensor):
         frames = [int(f) for f in frames]
-        if graph.engages(state, sc, frames, noise):
-            return graph(state, sc, frames[0], noise)
+        if len(frames) == 1 and cuda_graph.graphable((*state, *sc, noise)):
+            g = graphs.get(cuda_graph.key((*state, noise), sc),
+                           lambda: make(state, sc, noise))
+            return g(state, frames[0], noise)
         dev = sc.gt_points.device
         return body(state, sc, [_frame_index(f, dev) for f in frames], noise)
 
@@ -398,8 +328,8 @@ def make_scan_runner(params: MonoSlamParams, update_impl: int = 1):
     from a key). ``chol_info`` is the innovation Cholesky's info per frame
     (0 = factorized): the fused step's for impl 1, the stacked updates' for
     impl 4, zeros for impls 2 and 3. A one-frame call on a card replays a
-    CUDA graph of the frame (:class:`_FrameGraph`); the returned tensors are
-    the caller's own either way."""
+    CUDA graph of the frame (:func:`_graphed`, ``utils/cuda_graph``); the
+    returned tensors are the caller's own either way."""
     return _graphed(_scan_loop(params, update_impl))
 
 
@@ -410,8 +340,8 @@ def make_batched_scan_runner(params: MonoSlamParams, update_impl: int = 1):
     unbatched loop: every op of a frame runs once for the batch, and kernel
     B2 (the fused step's downdate, impl 1; the stacked updates', impl 4)
     launches once a frame for all instances. A one-frame call on a card
-    replays a CUDA graph of the whole vmapped frame (:class:`_FrameGraph`:
-    vmap runs inside the capture).
+    replays a CUDA graph of the whole vmapped frame (:func:`_graphed`,
+    ``utils/cuda_graph``: vmap runs inside the capture).
 
     Returns run(state, sc, frames, noise) -> (state, errs [B,T], n_matched
     [B,T], cam_pos [B,T,3], chol_info [B,T]): ``noise`` [B,T,K,2] is each

@@ -1,7 +1,7 @@
-"""The device-loop LM's CUDA graphs on the card (``lm_device.LMGraphs``):
-a one-problem run on a card replays a graph of the Gauss-Newton blocks and
+"""The device-loop LM's CUDA graphs on the card (``utils/cuda_graph``): a
+one-problem run on a card replays a graph of the Gauss-Newton blocks and
 one of the damped trial (solve, apply, evaluate), held to the same run
-without graphs (``lm_device._graphable`` patched to refuse): the same stop
+without graphs (``cuda_graph.graphable`` patched to refuse): the same stop
 code, iterations and trials, and parameters within tolerance (on the card
 ``index_add_`` sums with atomics, so two eager runs may already differ in
 their last bits). The cases: a windowed-shape sparse BA (25 frames, two
@@ -30,6 +30,7 @@ from surikatoko_tpu_torch.models.ba import (BundleAdjustment,
                                             TermCriteria, lm_device,
                                             reproj_error)
 from surikatoko_tpu_torch.models.ba import sparse as sp
+from surikatoko_tpu_torch.utils import cuda_graph
 from surikatoko_tpu_torch.utils.profiling import counts
 from surikatoko_tpu_torch.world.ba_scene import (build_at_scale_problem,
                                                  circle_grid_problem)
@@ -66,7 +67,7 @@ def _delta(before, name):
 def _eager(monkeypatch):
     """The same runs with no graph."""
     with monkeypatch.context() as m:
-        m.setattr(lm_device, "_graphable", lambda p0: False)
+        m.setattr(cuda_graph, "graphable", lambda tensors: False)
         yield
 
 

@@ -4,8 +4,9 @@ same frames and noise, bit for bit (scenario03 at K=96 in float32: 60 calls
 of ``make_scan_runner``, 5 of each sequential update impl, 10 of
 ``make_batched_scan_runner`` with 4 instances); every call under
 ``torch.cuda.set_sync_debug_mode("error")``; a returned state untouched
-by the next call; one capture for a runner's key and one more for a second
-scenario object. Imports no JAX, so it runs where the card is:
+by the next call; one capture for a runner's key, at its first call, and
+one more for a second scenario object. Imports no JAX, so it runs where the
+card is:
 
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_scan_graph_cuda.py -m cuda -q
@@ -77,8 +78,8 @@ def _assert_equal(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("impl,calls", [(1, 60), (2, 5), (3, 5), (4, 5)])
 def test_torch_scan_graph_equals_the_eager_loop(impl, calls):
-    """The first call warms up on a side stream, the second captures, the
-    rest replay: one capture and calls - 1 replays."""
+    """The first call warms up, captures and replays, the rest replay: one
+    capture and as many replays as calls."""
     dev = _card()
     params, sc, state, noise, _ = chip_smoke.scenario03_setup(dev,
                                                               torch.float32)
@@ -87,15 +88,15 @@ def test_torch_scan_graph_equals_the_eager_loop(impl, calls):
     c0 = _counts()
     got = _chain(dr.make_scan_runner(params, impl), state, sc, frames, noise,
                  False)
-    assert [b - a for a, b in zip(c0, _counts())] == [1, calls - 1]
+    assert [b - a for a, b in zip(c0, _counts())] == [1, calls]
     _assert_equal(got, want)
 
 
 @pytest.mark.cuda
 def test_torch_batched_scan_graph_equals_the_eager_loop():
     """4 instances, 10 calls from a state shared by the instances: the
-    first two calls warm up (shared, then batched state), the third
-    captures, 8 replay; vmap runs inside the capture."""
+    first two calls capture (shared, then batched state), every call
+    replays; vmap runs inside the capture."""
     dev = _card()
     params, sc, state, ate_noise, _ = chip_smoke.scenario03_setup(
         dev, torch.float32)
@@ -105,7 +106,7 @@ def test_torch_batched_scan_graph_equals_the_eager_loop():
     c0 = _counts()
     got = _chain(dr.make_batched_scan_runner(params, 1), state, sc, frames,
                  noise, True)
-    assert [b - a for a, b in zip(c0, _counts())] == [1, 8]
+    assert [b - a for a, b in zip(c0, _counts())] == [2, 10]
     assert got[0].x.shape == (4, state.x.shape[0])
     _assert_equal(got, want)
 
@@ -118,7 +119,7 @@ def test_torch_scan_graph_returns_fresh_tensors():
     params, sc, state, noise, _ = chip_smoke.scenario03_setup(dev,
                                                               torch.float32)
     run = dr.make_scan_runner(params, 1)
-    for f in (1, 2):                       # warm-up, then the capture
+    for f in (1, 2):                       # the capture, then a replay
         state = run(state, sc, [f], noise[f - 1:f])[0]
     with _no_sync():
         first = run(state, sc, [3], noise[2:3])
@@ -142,7 +143,7 @@ def test_torch_scan_graph_recaptures_for_another_scenario():
     run = dr.make_scan_runner(params, 1)
     c0 = _counts()
     one = _chain(run, state, sc, range(1, 5), noise[:4], False)
-    assert [b - a for a, b in zip(c0, _counts())] == [1, 3]
+    assert [b - a for a, b in zip(c0, _counts())] == [1, 4]
     two = _chain(run, state, sc2, range(1, 5), noise[:4], False)
-    assert [b - a for a, b in zip(c0, _counts())] == [2, 6]
+    assert [b - a for a, b in zip(c0, _counts())] == [2, 8]
     _assert_equal(two, (one[0], *one[1]))
