@@ -50,7 +50,7 @@ from surikatoko_tpu_torch.models.ba.problem import BAProblem
 from surikatoko_tpu_torch.models.ba.sparse import BAProblemSparse
 from surikatoko_tpu_torch.models.mvf import relative_motion as rm
 from surikatoko_tpu_torch.ops.transfer import fetch, host, send
-from surikatoko_tpu_torch.utils.profiling import span, spanned
+from surikatoko_tpu_torch.utils.profiling import count, span, spanned
 
 
 def _bucket(n: int, minimum: int = 8) -> int:
@@ -115,9 +115,6 @@ class TrackStore:
         row = self.frames_of(track_id)
         hit = np.nonzero(row == frame_ind)[0]
         return int(hit[0]) if len(hit) else -1
-
-    def has(self, track_id: int, frame_ind: int) -> bool:
-        return self.slot_of(track_id, frame_ind) >= 0
 
     def coord(self, track_id: int, frame_ind: int) -> np.ndarray:
         return self.coords[track_id, self.slot_of(track_id, frame_ind)]
@@ -338,17 +335,18 @@ class MultiViewFactorizer:
 
     # ---- reference FindAnchorFrame :40 ----
     def find_anchor_frame(self, new_frame: int) -> tuple[int, np.ndarray]:
+        """(anchor, common): the earlier frame that shares the most
+        reconstructed tracks with ``new_frame`` (the lowest on a tie), and
+        those shared tracks in the new frame's order."""
         ts = self.track_store
-        cur = [t for t in ts.tracks_in_frame(new_frame)
-               if int(t) in self.point_coords]
-        counts = np.zeros(max(new_frame, 1), np.int64)
-        for tid in cur:
-            fr = ts.frames_of(int(tid))
-            fr = fr[fr < new_frame]
-            counts[fr] += 1
+        cur = np.asarray([t for t in ts.tracks_in_frame(new_frame).tolist()
+                          if t in self.point_coords], int)
+        fr = ts.fidx[cur]
+        in_row = np.arange(ts.L) < ts.count[cur, None]
+        counts = np.bincount(fr[in_row & (fr < new_frame)],
+                             minlength=max(new_frame, 1))
         anchor = int(np.argmax(counts)) if new_frame > 0 else 0
-        common = np.asarray(
-            [t for t in cur if ts.has(int(t), anchor)], int)
+        common = cur[(in_row & (fr == anchor)).any(axis=1)]
         return anchor, common
 
     @spanned("mvf.integrate")
@@ -367,7 +365,7 @@ class MultiViewFactorizer:
         with span("mvf.triangulate"):
             cands = self._tri_candidates(self._fresh_tracks(new_frame),
                                          new_frame)
-            fused = bool(cands) and not self.fake_localization
+            fused = len(cands[0]) > 0 and not self.fake_localization
             if fused:
                 batch = self._assemble_tri_batch(cands, mark_frame=new_frame)
         tri = {}
@@ -443,15 +441,19 @@ class MultiViewFactorizer:
             return None
 
         n = len(common)
+        count("mvf.loc_tracks", n)
         nb = _bucket(n)
         c1 = np.zeros((nb, 3))
         c2 = np.zeros((nb, 3))
         dep = np.ones(nb)
         ptsb = np.zeros((nb, 3))
         msk = np.zeros(nb, bool)
-        for i, t in enumerate(common):
-            c1[i] = ts.coord(int(t), anchor)
-            c2[i] = ts.coord(int(t), new_frame)
+        # each track's first slot at the anchor and at the new frame (every
+        # common row holds both), as TrackStore.slot_of finds it
+        fr = ts.fidx[common]
+        in_row = np.arange(ts.L) < ts.count[common, None]
+        c1[:n] = ts.coords[common, np.argmax(in_row & (fr == anchor), 1)]
+        c2[:n] = ts.coords[common, np.argmax(in_row & (fr == new_frame), 1)]
         dep[:n] = np.where(good_d, depths, 1.0)
         ptsb[:n] = pts
         msk[:n] = good_d
@@ -459,79 +461,90 @@ class MultiViewFactorizer:
                 self.cam_cfw_R[-1], self.cam_cfw_t[-1])
 
     # ---- triangulation (MASKS 8.44), batched over candidate tracks ----
-    def _tri_candidates(self, tids, upto_frame: int) -> list:
+    def _tri_candidates(self, tids, upto_frame: int
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """(tids [n], sel [n, L] bool): those of ``tids`` with at least two
+        observations up to ``upto_frame``, and which of their slots hold
+        those observations."""
         ts = self.track_store
-        cands = []
-        for tid in tids:
-            fr = ts.frames_of(int(tid))
-            sel = np.nonzero(fr <= upto_frame)[0]
-            if len(sel) >= 2:
-                cands.append((int(tid), sel))
-        return cands
+        tids = np.asarray(tids, int)
+        sel = ((np.arange(ts.L) < ts.count[tids, None])
+               & (ts.fidx[tids] <= upto_frame))
+        keep = sel.sum(axis=1) >= 2
+        return tids[keep], sel[keep]
 
     def _assemble_tri_batch(self, cands, mark_frame: int | None = None):
-        """Bucketed triangulation batch arrays (host numpy) for ``cands``.
-        With ``mark_frame`` set, observations at that frame get identity/zero
+        """Bucketed triangulation batch arrays (host numpy) for ``cands``
+        (as :meth:`_tri_candidates` gives them). With ``mark_frame`` set, observations at that frame get identity/zero
         POSE placeholders plus True entries in the returned (new_fb, new_w)
         masks: the fused integrate step substitutes the just-computed pose
         there (the pose list does not contain it yet)."""
         ts = self.track_store
+        tids, sel = cands
+        n = len(tids)
+        count("mvf.tri_tracks", n)
         n_have = len(self.cam_cfw_R)
         R_all = np.stack(self.cam_cfw_R)
         t_all = np.stack(self.cam_cfw_t)
-        M = max(len(sel) for _, sel in cands) - 1
-        Nb, Mb = _bucket(len(cands)), _bucket(M, minimum=4)
+        # each candidate's selected slots compacted in order: column j is
+        # its j-th selected observation where ``on`` holds
+        k = sel.sum(axis=1)
+        kf = int(k.max())
+        slots = np.argsort(~sel, axis=1, kind="stable")[:, :kf]
+        on = np.arange(kf) < k[:, None]
+        fr = ts.fidx[tids[:, None], slots]
+        obs = np.where(on[..., None], ts.coords[tids[:, None], slots], 0.0)
+        # a track's FIRST obs is never at mark_frame (it needs >=2 obs)
+        Rb, tb = R_all[fr[:, 0]], t_all[fr[:, 0]]
+        is_new = (fr >= n_have) & on
+        safe = np.where(on & ~is_new, fr, 0)
+        eye = np.eye(3)
+        R_f = np.where(on[..., None, None], R_all[safe], eye)
+        t_f = np.where(on[..., None], t_all[safe], 0.0)
+        R_o = np.where(on[:, 1:, None, None],
+                       R_f[:, 1:] @ Rb.transpose(0, 2, 1)[:, None], eye)
+        T_o = np.where(on[:, 1:, None],
+                       t_f[:, 1:] - np.einsum("nfij,nj->nfi", R_o, tb), 0.0)
+        M = kf - 1
+        Nb, Mb = _bucket(n), _bucket(M, minimum=4)
         x_base = np.zeros((Nb, 3))
         xs = np.zeros((Nb, Mb, 3))
-        R_fb = np.broadcast_to(np.eye(3), (Nb, Mb, 3, 3)).copy()
+        R_fb = np.broadcast_to(eye, (Nb, Mb, 3, 3)).copy()
         T_fb = np.zeros((Nb, Mb, 3))
         msk = np.zeros((Nb, Mb), bool)
         new_fb = np.zeros((Nb, Mb), bool)
         obs_w = np.zeros((Nb, Mb + 1, 3))
-        R_w = np.broadcast_to(np.eye(3), (Nb, Mb + 1, 3, 3)).copy()
+        R_w = np.broadcast_to(eye, (Nb, Mb + 1, 3, 3)).copy()
         t_w = np.zeros((Nb, Mb + 1, 3))
         msk_w = np.zeros((Nb, Mb + 1), bool)
         new_w = np.zeros((Nb, Mb + 1), bool)
-        Rb_all = np.broadcast_to(np.eye(3), (Nb, 3, 3)).copy()
+        Rb_all = np.broadcast_to(eye, (Nb, 3, 3)).copy()
         tb_all = np.zeros((Nb, 3))
-        for i, (tid, sel) in enumerate(cands):
-            fr = ts.frames_of(tid)[sel]
-            base = int(fr[0])          # a track's FIRST obs is never at
-            Rb, tb = R_all[base], t_all[base]   # mark_frame (needs >=2 obs)
-            others = fr[1:]
-            is_new_o = others >= n_have
-            safe_o = np.where(is_new_o, 0, others)
-            k = len(others)
-            x_base[i] = ts.coords[tid, sel[0]]
-            xs[i, :k] = ts.coords[tid, sel[1:]]
-            R_fb[i, :k] = R_all[safe_o] @ Rb.T
-            T_fb[i, :k] = t_all[safe_o] - np.einsum(
-                "fij,j->fi", R_fb[i, :k], tb)
-            msk[i, :k] = True
-            new_fb[i, :k] = is_new_o
-            kf = len(fr)
-            is_new_f = fr >= n_have
-            safe_f = np.where(is_new_f, 0, fr)
-            obs_w[i, :kf] = ts.coords[tid, sel]
-            R_w[i, :kf] = R_all[safe_f]
-            t_w[i, :kf] = t_all[safe_f]
-            msk_w[i, :kf] = True
-            new_w[i, :kf] = is_new_f
-            Rb_all[i] = Rb
-            tb_all[i] = tb
+        x_base[:n] = obs[:, 0]
+        xs[:n, :M] = obs[:, 1:]
+        R_fb[:n, :M] = R_o
+        T_fb[:n, :M] = T_o
+        msk[:n, :M] = on[:, 1:]
+        new_fb[:n, :M] = is_new[:, 1:]
+        obs_w[:n, :kf] = obs
+        R_w[:n, :kf] = R_f
+        t_w[:n, :kf] = t_f
+        msk_w[:n, :kf] = on
+        new_w[:n, :kf] = is_new
+        Rb_all[:n] = Rb
+        tb_all[:n] = tb
         return (x_base, xs, R_fb, T_fb, msk, new_fb, obs_w, R_w, t_w,
                 msk_w, new_w, Rb_all, tb_all)
 
     def _accept_triangulations(self, cands, packed: np.ndarray) -> dict:
         """{tid: xyz} from the packed [N,5] triangulation result (finite,
-        in-front, enough parallax)."""
-        x_out, depth, par = packed[:, :3], packed[:, 3], packed[:, 4]
-        out = {}
-        for i, (tid, sel) in enumerate(cands):
-            if (depth[i] > 0 and np.isfinite(x_out[i]).all()
-                    and par[i] >= self.min_parallax_ratio):
-                out[tid] = x_out[i]
-        return out
+        in-front, enough parallax), in the candidates' order."""
+        tids = cands[0]
+        n = len(tids)
+        x_out, depth, par = packed[:n, :3], packed[:n, 3], packed[:n, 4]
+        ok = ((depth > 0) & np.isfinite(x_out).all(axis=1)
+              & (par >= self.min_parallax_ratio))
+        return dict(zip(tids[ok].tolist(), x_out[ok]))
 
     def _store_triangulations(self, tri: dict) -> None:
         for tid, x_world in tri.items():
@@ -545,7 +558,7 @@ class MultiViewFactorizer:
         and one read per call. Returns {tid: xyz_world} for the tracks whose
         depth came out finite and positive."""
         cands = self._tri_candidates(tids, upto_frame)
-        if not cands:
+        if not len(cands[0]):
             return {}
         (x_base, xs, R_fb, T_fb, msk, _new_fb, obs_w, R_w, t_w, msk_w,
          _new_w, Rb_all, tb_all) = self._assemble_tri_batch(cands)

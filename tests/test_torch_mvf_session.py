@@ -13,7 +13,9 @@ it:
 - the pairs that the closure hands ``close_loop_sim3``: each is a revisit
   track and the head track of the same landmark in the world;
 - the LM's counters ``ba.runs``, ``ba.iterations`` and ``ba.trials``
-  against the factorizer's log of the adjustments it ran.
+  against the factorizer's log of the adjustments it ran;
+- the factorizer's counters ``mvf.tri_tracks`` and ``mvf.loc_tracks``
+  against the sizes of the batches it assembled.
 
 And the benchmark's world (``benchmark/lib/mvf_world.py``) is the demo's
 (``demos/mvf_at_scale.World``) for the same seed: corners, track ids and
@@ -77,10 +79,28 @@ def _config():
 def sfm_pass(request):
     """One pass of the session on the world of the seed, the session's
     state before each keyframe and after each of its stages, and the pairs
-    its closure handed to close_loop_sim3, the LM's counters over the pass
-    and the factorizer's log of its adjustments."""
+    its closure handed to close_loop_sim3, the candidates and shared
+    tracks the factorizer assembled, the LM's and the factorizer's counters
+    over the pass and the factorizer's log of its adjustments."""
     cfg = _config()
     counts0 = profiling.counts()
+    assembled = {"mvf.tri_tracks": 0, "mvf.loc_tracks": 0}
+    fz = factorizer.MultiViewFactorizer
+    batch, loc = fz._assemble_tri_batch, fz._localization_inputs
+
+    def batch_spy(self, cands, *a, **kw):
+        assembled["mvf.tri_tracks"] += len(cands[0])
+        return batch(self, cands, *a, **kw)
+
+    def loc_spy(self, new_frame):
+        out = loc(self, new_frame)
+        if out is not None:
+            assembled["mvf.loc_tracks"] += len(
+                self.find_anchor_frame(new_frame)[1])
+        return out
+    spies = pytest.MonkeyPatch()
+    spies.setattr(fz, "_assemble_tri_batch", batch_spy)
+    spies.setattr(fz, "_localization_inputs", loc_spy)
     w = MvfWorld(cfg, request.param)
     ts = TrackStore(2 * w.n_pts, w.n_total, 2 * cfg["world"]["track_len"])
     s = MvfSession(ts, w.K, base_frames=w.n_base, device="cpu",
@@ -115,10 +135,12 @@ def sfm_pass(request):
         mp.undo()
     before = s.state()
     s.global_ba()
+    spies.undo()
     steps["closure"] = (before, [("global_ba", s.state())])
     counted = {k: v - counts0.get(k, 0) for k, v in profiling.counts().items()
-               if k.startswith("ba.")}
-    return w, steps, closed, pairs, handed, counted, list(s.mvf.ba_log)
+               if k.startswith(("ba.", "mvf."))}
+    return (w, steps, closed, pairs, handed, assembled, counted,
+            list(s.mvf.ba_log))
 
 
 def _poses(st, frames=None):
@@ -220,10 +242,20 @@ def test_torch_mvf_session_ba_counters_match_log(sfm_pass):
     # factorizer logs each adjustment: windowed 8, global 5 (as above)
     *_, counted, log = sfm_pass
     assert len(log) == 13
+    counted = {k: v for k, v in counted.items() if k.startswith("ba.")}
     assert counted == {"ba.runs": len(log),
                        "ba.iterations": sum(e[3] for e in log),
                        "ba.trials": sum(e[4] for e in log)}
     assert counted["ba.trials"] >= counted["ba.iterations"] > 0
+
+
+def test_torch_mvf_session_assembly_counters_match_batches(sfm_pass):
+    # the candidates every triangulation batch assembled (each keyframe's
+    # and the closure's re-triangulation of the map) and the shared tracks
+    # every localization took, summed over the pass
+    *_, assembled, counted, _ = sfm_pass
+    assert {k: counted[k] for k in assembled} == assembled
+    assert min(assembled.values()) > 0
 
 
 def test_torch_mvf_world_is_the_demos():
