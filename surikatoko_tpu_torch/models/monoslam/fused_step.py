@@ -89,12 +89,10 @@ def camera_epilogue(params: MonoSlamParams, x1: torch.Tensor, Kcap: int
                     ) -> EpilogueResult:
     """Negative-inverse-depth substitution, quaternion renorm with its
     Jacobian folded in, and the kinematic predict of the camera."""
-    with span("frame.predict"):
-        if params.sal_pnt_repres == REPRES_SPHERICAL:
-            x1, _ = health_mod.substitute_negative_inv_rho(
-                x1, params.sal_pnt_negative_inv_rho_substitute, Kcap)
-        return EpilogueResult(
-            *predict_mod.renormalize_and_transition(params, x1))
+    if params.sal_pnt_repres == REPRES_SPHERICAL:
+        x1, _ = health_mod.substitute_negative_inv_rho(
+            x1, params.sal_pnt_negative_inv_rho_substitute, Kcap)
+    return EpilogueResult(*predict_mod.renormalize_and_transition(params, x1))
 
 
 def fused_update_health_predict(
@@ -112,8 +110,9 @@ def fused_update_health_predict(
     Kcap = obs_mask.shape[0]
     x1, B, keep, resid, info = _fused_update_core(
         params, x, P, obs, obs_mask, precomputed, deactivate_mask)
-    x_next, Cp, G = camera_epilogue(params, x1, Kcap)[:3]
-    P_next = _fused_covariance_predict(params, P, B, keep, Cp, G)
+    with span("frame.predict"):
+        x_next, Cp, G = camera_epilogue(params, x1, Kcap)[:3]
+        P_next = _fused_covariance_predict(params, P, B, keep, Cp, G)
     return x_next, P_next, resid, x1, info
 
 
@@ -159,14 +158,13 @@ def _fused_covariance_predict(params, P, B, keep, Cp, G):
     """P+ = V P V^T - (B V^T)^T (B V^T) + G Q G^T as one masked symmetric
     downdate plus camera-stripe overwrites, then the optional diagonal
     inflation of live variances."""
-    with span("frame.predict"):
-        D1 = symmetric_downdate(P, B.contiguous(), keep)
-        predict_mod.camera_congruence_(params, D1, Cp, G)
-        if params.covar_diag_inflation is not None:
-            infl = params.covar_diag_inflation.to(P.dtype)
-            dg = torch.diagonal(D1)
-            dg.add_(torch.where(dg > 0, infl * keep, 0.0))
-        return D1
+    D1 = symmetric_downdate(P, B.contiguous(), keep)
+    predict_mod.camera_congruence_(params, D1, Cp, G)
+    if params.covar_diag_inflation is not None:
+        infl = params.covar_diag_inflation.to(P.dtype)
+        dg = torch.diagonal(D1)
+        dg.add_(torch.where(dg > 0, infl * keep, 0.0))
+    return D1
 
 
 def _clipped_median_or_prior(vals: torch.Tensor, ok: torch.Tensor,
@@ -295,7 +293,11 @@ def fused_update_health_recruit_predict(
     M = new_pix.shape[0]
     x1, B, keep, resid, info = _fused_update_core(
         params, x, P, obs, obs_mask, precomputed, deactivate_mask)
-    epi = camera_epilogue(params, x1, Kcap)
+    # the whole predict first, so that a frame has one predict span; the
+    # recruited rows read P and B, not the predicted covariance
+    with span("frame.predict"):
+        epi = camera_epilogue(params, x1, Kcap)
+        P_next = _fused_covariance_predict(params, P, B, keep, epi.Cp, epi.G)
 
     with span("frame.recruit"):
         kc = keep[:_N]
@@ -306,8 +308,6 @@ def fused_update_health_recruit_predict(
         y_m, Rt, slots, valid, idx, idx_safe, v6 = recruit_rows(
             params, epi.x2[:7], rows7, P77, free_mask, new_pix, new_valid,
             rho0, epi.F)
-
-    P_next = _fused_covariance_predict(params, P, B, keep, epi.Cp, epi.G)
-    _write_sym_stripes(P_next, idx, v6, Rt)
-    x_next = scatter_drop(epi.x_next, idx_safe, y_m.reshape(6 * M))
+        _write_sym_stripes(P_next, idx, v6, Rt)
+        x_next = scatter_drop(epi.x_next, idx_safe, y_m.reshape(6 * M))
     return x_next, P_next, resid, x1, slots, info

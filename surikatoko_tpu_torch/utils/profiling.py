@@ -26,10 +26,15 @@ a span. Spans of the MonoSlam frame:
                             (``fused_step._fused_update_core``,
                             ``update.stacked_update``)
   ``frame.predict``         the camera epilogue and the covariance predict
+                            (one a frame)
   ``frame.health``          ``process_frame``'s self-healing and removal
   ``frame.recruit``         new landmarks (``landmarks.add_landmarks``, the
-                            image loop's recruit rows)
-  ``frame.render``, ``frame.search``   the image loop's frame and NCC search
+                            fused step's recruited rows)
+  ``frame.render``, ``frame.measure``, ``frame.search``, ``frame.detect``
+                            the image loop's frame, its predicted pixels
+                            with H P, H P H^T and the per-slot innovation
+                            blocks, the NCC search, and the corner
+                            detection that picks the candidates to recruit
   ``b1``, ``b2``            a call of kernel B1 (NCC) or B2 (downdate),
                             plain version included
   ``matcher.match``, ``matcher.recruit``, ``matcher.book``   the host

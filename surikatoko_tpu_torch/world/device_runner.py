@@ -467,29 +467,31 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
         dtype = state.x.dtype
         Kcap = state.capacity
 
-        # predicted pixels, A_un = H P and T_un = H P H^T: shared by the
-        # search ellipse and the fused update
-        h, Hcam, Hlm = measure.measurement_jacobians(params, state.x)
-        # a diverged landmark's row can be non-finite while unmatched; zero
-        # it before masking (0 * nan = nan) and force it unmatchable
-        row_ok = (torch.isfinite(h).all(dim=-1)
-                  & torch.isfinite(Hcam.reshape(Kcap, -1)).all(dim=-1)
-                  & torch.isfinite(Hlm.reshape(Kcap, -1)).all(dim=-1))
-        h = torch.where(row_ok[:, None], h, 0.0)
-        Hcam = torch.where(row_ok[:, None, None], Hcam, 0.0)
-        Hlm = torch.where(row_ok[:, None, None], Hlm, 0.0)
-        A_un = update_mod.hp_auto(Hcam, Hlm, state.P)
-        T_un = update_mod.aht_auto(A_un, Hcam, Hlm)
-        # per-slot 2x2 innovation: the diagonal 2x2 blocks of T_un + R
-        S2 = (torch.diagonal(T_un.reshape(Kcap, 2, Kcap, 2), dim1=0, dim2=2)
-              .permute(2, 0, 1)
-              + params.measurm_noise_var * torch.eye(2, dtype=dtype,
-                                                     device=h.device))
-        det = S2[:, 0, 0] * S2[:, 1, 1] - S2[:, 0, 1] * S2[:, 1, 0]
-        det = torch.where(torch.abs(det) > 1e-12, det, 1e-12)
-        sigma_inv = torch.stack([
-            torch.stack([S2[:, 1, 1], -S2[:, 0, 1]], -1),
-            torch.stack([-S2[:, 1, 0], S2[:, 0, 0]], -1)], -2) / det[:, None, None]
+        with span("frame.measure"):
+            # predicted pixels, A_un = H P and T_un = H P H^T: shared by the
+            # search ellipse and the fused update
+            h, Hcam, Hlm = measure.measurement_jacobians(params, state.x)
+            # a diverged landmark's row can be non-finite while unmatched;
+            # zero it before masking (0 * nan = nan), force it unmatchable
+            row_ok = (torch.isfinite(h).all(dim=-1)
+                      & torch.isfinite(Hcam.reshape(Kcap, -1)).all(dim=-1)
+                      & torch.isfinite(Hlm.reshape(Kcap, -1)).all(dim=-1))
+            h = torch.where(row_ok[:, None], h, 0.0)
+            Hcam = torch.where(row_ok[:, None, None], Hcam, 0.0)
+            Hlm = torch.where(row_ok[:, None, None], Hlm, 0.0)
+            A_un = update_mod.hp_auto(Hcam, Hlm, state.P)
+            T_un = update_mod.aht_auto(A_un, Hcam, Hlm)
+            # per-slot 2x2 innovation: the diagonal 2x2 blocks of T_un + R
+            S2 = (torch.diagonal(T_un.reshape(Kcap, 2, Kcap, 2), dim1=0,
+                                 dim2=2).permute(2, 0, 1)
+                  + params.measurm_noise_var * torch.eye(2, dtype=dtype,
+                                                         device=h.device))
+            det = S2[:, 0, 0] * S2[:, 1, 1] - S2[:, 0, 1] * S2[:, 1, 0]
+            det = torch.where(torch.abs(det) > 1e-12, det, 1e-12)
+            sigma_inv = torch.stack([
+                torch.stack([S2[:, 1, 1], -S2[:, 0, 1]], -1),
+                torch.stack([-S2[:, 1, 0], S2[:, 0, 0]], -1)],
+                -2) / det[:, None, None]
 
         with span("frame.search"):
             res = ncc_search(img, h, templates, state.lm_active,
@@ -523,7 +525,7 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
             return state, templates, (err, n, x_upd[:3], info)
 
         active_after = state.lm_active
-        with span("frame.recruit"):
+        with span("frame.detect"):
             cand_xy, cand_ok = features.detect_corners(
                 img, max_corners=detector_corners,
                 nms_radius=detector_nms_radius, border=templ_width,

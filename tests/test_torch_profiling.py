@@ -30,7 +30,7 @@ DTYPE = torch.float64
 # one frame of each loop: (name, parent's name) in the order they open
 SCAN_FRAME = [("frame", None), ("frame.match", "frame"),
               ("frame.update", "frame"), ("frame.predict", "frame"),
-              ("frame.predict", "frame"), ("b2", "frame.predict")]
+              ("b2", "frame.predict")]
 HOST_FRAME = [("matcher.match", None)] + [("host_read", "matcher.match")] * 4 \
     + [("matcher.recruit", None)] + [("host_read", "matcher.recruit")] * 5 \
     + [("frame", None), ("frame.update", "frame"), ("b2", "frame.update"),
