@@ -8,9 +8,10 @@ Port of ``surikatoko_tpu/world/device_runner.py``. JAX runs the frames as
 one ``lax.scan``; here the scan is a Python loop over frames whose body keeps
 the reference's fixed shapes and masks (no ``.item()``, no ``nonzero()``, no
 data-dependent shapes, the frame index a device tensor), so it never waits
-for the card. A one-frame call of the GT-matcher runners on a card replays
+for the card. A one-frame call of any of these runners on a card replays
 a CUDA graph of the whole frame (:class:`_FrameGraph`, by the rules of
-``utils/cuda_graph``): the ~400 launches of a frame become one. Scenario
+``utils/cuda_graph``): the ~400 launches of a GT-matcher frame, the ~1000
+of an image frame, become one. Scenario
 data come from numpy ``default_rng(seed)`` exactly as in the reference.
 The loops draw no random numbers: the GT matcher's detection noise is
 passed in as standard-normal draws (JAX draws them from a key), so both
@@ -225,58 +226,81 @@ def _check_update_impl(update_impl: int) -> None:
 
 class _FrameGraph:
     """One key's graph of a runner's one-frame call (``utils/cuda_graph``,
-    named ``frame``) and the static buffers it reads: the state's six
-    tensors, the noise draw and the frame index; the scenario is read in
-    place and held here, so that the pointers the graph reads live. A call
-    copies the caller's state and noise into the buffers (device to
-    device), fills the index, replays ``body`` over the one frame, and
-    returns clones of the graph's outputs, so nothing returned is
-    overwritten by a later replay; all of it inside the span ``frame``."""
+    named ``frame``) and the static buffers it reads: the tensors the frame
+    carries, as a flat tuple (the scan runners: the state's six tensors and
+    the noise draw; the image loop: the state's six tensors and the
+    templates), and the frame index; the scenario is read in place and held
+    here, so that the pointers the graph reads live. A call copies the
+    caller's carried tensors into the buffers (device to device), fills the
+    index, replays ``frame`` over the one frame, and returns clones of the
+    graph's flat outputs, so nothing returned is overwritten by a later
+    replay and nothing the caller passed is written; all of it inside the
+    span ``frame``."""
 
-    def __init__(self, body, state: MonoSlamState, sc, noise: torch.Tensor):
+    def __init__(self, frame, carried: tuple, sc):
         fresh = lambda t: torch.empty_like(
             t, memory_format=torch.contiguous_format)
-        self.body, self.sc = body, sc
-        self.state = MonoSlamState(*(fresh(t) for t in state))
-        self.noise = fresh(noise)
-        self.f = torch.zeros(1, dtype=torch.int64, device=noise.device)
-        self.graph = cuda_graph.Graph("frame", noise.device)
+        self.frame, self.sc = frame, sc
+        self.carried = tuple(fresh(t) for t in carried)
+        self.f = torch.zeros(1, dtype=torch.int64, device=carried[0].device)
+        self.graph = cuda_graph.Graph("frame", self.f.device)
 
-    def _frame(self):
-        return self.body(self.state, self.sc, [self.f], self.noise)
+    def _work(self):
+        return self.frame(self.carried, self.sc, [self.f])
 
-    def __call__(self, state: MonoSlamState, f: int, noise: torch.Tensor):
+    def __call__(self, carried: tuple, f: int) -> tuple:
         with span("frame"):
-            for dst, src in zip(self.state, state):
+            for dst, src in zip(self.carried, carried):
                 dst.copy_(src)
-            self.noise.copy_(noise)
             self.f.fill_(f)
-            st_out, *rest = self.graph(self._frame)
-            return (MonoSlamState(*(t.clone() for t in st_out)),
-                    *(t.clone() for t in rest))
+            return tuple(t.clone() for t in self.graph(self._work))
 
 
-def _graphed(body):
-    """run(state, sc, frames, noise) over the eager loop ``body``: a
-    one-frame call whose tensors engage a graph (``cuda_graph.graphable``)
-    replays the :class:`_FrameGraph` of its key (the shapes of state and
-    noise, the scenario tensors' identity); any other call runs ``body`` as
-    it is. Only the latest key's graph is kept."""
+def _graphed(frame):
+    """run(carried, sc, frames) over the eager loop ``frame(carried, sc,
+    frame_indices)``, which takes the carried tensors as a flat tuple and
+    returns its outputs as one: a one-frame call whose tensors engage a
+    graph (``cuda_graph.graphable``) replays the :class:`_FrameGraph` of its
+    key (the shapes of the carried tensors, the scenario tensors'
+    identity); any other call runs ``frame`` as it is, over the frames as
+    index tensors (:func:`_frame_index`). Only the latest key's graph is
+    kept."""
     graphs = cuda_graph.Store()
 
-    def make(state, sc, noise):
+    def make(carried, sc):
         graphs.clear()      # the old graph first: its pool is free to reuse
-        return _FrameGraph(body, state, sc, noise)
+        return _FrameGraph(frame, carried, sc)
+
+    def run(carried: tuple, sc, frames) -> tuple:
+        frames = [int(f) for f in frames]
+        if len(frames) == 1 and cuda_graph.graphable((*carried, *sc)):
+            g = graphs.get(cuda_graph.key(carried, sc),
+                           lambda: make(carried, sc))
+            return g(carried, frames[0])
+        dev = sc.gt_points.device
+        return frame(carried, sc, [_frame_index(f, dev) for f in frames])
+
+    return run
+
+
+_NS = len(MonoSlamState._fields)
+
+
+def _state_noise_runner(loop):
+    """run(state, sc, frames, noise) -> (state, *outputs) of the GT-matcher
+    ``loop(state, sc, frames, noise)``, carried through :func:`_graphed` as
+    the state's tensors and the noise."""
+    def frame(carried, sc, frames):
+        st, *out = loop(MonoSlamState(*carried[:_NS]), sc, frames,
+                        carried[_NS])
+        return (*st, *out)
+
+    graphed = _graphed(frame)
 
     def run(state: MonoSlamState, sc: DeviceScenario, frames,
             noise: torch.Tensor):
-        frames = [int(f) for f in frames]
-        if len(frames) == 1 and cuda_graph.graphable((*state, *sc, noise)):
-            g = graphs.get(cuda_graph.key((*state, noise), sc),
-                           lambda: make(state, sc, noise))
-            return g(state, frames[0], noise)
-        dev = sc.gt_points.device
-        return body(state, sc, [_frame_index(f, dev) for f in frames], noise)
+        out = graphed((*state, noise), sc, frames)
+        return (MonoSlamState(*out[:_NS]), *out[_NS:])
 
     return run
 
@@ -330,7 +354,7 @@ def make_scan_runner(params: MonoSlamParams, update_impl: int = 1):
     impl 4, zeros for impls 2 and 3. A one-frame call on a card replays a
     CUDA graph of the frame (:func:`_graphed`, ``utils/cuda_graph``); the
     returned tensors are the caller's own either way."""
-    return _graphed(_scan_loop(params, update_impl))
+    return _state_noise_runner(_scan_loop(params, update_impl))
 
 
 def make_batched_scan_runner(params: MonoSlamParams, update_impl: int = 1):
@@ -357,18 +381,24 @@ def make_batched_scan_runner(params: MonoSlamParams, update_impl: int = 1):
             lambda st, nz: loop(st, sc, frames, nz),
             in_dims=(0 if state.x.dim() == 2 else None, 0))(state, noise)
 
-    return _graphed(body)
+    return _state_noise_runner(body)
 
 
 def render_frame(params: MonoSlamParams, sc: ImageSeqDeviceScenario,
-                 f: int) -> torch.Tensor:
+                 f: int | torch.Tensor) -> torch.Tensor:
     """One [H,W] frame: static background + a gaussian blob at every visible
     GT point's projection. The separable splat sum is one [H,K] @ [K,W]
-    matmul."""
+    matmul. ``f`` is a frame number or, as :func:`_project_gt` takes it, a
+    one-element int64 tensor on the scenario's device, read on the device,
+    so that a CUDA graph of the frame takes its frame from a buffer."""
     with span("frame.render"):
         H, W = sc.background.shape
         dtype, dev = sc.background.dtype, sc.background.device
-        xc = sc.gt_points @ sc.gt_cfw_R[f].T + sc.gt_cfw_t[f]
+        if not isinstance(f, torch.Tensor):
+            f = _frame_index(f, dev)
+        R = sc.gt_cfw_R.index_select(0, f)[0]
+        t = sc.gt_cfw_t.index_select(0, f)[0]
+        xc = sc.gt_points @ R.T + t
         dist = params.dist if params.enable_distortion else None
         pix = cam_mod.project_camera_point(params.cam, dist, xc)
         finite = torch.isfinite(pix)
@@ -454,7 +484,11 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
     chol_info)); without: (state, (err, n_matched, cam_pos, chol_info));
     every output is stacked over frames. ``chol_info`` is the innovation
     Cholesky's info per frame (0 = factorized; as in
-    :func:`make_scan_runner`)."""
+    :func:`make_scan_runner`). A one-frame call on a card replays a CUDA
+    graph of the frame, search kernel, recruitment and downdate included
+    (:func:`_graphed`, ``utils/cuda_graph``); it writes nothing into the
+    state and templates it is given, and the returned tensors are the
+    caller's own either way."""
     _check_update_impl(update_impl)
     if recruit and update_impl != 1:
         raise ValueError("on-device recruitment requires update_impl=1")
@@ -462,7 +496,7 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
         raise ValueError(f"unknown recruit_depth {recruit_depth!r}")
 
     def frame_body(sc: ImageSeqDeviceScenario, state: MonoSlamState,
-                   templates: torch.Tensor, f: int):
+                   templates: torch.Tensor, f: torch.Tensor):
         img = render_frame(params, sc, f)
         dtype = state.x.dtype
         Kcap = state.capacity
@@ -571,17 +605,23 @@ def make_imageseq_scan_runner(params: MonoSlamParams, *, templ_width: int = 15,
         return state, templates, (err, n, x_upd[:3], (slots >= 0).sum(),
                                   active.sum(), info)
 
-    def run(state: MonoSlamState, templates: torch.Tensor,
-            sc: ImageSeqDeviceScenario, frames):
+    def frames_loop(carried, sc: ImageSeqDeviceScenario, frames):
+        state, templates = MonoSlamState(*carried[:_NS]), carried[_NS]
         outs = []
         for f in frames:
             with span("frame"):
-                state, templates, out = frame_body(sc, state, templates,
-                                                   int(f))
+                state, templates, out = frame_body(sc, state, templates, f)
             outs.append(out)
-        out = tuple(torch.stack(o) for o in zip(*outs))
+        return (*state, templates, *(torch.stack(o) for o in zip(*outs)))
+
+    graphed = _graphed(frames_loop)
+
+    def run(state: MonoSlamState, templates: torch.Tensor,
+            sc: ImageSeqDeviceScenario, frames):
+        out = graphed((*state, templates), sc, frames)
+        state, out = MonoSlamState(*out[:_NS]), out[_NS:]
         if recruit:
-            return state, templates, out
-        return state, out
+            return state, out[0], out[1:]
+        return state, out[1:]
 
     return run
